@@ -1,0 +1,126 @@
+"""The port's copies, bridge and import boundary, held against the JAX
+package: parameters, constants and the synthetic world must be equal
+bit for bit, and the port (plus chip_smoke.py) may import neither JAX
+nor the JAX package."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import ocean_bgc_tpu  # noqa: F401  (enables x64)
+import jax.numpy as jnp
+
+from ocean_bgc_tpu import constants as jconst
+from ocean_bgc_tpu import state as jstate
+from ocean_bgc_tpu.params import ModelParams as JaxModelParams
+from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
+
+from ocean_bgc_tpu_torch import constants as tconst
+from ocean_bgc_tpu_torch import state as tstate
+from ocean_bgc_tpu_torch.params import ModelParams
+from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, resolve_device
+from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_params_carried_across_equal_defaults():
+    got = params_from_dict(dataclasses.asdict(JaxModelParams()))
+    assert got == ModelParams()
+    # the copy itself matches field for field (no drift in defaults)
+    assert dataclasses.asdict(ModelParams()) == dataclasses.asdict(
+        JaxModelParams())
+
+
+def test_constants_copy_has_not_drifted():
+    names = {n for n in dir(jconst) if n.isupper()}
+    assert names == {n for n in dir(tconst) if n.isupper()}
+    for n in sorted(names):
+        assert getattr(tconst, n) == getattr(jconst, n), n
+
+
+def test_tracer_indices_and_names_have_not_drifted():
+    for cls in ("BGCTracers", "DMSTracers", "MACROSTracers"):
+        a, b = getattr(jstate, cls), getattr(tstate, cls)
+        names = {n for n in vars(a) if n.isupper()}
+        assert names == {n for n in vars(b) if n.isupper()}, cls
+        for n in names:
+            assert getattr(b, n) == getattr(a, n), (cls, n)
+    for n in ("BGC_TRACER_NAMES", "BGC_TRACER_LONG_NAMES",
+              "DMS_TRACER_NAMES", "DMS_TRACER_LONG_NAMES",
+              "MACROS_TRACER_NAMES", "MACROS_TRACER_LONG_NAMES"):
+        assert getattr(tstate, n) == getattr(jstate, n), n
+    assert tstate.bgc_tracer_units() == jstate.bgc_tracer_units()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_synthetic_world_bitwise_equal(dtype):
+    jdt = None if dtype == "float64" else jnp.float32
+    js, jg, jf = jax_world(nlev=7, ncol=40, seed=11, ragged=True, dtype=jdt)
+    ts, tg, tf = synthetic_world(nlev=7, ncol=40, seed=11, ragged=True,
+                                 dtype=getattr(torch, dtype), device="cpu")
+    pairs = [(js.bgc, ts.bgc), (jg, tg), (jf, tf)]
+    for jobj, tobj in pairs:
+        for f in dataclasses.fields(jobj):
+            a = np.asarray(getattr(jobj, f.name))
+            b = getattr(tobj, f.name).numpy()
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+    np.testing.assert_array_equal(np.asarray(js.dms), ts.dms.numpy())
+    np.testing.assert_array_equal(np.asarray(js.macros), ts.macros.numpy())
+    # the world exercises land and shelf columns
+    kmax = tg.kmax.numpy()
+    assert (kmax == 0).any() and ((kmax > 0) & (kmax < 7)).any()
+
+
+def test_cuda_device_requested_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_world(nlev=2, ncol=4)
+
+
+def _forbidden_imports(path):
+    """(line, module) of every import of jax or of the JAX package.
+    ``ocean_bgc_tpu_torch`` shares the package's prefix and is allowed."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for m in mods:
+            root = m.split(".")[0]
+            if root in ("jax", "jaxlib", "ocean_bgc_tpu"):
+                bad.append((node.lineno, m))
+    return bad
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "ocean_bgc_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    # chip_smoke.py's check against the scalar oracle imports these
+    files += sorted((REPO / "tests" / "oracle").glob("*.py"))
+    assert len(files) > 15
+    offenders = {str(f.relative_to(REPO)): _forbidden_imports(f)
+                 for f in files}
+    assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_import_guard_catches_each_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax\nfrom jax import numpy\n"
+                   "import ocean_bgc_tpu.ops\nfrom ocean_bgc_tpu import x\n"
+                   "import ocean_bgc_tpu_torch\n"
+                   "from ocean_bgc_tpu_torch.ops import bgc\n"
+                   "from . import sibling\n")
+    assert [m for _, m in _forbidden_imports(src)] == [
+        "jax", "jax", "ocean_bgc_tpu.ops", "ocean_bgc_tpu"]
