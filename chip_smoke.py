@@ -1,24 +1,31 @@
-"""Drive the PyTorch port's production step on one NVIDIA GPU and check it.
+"""Drive the PyTorch port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits nonzero; there is no CPU fallback):
 
-1. build every CUDA kernel of the port from ``ocean_bgc_tpu_torch/csrc``;
-2. hold K1 (the dual pH solve) against its plain PyTorch version at f64
-   and f32 on the flagship's 60 x 8192 cells, cold and warm brackets:
-   all 8 outputs bitwise equal;
-3. one f64 step of a small world against the scalar NumPy/SciPy oracle
-   (``tests/oracle/coupled_ref.py``); then the main path —
-   ``synthetic_world(60, 8192, ragged)``,
-   ``precompute_env`` once, 10 ``step``s with diagnostics off — at f64
-   and f32, with K1's launches counted; tracers/DMS/MACROS bitwise equal
+1. build every CUDA kernel of the port from ``ocean_bgc_tpu_torch/csrc``
+   (one ``nvcc`` each, all started together);
+2. one f64 step of a small world against the scalar NumPy/SciPy oracle
+   (``tests/oracle/coupled_ref.py``);
+3. the default path, at f64 and f32 — ``synthetic_world(60, 8192,
+   ragged)``, ``precompute_env`` once, 10 ``step``s with diagnostics off
+   — with K1's launches counted; tracers/DMS/MACROS bitwise equal
    between ``carbonate_impl="kernel"`` and ``"torch"``, pH within the
-   solver's tolerance (|dH| <= 2 xacc); one f64 step at
-   60 x 131072 columns;
-4. numbers: columns/s of the step, K1's time beside its plain version's
-   and its bound, the plain surface and stand-in solves, and where a
-   step's time goes.
+   solver's tolerance; K1 against its plain version on cold and warm
+   inputs (all 8 outputs bitwise equal);
+4. the fused path (``interior_impl="fused"``), at f64 and f32 on the
+   same world: 10 steps with K2's and K1's launches counted (10 and 0);
+   K2 against its plain version on cold and warm inputs (pH bitwise
+   equal, tendencies within 1e-10 (f64) / 3e-5 (f32) of each tracer's
+   scale); 24 fused steps against 24 default steps within 30 times the
+   default path's distance from a run of perturbed initial tracers
+   (``scripts/qualify_fused.py``'s envelope);
+5. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
+   version;
+6. one f64 step of each path at 60 x 131072 columns;
+7. numbers: columns/s of both steps, each kernel's time beside its plain
+   version's and its bound, and where each step's time goes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +62,25 @@ OPS_CELL, OPS_SCENARIO = 8, 7 + 4 + 18
 # K1 reads 21 fields per cell and writes 8; of the 8 the step reads only
 # the two pH fields (the speciation feeds diagnostics, not ported yet)
 K1_FIELDS_IN, K1_FIELDS_OUT, K1_FIELDS_OUT_READ = 21, 8, 2
+# K2's arithmetic besides the pH solve, counted from
+# csrc/interior_step.cu as K1's is (each group's expressions four times,
+# selects not counted): kinetics 994, sinking 160, assembly 374, the
+# level loop's clipping, scavenging and masking 164
+OPS_K2_CELL = 994 + 160 + 374 + 164
+# K2 solves as K1 does but writes pH only: one log10 in place of K1's
+# speciation per scenario
+OPS_K2_NO_SPECIATION = OPS_SCENARIO - 18 + 1
+# P's arithmetic per cell besides its Newton steps (counted from
+# csrc/probe_patterns.cu), and per Newton step
+OPS_P_CELL, OPS_P_NEWTON = 27, 6
+# the trajectory gate (scripts/qualify_fused.py:57-76): steps, the
+# relative perturbation of the initial tracers and the floor (times each
+# tracer's scale) at each dtype
+TRAJ_STEPS = 24
+TRAJ_EPS_FLOOR = {torch.float64: (4e-16, 1e-12), torch.float32: (1.2e-7, 1e-2)}
+# K2 against its plain version: tendencies to this share of each
+# tracer's largest magnitude
+K2_TOL = {torch.float64: 1e-10, torch.float32: 3e-5}
 
 
 def log(*args):
@@ -259,6 +285,7 @@ def main_path(dtype, params):
     from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
     from ocean_bgc_tpu_torch.ops.carbonate import warm_brackets_h
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_coeffs
+    from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
     from ocean_bgc_tpu_torch.state import BGCTracers as T
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
     import ocean_bgc_tpu_torch.constants as c
@@ -270,6 +297,7 @@ def main_path(dtype, params):
 
     # -- the main path, counted --
     co3_terms_dual_coeffs.launches = 0
+    fused_interior_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = state0
@@ -282,8 +310,9 @@ def main_path(dtype, params):
     wall = time.perf_counter() - t0
     launches = co3_terms_dual_coeffs.launches
     log(f"main path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
-        f"K1 launches {launches}")
-    if launches != 10:
+        f"K1 launches {launches}, K2 launches "
+        f"{fused_interior_step.launches}")
+    if launches != 10 or fused_interior_step.launches != 0:
         raise AssertionError(f"K1 launched {launches} times in 10 steps")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros)):
@@ -356,7 +385,274 @@ def main_path(dtype, params):
 
     log(f"breakdown of one {dtype} step at {NLEV}x{NCOL}:")
     breakdown(dtype, states[-1], grid, forcing, params, env)
-    return dict(launches=launches, **k1)
+    return dict(launches=launches, **k1), dict(world=world, env=env,
+                                               warm=states[0], step_ms=ms)
+
+
+def k2_bound(fields, outs, dtype, k1_args):
+    """(bound_ms, bound_by, bytes, operations) of K2 on these inputs: the
+    bytes of every field it reads and writes, once each, over the HBM
+    rate, against its operations over the peak rate of the type — the
+    pH solve counted as K1's on the same carbonate inputs (iteration
+    counts from the plain version) less K1's speciation, plus the rest
+    of the interior per cell."""
+    n = k1_args[0].numel()
+    k1_ops = k1_bound(k1_args, dtype)[3]
+    ops = (k1_ops - 2 * n * (OPS_SCENARIO - OPS_K2_NO_SPECIATION)
+           + n * OPS_K2_CELL)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*fields.values(), *outs) if t is not None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def check_k2(dtype, world, env, warm_state, params):
+    """K2 against its plain version on cold and warm inputs; returns the
+    measured numbers of the warm (steady-state) inputs.
+
+    pH: bitwise (the same device solve as K1 on the same inputs).
+    Tendencies: within K2_TOL of each tracer's largest magnitude; the
+    kernel repeats the plain version's operations in its order, so only
+    the few sites where PyTorch's CUDA ops special-case an argument could
+    differ.  The count of cells over the limit is printed with the
+    worst error."""
+    from ocean_bgc_tpu_torch.ops.cuda_step import (
+        fused_interior_step as k2, fused_interior_step_torch as plain,
+        kernel_inputs)
+    from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES
+    state, grid, forcing = world
+    out = {}
+    for label, st in (("cold", state), ("warm", warm_state)):
+        b = st.bgc
+        args = (b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
+                params.bgc)
+        got = k2(*args, env=env, impl="kernel")
+        torch.cuda.synchronize()
+        want = plain(*args, env=env)
+        ph_equal = (torch.equal(got.ph_prev_3d, want.ph_prev_3d)
+                    and torch.equal(got.ph_prev_alt_3d, want.ph_prev_alt_3d))
+        diff = (got.tendencies - want.tendencies).abs()
+        rel = diff / (want.tendencies.abs().amax(dim=(0, 2), keepdim=True)
+                      + 1e-30)
+        worst = rel.max().item()
+        over = rel > K2_TOL[dtype]
+        err = max(diff.max().item(),
+                  (got.ph_prev_3d - want.ph_prev_3d).abs().max().item(),
+                  (got.ph_prev_alt_3d - want.ph_prev_alt_3d).abs().max()
+                  .item())
+        finite = bool(torch.isfinite(got.tendencies).all())
+        log(f"K2 {dtype} {label}: pH and pH_alt bitwise equal {ph_equal}; "
+            f"tendencies: worst error / tracer scale {worst:.3g} (limit "
+            f"{K2_TOL[dtype]:g}) in "
+            f"{BGC_TRACER_NAMES[int(rel.amax(dim=(0, 2)).argmax())]}, "
+            f"{int(over.sum())} cells over the limit, bitwise equal cells "
+            f"{int((diff == 0).sum())} of {diff.numel()}; max abs error "
+            f"{err:.3g}; finite {finite}")
+        if over.any():
+            k, i, col = (int(v) for v in over.nonzero()[0])
+            log(f"  first cell over the limit: level {k}, "
+                f"{BGC_TRACER_NAMES[i]}, column {col} (kmax "
+                f"{int(grid.kmax[col])})")
+        if not (ph_equal and finite and not over.any()):
+            raise AssertionError(f"K2 {dtype} {label} disagrees with its "
+                                 f"plain version")
+        ms = cuda_ms(lambda: k2(*args, env=env, impl="kernel"), reps=10)
+        plain_ms = cuda_ms(lambda: plain(*args, env=env), reps=1, warmup=1,
+                           rounds=3)
+        fields = kernel_inputs(*args, env)
+        bound_ms, bound_by, nbytes, ops = k2_bound(
+            fields, got, dtype, k1_inputs(st, grid, forcing, env))
+        log(f"K2 {dtype} {label}: {ms:.4f} ms/launch, plain {plain_ms:.3f} "
+            f"ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return out["warm"]
+
+
+def trajectory_gate(dtype, state0, grid, forcing, params, env):
+    """TRAJ_STEPS fused steps against as many default steps from the same
+    state: per tracer, max|fused - default| <= 30 envelope + floor scale,
+    the envelope being the default path's distance from a run whose
+    initial tracers were scaled by (1 + eps) (scripts/qualify_fused.py's
+    criterion)."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.models.coupled import step
+    from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES
+
+    def run(s, impl):
+        for _ in range(TRAJ_STEPS):
+            s, _ = step(s, grid, forcing, params, DT, compute_diags=False,
+                        env=env, interior_impl=impl)
+        return s.bgc.tracers.double()
+
+    eps, floor = TRAJ_EPS_FLOOR[dtype]
+    t0 = time.perf_counter()
+    fused = run(state0, "fused")
+    ref = run(state0, "auto")
+    pert = dataclasses.replace(state0, bgc=dataclasses.replace(
+        state0.bgc, tracers=state0.bgc.tracers * torch.tensor(
+            1.0 + eps, dtype=dtype)))
+    envelope = (run(pert, "auto") - ref).abs()
+    worst, fails = 0.0, []
+    for idx in range(len(BGC_TRACER_NAMES)):
+        mismatch = (fused[:, idx] - ref[:, idx]).abs().max().item()
+        scale = ref[:, idx].abs().max().item() + 1e-30
+        bound = (30.0 * envelope[:, idx].max().item() + floor * scale
+                 + 1e-12)
+        worst = max(worst, mismatch / bound)
+        if not mismatch <= bound:
+            fails.append(f"{BGC_TRACER_NAMES[idx]} {mismatch:.3e} > "
+                         f"{bound:.3e}")
+    log(f"trajectory gate {dtype}: {TRAJ_STEPS} fused vs default steps, "
+        f"eps {eps:g}, floor {floor:g}: worst mismatch / bound {worst:.3g} "
+        f"(limit 1), finite {bool(torch.isfinite(fused).all())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if fails or not torch.isfinite(fused).all():
+        raise AssertionError(f"fused trajectory outside the envelope: "
+                             f"{fails}")
+
+
+def fused_breakdown(dtype, state, grid, forcing, params, env, step_ms):
+    """Where one fused step's time goes: its parts alone (CUDA events),
+    and the device's busy share from the profiler."""
+    from ocean_bgc_tpu_torch.models import coupled
+    from ocean_bgc_tpu_torch.ops import surface
+    from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
+    from ocean_bgc_tpu_torch.ops.dms import dms_source_sink
+    from ocean_bgc_tpu_torch.ops.macros import macros_source_sink
+    active = grid.active_mask()
+    b = state.bgc
+    parts = {
+        "surface fluxes": lambda: (
+            surface.bgc_surface_fluxes(b.tracers, forcing, b.surface_ph,
+                                       b.surface_ph_alt, params.bgc),
+            surface.dms_surface_fluxes(state.dms[0, 0], forcing.sst,
+                                       forcing.sss, forcing.ice_fraction,
+                                       forcing.wind_speed_squared_10m,
+                                       forcing.surface_pressure,
+                                       params.dms)),
+        "K2 (wrapper + launch)": lambda: fused_interior_step(
+            b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
+            params.bgc, env=env),
+        "dms + macros": lambda: (
+            dms_source_sink(coupled.dms_tracer_block(state),
+                            grid.cell_thickness, active, forcing.sst,
+                            forcing.shortwave_surface, params.dms),
+            macros_source_sink(coupled.macros_tracer_block(state), active,
+                               params.macros)),
+    }
+    times = {k: cuda_ms(fn, reps=3, warmup=1, rounds=3)
+             for k, fn in parts.items()}
+    for k, v in times.items():
+        log(f"  {dtype} {k}: {v:.3f} ms")
+    log(f"  {dtype} the rest (tracer blocks, deposit, update; step minus "
+        f"the parts): {step_ms - sum(times.values()):.3f} ms")
+    busy = device_busy_ms(lambda: coupled.step(
+        state, grid, forcing, params, DT, compute_diags=False, env=env,
+        interior_impl="fused"))
+    if busy is None:
+        log(f"  {dtype} device busy share of a fused step: not measured "
+            f"(the profiler reported no device time)")
+    else:
+        log(f"  {dtype} device busy share of a fused step: {busy:.3f} ms "
+            f"of {step_ms:.3f} ms ({100 * busy / step_ms:.1f}%)")
+
+
+def fused_path(dtype, params, ctx):
+    """Phase 4 at one dtype; returns K2's kernel entry's numbers."""
+    from ocean_bgc_tpu_torch.models.coupled import step
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_coeffs
+    from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
+
+    world, env = ctx["world"], ctx["env"]
+    state0, grid, forcing = world
+
+    # -- the fused path, counted --
+    co3_terms_dual_coeffs.launches = 0
+    fused_interior_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = state0
+    for _ in range(10):
+        state, _ = step(state, grid, forcing, params, DT,
+                        compute_diags=False, env=env, interior_impl="fused")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_interior_step.launches
+    k1_launches = co3_terms_dual_coeffs.launches
+    log(f"fused path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
+        f"K2 launches {launches}, K1 launches {k1_launches}")
+    if launches != 10 or k1_launches != 0:
+        raise AssertionError(f"the fused path launched K2 {launches} and "
+                             f"K1 {k1_launches} times in 10 steps")
+    for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
+                    ("macros", state.macros),
+                    ("pH", state.bgc.ph_prev_3d)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite {name} after 10 fused steps")
+
+    k2 = check_k2(dtype, world, env, ctx["warm"], params)
+    trajectory_gate(dtype, state0, grid, forcing, params, env)
+
+    cur = state
+
+    def one():
+        nonlocal cur
+        cur, _ = step(cur, grid, forcing, params, DT, compute_diags=False,
+                      env=env, interior_impl="fused")
+    ms = cuda_ms(one, reps=3, warmup=1, rounds=5)
+    log(f"fused step {dtype} at {NLEV}x{NCOL} (ragged, env on, diags off): "
+        f"{ms:.3f} ms/step, {NCOL / (ms / 1e3):.1f} columns/s; default "
+        f"step {ctx['step_ms']:.3f} ms/step, "
+        f"{NCOL / (ctx['step_ms'] / 1e3):.1f} columns/s")
+    log(f"breakdown of one fused {dtype} step at {NLEV}x{NCOL}:")
+    fused_breakdown(dtype, cur, grid, forcing, params, env, ms)
+    return dict(launches=launches, **k2)
+
+
+def probe_phase():
+    """Phase 5: P on its own path (probe.run), counted, then against its
+    plain version; returns its kernel entry's numbers."""
+    from ocean_bgc_tpu_torch import probe
+    probe.probe_patterns.launches = 0
+    out, tend, checksum = probe.run()
+    torch.cuda.synchronize()
+    launches = probe.probe_patterns.launches
+    args = probe.probe_inputs()
+    want = probe.probe_patterns_torch(*args)
+    rel = probe.max_rel_err((out, tend), want)
+    err = max((g - w).abs().max().item() for g, w in zip((out, tend), want))
+    log(f"P: launches {launches}, checksum {checksum:.6g}, max error / "
+        f"scale {rel:.3g} (limit {probe.RTOL:g}), max abs error {err:.3g}")
+    if launches != 1 or not rel <= probe.RTOL:
+        raise AssertionError("P disagrees with its plain version")
+    ms = cuda_ms(lambda: probe.probe_patterns(*args), reps=20)
+    plain_ms = cuda_ms(lambda: probe.probe_patterns_torch(*args), reps=1,
+                       warmup=1, rounds=3)
+    tr, temp, kmax = args
+    # Newton steps per cell, as the plain version's per-lane loop takes
+    # them
+    x, act, iters = torch.ones_like(temp), torch.ones_like(temp, dtype=bool), 0
+    for _ in range(20):
+        xn = 0.5 * (x + temp / torch.clamp_min(x, 1e-6))
+        iters += int(act.sum())
+        conv = (xn - x).abs() < 1e-4
+        x = torch.where(act, xn, x)
+        act = act & ~conv
+    ops = temp.numel() * OPS_P_CELL + iters * OPS_P_NEWTON
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (tr, temp, kmax, out, tend))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    log(f"P: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+        f"{max(t_bytes, t_ops):.2e} ms ({nbytes} B, {ops} op)")
+    return dict(launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def oracle_check(params):
@@ -416,28 +712,34 @@ def oracle_check(params):
 
 
 def big_step(params):
+    """Phase 6: one f64 step of each interior at 60 x NCOL_BIG columns,
+    timed on its first call, with its peak device memory."""
     from ocean_bgc_tpu_torch.models.coupled import step
     from ocean_bgc_tpu_torch.ops.bgc import precompute_env
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
     state, grid, forcing = synthetic_world(nlev=NLEV, ncol=NCOL_BIG,
                                            seed=SEED, ragged=True)
     env = precompute_env(grid, forcing, params.bgc)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out, _ = step(state, grid, forcing, params, DT, compute_diags=False,
-                  env=env)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ok = all(torch.isfinite(t).all().item() for t in (
-        out.bgc.tracers, out.dms, out.macros, out.bgc.ph_prev_3d))
     state_gb = sum(t.numel() * t.element_size() for t in (
         state.bgc.tracers, state.dms, state.macros)) / 1e9
-    log(f"f64 step at {NLEV}x{NCOL_BIG}: {wall:.3f} s (first call), "
-        f"prognostic state {state_gb:.2f} GB, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, finite {ok}")
-    if not ok:
-        raise AssertionError("non-finite state after the big f64 step")
+    for impl in ("auto", "fused"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, _ = step(state, grid, forcing, params, DT, compute_diags=False,
+                      env=env, interior_impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = all(torch.isfinite(t).all().item() for t in (
+            out.bgc.tracers, out.dms, out.macros, out.bgc.ph_prev_3d))
+        log(f"f64 step (interior_impl={impl!r}) at {NLEV}x{NCOL_BIG}: "
+            f"{wall:.3f} s (first call), prognostic state {state_gb:.2f} "
+            f"GB, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, finite {ok}")
+        if not ok:
+            raise AssertionError(f"non-finite state after the big f64 "
+                                 f"step ({impl})")
+        del out
 
 
 def main():
@@ -462,15 +764,26 @@ def main():
     oracle_check(params)
     kernels = []
     for dtype in (torch.float64, torch.float32):
-        k = main_path(dtype, params)
-        kernels.append(dict(
-            name=f"carbonate_dual ({str(dtype).split('.')[-1]})",
-            route="cuda",
-            source="ocean_bgc_tpu_torch/csrc/carbonate_dual.cu",
-            replaces="ocean_bgc_tpu/ops/pallas_carbonate.py:63",
-            launches=k["launches"], max_abs_err=k["max_abs_err"],
-            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=None))
+        name = str(dtype).split('.')[-1]
+        k1, ctx = main_path(dtype, params)
+        k2 = fused_path(dtype, params, ctx)
+        del ctx
+        for kname, src, tpu, k in (
+                ("carbonate_dual", "carbonate_dual.cu",
+                 "ocean_bgc_tpu/ops/pallas_carbonate.py:63", k1),
+                ("interior_step", "interior_step.cu",
+                 "ocean_bgc_tpu/ops/pallas_step.py:146", k2)):
+            kernels.append(dict(
+                name=f"{kname} ({name})", route="cuda",
+                source=f"ocean_bgc_tpu_torch/csrc/{src}", replaces=tpu,
+                launches=k["launches"], max_abs_err=k["max_abs_err"],
+                ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                bound_by=k["bound_by"], library_ms=None))
+    p = probe_phase()
+    kernels.append(dict(
+        name="probe (float32)", route="cuda",
+        source="ocean_bgc_tpu_torch/csrc/probe_patterns.cu",
+        replaces="scripts/probe_mosaic.py:35", library_ms=None, **p))
     big_step(params)
 
     log(card)

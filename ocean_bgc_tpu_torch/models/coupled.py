@@ -11,11 +11,13 @@ forcing, params, dt, ...)``
 3. advances tracers forward-Euler, depositing surface fluxes into the top
    active cell.
 
-This slice ports the production configuration: ``compute_diags=False``,
-with or without the env cache.  Diagnostics, the health counters, the
-diagnostic filter and dtype, the fused interior kernel and ``run`` (the
-integration loop with time averaging) are not ported yet (ROADMAP queue 1
-items 9-10, queue 2 item 2) and raise ``NotImplementedError``.
+The port runs the production configuration: ``compute_diags=False``,
+with or without the env cache, through ``bgc_source_sink`` (the default
+interior, with K1) or, with ``interior_impl="fused"``, through K2, the
+whole-interior kernel.  Diagnostics, the health counters, the diagnostic
+filter and dtype, and ``run`` (the integration loop with time averaging)
+are not ported yet (ROADMAP queue 1 items 9-10) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from ocean_bgc_tpu_torch.ops.bgc import EnvCache, bgc_source_sink
+from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
 from ocean_bgc_tpu_torch.ops.dms import dms_source_sink
 from ocean_bgc_tpu_torch.ops.macros import macros_source_sink
 from ocean_bgc_tpu_torch.ops.surface import (
@@ -93,8 +96,26 @@ class CoupledTendencies:
     surface_ph_alt: torch.Tensor
 
 
-def _not_ported(compute_diags, interior_impl, diag_dtype, health,
-                diag_filter):
+def _resolve_interior_impl(interior_impl, compute_diags, health):
+    """"auto" -> "xla" (``bgc_source_sink``, with K1 on CUDA tensors);
+    "fused" takes K2 (``ops/cuda_step.py``) at f64 and f32, with
+    diagnostics off and no health counters, as the JAX package's
+    ``resolve_interior_impl`` allows it."""
+    if interior_impl == "auto":
+        return "xla"
+    if interior_impl not in ("xla", "fused"):
+        raise ValueError(f"unknown interior_impl {interior_impl!r}")
+    if interior_impl == "fused" and compute_diags:
+        raise ValueError("interior_impl='fused' supports only the "
+                         "production configuration (compute_diags=False)")
+    if interior_impl == "fused" and health:
+        raise ValueError("health=True is not supported with "
+                         "interior_impl='fused' (the whole-interior kernel "
+                         "does not expose solver residuals)")
+    return interior_impl
+
+
+def _not_ported(compute_diags, diag_dtype, health, diag_filter):
     if compute_diags:
         raise NotImplementedError(
             "compute_diags=True is not ported yet (ROADMAP queue 1 item 9);"
@@ -106,12 +127,6 @@ def _not_ported(compute_diags, interior_impl, diag_dtype, health,
         raise NotImplementedError(
             "diag_filter and diag_dtype are not ported yet (ROADMAP "
             "queue 1 item 9)")
-    if interior_impl == "fused":
-        raise NotImplementedError(
-            "interior_impl='fused' (the whole-interior kernel K2) is not "
-            "ported yet (ROADMAP queue 2 item 2)")
-    if interior_impl not in ("auto", "xla"):
-        raise ValueError(f"unknown interior_impl {interior_impl!r}")
 
 
 def evaluate_tendencies(
@@ -131,9 +146,11 @@ def evaluate_tendencies(
     """The coupled model's right-hand side: surface fluxes + all three
     source-sink steps.  Returns (tendencies, diagnostics); with
     diagnostics off the dict is empty.  ``carbonate_impl``: "auto" |
-    "kernel" | "torch" (see ``ops/cuda_carbonate.py``)."""
-    _not_ported(compute_diags, interior_impl, diag_dtype, health,
-                diag_filter)
+    "kernel" | "torch" (see ``ops/cuda_carbonate.py``).  ``interior_impl``:
+    "auto" | "xla" | "fused" (see :func:`_resolve_interior_impl`); the env
+    cache reaches either interior."""
+    impl = _resolve_interior_impl(interior_impl, compute_diags, health)
+    _not_ported(compute_diags, diag_dtype, health, diag_filter)
 
     active = grid.active_mask()                       # (nlev, ncol)
     has_ocean = grid.kmax > 0                         # (ncol,)
@@ -149,10 +166,16 @@ def evaluate_tendencies(
         params.dms)
 
     # ---- 2. interior tendencies ----
-    bgc_out = bgc_source_sink(
-        state.bgc.tracers, grid, forcing,
-        state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
-        compute_diags=False, carbonate_impl=carbonate_impl, env=env)
+    if impl == "fused":
+        bgc_out = fused_interior_step(
+            state.bgc.tracers, grid, forcing,
+            state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
+            env=env)
+    else:
+        bgc_out = bgc_source_sink(
+            state.bgc.tracers, grid, forcing,
+            state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
+            compute_diags=False, carbonate_impl=carbonate_impl, env=env)
     dms_tend, _ = dms_source_sink(
         dms_tracer_block(state), grid.cell_thickness, active,
         forcing.sst, forcing.shortwave_surface, params.dms)
@@ -217,7 +240,8 @@ def step(
     The production call is ``step(..., compute_diags=False,
     env=precompute_env(grid, forcing, params.bgc))``; the env cache holds
     while the forcing snapshot does.  ``carbonate_impl``: "auto" |
-    "kernel" | "torch"."""
+    "kernel" | "torch"; ``interior_impl``: "auto" | "xla" | "fused" (K2,
+    one kernel launch for the whole interior)."""
     tend, diags = evaluate_tendencies(state, grid, forcing, params,
                                       compute_diags=compute_diags,
                                       carbonate_impl=carbonate_impl,

@@ -3,9 +3,16 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library
 with a plain C interface, ``_build/lib<name>-<hash>.so`` inside the
 package (git-ignored), and loaded with ``ctypes``.  The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  :func:`build` compiles every source at once, one ``nvcc``
-process each, all started together.
+source, every shared header ``csrc/*.cuh``, the generated constants
+header and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.  :func:`build` compiles every source at once,
+one ``nvcc`` process each, all started together.
+
+The kernels' physical constants and tracer indices come from one place:
+:func:`constants_header` writes ``_build/include/obgc_constants.h`` from
+``constants.py``, ``state.py`` and the few module constants the kernels
+share with the plain versions, each float as Python's round-trip
+``repr``, so a kernel holds the same doubles as the plain version.
 
 Nothing here touches CUDA at import time: the CPU tests import every
 module of the package.
@@ -25,7 +32,8 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("carbonate_dual",)
+INCLUDE_DIR = BUILD_DIR / "include"
+SOURCES = ("carbonate_dual", "interior_step", "probe_patterns")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -33,22 +41,79 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is not None:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
-                           "toolkit's bin directory on PATH")
-    return path
+def _shared_constants() -> Dict[str, float]:
+    """Module constants of the plain versions that the kernels repeat."""
+    from ocean_bgc_tpu_torch.ops import carbonate, numerics, particulates
+    return {
+        "LN10": carbonate._LN10,
+        "XACC_F32": carbonate.XACC_F32,
+        "BRACKET_GROW_GUARD": carbonate._BRACKET_GROW_GUARD,
+        "MOREL_BREAK": numerics._MOREL_BREAK,
+        "LOG_MOREL_A1": numerics._LOG_MOREL_A1,
+        "LOG_MOREL_A2": numerics._LOG_MOREL_A2,
+        "MOREL_P1": numerics._MOREL_P1,
+        "MOREL_P2": numerics._MOREL_P2,
+        "RHO_CACO3": particulates.RHO_CACO3,
+        "RHO_SIO2": particulates.RHO_SIO2,
+        "RHO_DUST": particulates.RHO_DUST,
+    }
+
+
+def _cpp(name: str, value) -> str:
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        raise TypeError(f"constant {name} = {value!r} is not a number")
+    if isinstance(value, int):
+        return f"constexpr int {name} = {value};"
+    return f"constexpr double {name} = {value!r};"
+
+
+def constants_header() -> str:
+    """The text of ``obgc_constants.h``: every upper-case constant of
+    ``constants.py`` and of :func:`_shared_constants` in namespace
+    ``obgc::cst``, and the BGC tracer indices as ``TR_<NAME>`` (the
+    per-autotroph slot tables as device arrays, -1 for a missing slot,
+    so that kernels may index them with a loop variable)."""
+    from ocean_bgc_tpu_torch import constants
+    from ocean_bgc_tpu_torch.state import BGCTracers
+    lines = ["// Generated by ocean_bgc_tpu_torch/ops/_kernels.py from "
+             "constants.py and state.py;",
+             "// do not edit.", "#pragma once", "",
+             "namespace obgc {", "namespace cst {"]
+    values = {n: getattr(constants, n) for n in dir(constants)
+              if n.isupper()}
+    values.update(_shared_constants())
+    lines += [_cpp(n, v) for n, v in sorted(values.items())]
+    for n in sorted(vars(BGCTracers)):
+        v = getattr(BGCTracers, n)
+        if not n.isupper():
+            continue
+        if isinstance(v, tuple):
+            items = ", ".join(str(-1 if i is None else i) for i in v)
+            lines.append(f"__device__ constexpr int TR_{n}[{len(v)}] = "
+                         f"{{{items}}};")
+        else:
+            lines.append(_cpp(f"TR_{n}", v))
+    lines += ["}  // namespace cst", "}  // namespace obgc", ""]
+    return "\n".join(lines)
+
+
+def _write_header() -> str:
+    text = constants_header()
+    INCLUDE_DIR.mkdir(parents=True, exist_ok=True)
+    path = INCLUDE_DIR / "obgc_constants.h"
+    if not path.exists() or path.read_text() != text:
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, path)
+    return text
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(constants_header().encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -58,6 +123,7 @@ def build(names=SOURCES) -> Dict[str, dict]:
     for the sources it compiled; raises RuntimeError naming the first
     source that failed, with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _write_header()
     nvcc = _nvcc()
     procs = {}
     for name in names:
@@ -65,7 +131,8 @@ def build(names=SOURCES) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True),
@@ -83,6 +150,19 @@ def build(names=SOURCES) -> Dict[str, dict]:
         raise RuntimeError(f"nvcc failed on csrc/{failed[0]}.cu:\n"
                            f"{failed[1]}")
     return report
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                           "toolkit's bin directory on PATH")
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:

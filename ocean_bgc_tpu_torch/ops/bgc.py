@@ -132,7 +132,7 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
     coeffs = carbonate_coeffs(depth_m, temp_s, salt_s, subsurface,
                               k1_k2_ph_tot=True)
     sat_calc, sat_arag = co3_sat_vals(depth_m, temp_s, salt_s, subsurface)
-    tfunc = c.Q_10 ** ((temp - c.TREF) / 10.0)
+    tfunc = q10_tfunc(temp)
     diss = precompute_dissolution(temp, grid.cell_thickness,
                                   grid.cell_bottom_depth, params)
     zero = torch.zeros_like(temp_s)
@@ -331,7 +331,7 @@ def ecosystem_kinetics(
     # ---- temperature response (BGC_mod.F90:1041); precomputed by the
     # env cache when the forcing snapshot is held constant ----
     if tfunc is None:
-        tfunc = c.Q_10 ** ((temp - c.TREF) / 10.0)
+        tfunc = q10_tfunc(temp)
 
     # ---- depth-tapered loss threshold (BGC_mod.F90:1047-1055) ----
     f_loss_thres = torch.where(
@@ -826,6 +826,24 @@ def compute_restoring(forcing: BGCForcing, tr: torch.Tensor,
     return restore_no3, restore_sio3, restore_po4
 
 
+def q10_tfunc(temp):
+    """The ecosystem's Q10 temperature response (BGC_mod.F90:1041)."""
+    return c.Q_10 ** ((temp - c.TREF) / 10.0)
+
+
+def interior_coeffs(grid: ColumnGrid, forcing: BGCForcing) -> CarbCoeffs:
+    """The interior solve's equilibrium constants evaluated in-step (no
+    env cache): inactive cells at the stand-in T 10, S 35, pressure
+    corrections below the surface level."""
+    active = grid.active_mask()
+    subsurface = (torch.arange(grid.nlev, device=active.device) > 0)[:, None]
+    return carbonate_coeffs(
+        grid.cell_center_depth * 0.01,
+        torch.where(active, forcing.potential_temperature, 10.0),
+        torch.where(active, forcing.salinity, 35.0),
+        subsurface, k1_k2_ph_tot=True)
+
+
 def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
                      ph_prev_3d, ph_prev_alt_3d,
                      env: Optional[EnvCache] = None) -> tuple:
@@ -849,13 +867,7 @@ def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
         ph_seed = torch.where(active, ph_prev_3d, env.standin_ph)
         ph_seed_alt = torch.where(active, ph_prev_alt_3d, env.standin_ph)
     else:
-        subsurface = (torch.arange(grid.nlev, device=tracers.device)
-                      > 0)[:, None]
-        coeffs = carbonate_coeffs(
-            grid.cell_center_depth * 0.01,
-            torch.where(active, forcing.potential_temperature, 10.0),
-            torch.where(active, forcing.salinity, 35.0),
-            subsurface, k1_k2_ph_tot=True)
+        coeffs = interior_coeffs(grid, forcing)
         ph_seed, ph_seed_alt = ph_prev_3d, ph_prev_alt_3d
     return (field(T.DIC, 2000.0), field(T.ALK, 2300.0), field(T.PO4, 0.0),
             field(T.SIO3, 0.0), ph_seed.contiguous(), ph_seed_alt.contiguous(),

@@ -184,8 +184,7 @@ def test_one_step_matches_oracle_and_env_free_step():
 
 @pytest.mark.parametrize("kwargs", [
     dict(compute_diags=True), dict(health=True),
-    dict(diag_filter=["pH_3D"]), dict(diag_dtype=torch.float32),
-    dict(interior_impl="fused")])
+    dict(diag_filter=["pH_3D"]), dict(diag_dtype=torch.float32)])
 def test_options_not_ported_yet_raise(kwargs):
     state, grid, forcing = world_from_numpy(*_np_world(nlev=2, ncol=4),
                                             device="cpu")
