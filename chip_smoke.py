@@ -121,38 +121,48 @@ def k1_inputs(state, grid, forcing, env):
                             env)
 
 
-def k1_bound(args, dtype):
-    """(bound_ms, bound_by, bytes, operations, mean iterations, path
-    bound_ms): the larger of K1's bytes over the HBM rate and of the
-    operations these inputs need (iteration counts from the plain
-    version, which runs the same per-lane iteration) over the peak rate
-    of the type.  The path bound counts only the outputs the step reads."""
+def solve_ops(args, cells=None):
+    """(operations, mean iterations per scenario) of K1's dual solve on
+    these inputs, over ``cells`` (a mask; all cells if None), iteration
+    counts from the plain version, which runs the same per-lane
+    iteration."""
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
         co3_terms_dual_coeffs_torch)
     *_, stats = co3_terms_dual_coeffs_torch(*args, with_stats=True)
-    n = args[0].numel()
+    if cells is None:
+        cells = torch.ones_like(args[0], dtype=torch.bool)
+    n = int(cells.sum())
     ops = OPS_CELL * n
     for st in stats:
-        iters = st["iters"].double()
-        grows = st["grows"].double()
+        iters = st["iters"].double()[cells]
+        grows = st["grows"].double()[cells]
         ops += (n * (OPS_SCENARIO + 2 * OPS_TALK_FN + OPS_TALK)
                 + (grows * (OPS_GROW + 2 * OPS_TALK_FN)).sum().item()
                 + (iters * OPS_ITER).sum().item()
                 + ((iters - 1).clamp_min(0) * OPS_TALK).sum().item())
+    return ops, [st["iters"].double()[cells].mean().item() for st in stats]
+
+
+def k1_bound(args, dtype):
+    """(bound_ms, bound_by, bytes, operations, mean iterations, path
+    bound_ms): the larger of K1's bytes over the HBM rate and of the
+    operations these inputs need over the peak rate of the type.  The
+    path bound counts only the outputs the step reads."""
+    n = args[0].numel()
+    ops, iters_mean = solve_ops(args)
     nbytes = (K1_FIELDS_IN + K1_FIELDS_OUT) * args[0].element_size() * n
     path_bytes = ((K1_FIELDS_IN + K1_FIELDS_OUT_READ)
                   * args[0].element_size() * n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     path_ms = max(path_bytes / HBM_BYTES_PER_S * 1e3, t_ops)
-    iters_mean = [st["iters"].double().mean().item() for st in stats]
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops, iters_mean, path_ms)
 
 
 def check_k1(dtype, world, env, warm_state):
     """Phase 2: K1 against its plain version on cold and warm inputs;
-    returns the measured numbers of the warm (steady-state) inputs.
+    returns the numbers measured on the warm (steady-state) ones.
 
     Tolerance: none, all 8 outputs must be bitwise equal.  The kernel
     runs each lane's iteration in the plain version's order, with its
@@ -165,7 +175,6 @@ def check_k1(dtype, world, env, warm_state):
         co3_terms_dual_coeffs as k1, co3_terms_dual_coeffs_torch as plain)
     state, grid, forcing = world
     xacc = solver_xacc(dtype)
-    out = {}
     for label, st in (("cold", state), ("warm", warm_state)):
         args = k1_inputs(st, grid, forcing, env)
         got = k1(*args, impl="kernel")
@@ -185,24 +194,22 @@ def check_k1(dtype, world, env, warm_state):
         if not finite or err != 0.0:
             raise AssertionError(f"K1 {dtype} {label} disagrees with its "
                                  f"plain version")
-        ms = cuda_ms(lambda: k1(*args, impl="kernel"), reps=20)
-        plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=1, rounds=3)
-        bound_ms, bound_by, nbytes, ops, iters, path_ms = k1_bound(args,
-                                                                   dtype)
-        log(f"K1 {dtype} {label}: {ms:.4f} ms/launch, plain {plain_ms:.3f}"
-            f" ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f}"
-            f" MB, {ops / 1e9:.3f} Gop, mean iterations {iters[0]:.2f} / "
-            f"{iters[1]:.2f}); bound of the {K1_FIELDS_IN} + "
-            f"{K1_FIELDS_OUT_READ} fields the step needs {path_ms:.4f} ms")
-        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-    return out["warm"]
+    ms = cuda_ms(lambda: k1(*args, impl="kernel"), reps=20)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=1, rounds=3)
+    bound_ms, bound_by, nbytes, ops, iters, path_ms = k1_bound(args, dtype)
+    log(f"K1 {dtype} warm: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} Gop, mean iterations {iters[0]:.2f} / "
+        f"{iters[1]:.2f}); bound of the {K1_FIELDS_IN} + "
+        f"{K1_FIELDS_OUT_READ} fields the step needs {path_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
-def breakdown(dtype, state, grid, forcing, params, env):
+def breakdown(dtype, state, grid, forcing, params, env, step_ms):
     """Where one step's time goes: each part of the step called alone on
-    the step's inputs (CUDA events), and the device's busy share of a
-    step from the profiler."""
+    the step's inputs (CUDA events, median of 3 single calls), and the
+    device's busy share of a step (``step_ms``) from the profiler."""
     from ocean_bgc_tpu_torch import constants
     from ocean_bgc_tpu_torch.models import coupled
     from ocean_bgc_tpu_torch.ops import bgc, surface
@@ -215,8 +222,6 @@ def breakdown(dtype, state, grid, forcing, params, env):
     par = (forcing.shortwave_surface.clamp_min(0.0)[None, :]
            * constants.F_QSW_PAR)
     parts = {
-        "step": lambda: coupled.step(state, grid, forcing, params, DT,
-                                     compute_diags=False, env=env),
         "surface fluxes": lambda: (
             surface.bgc_surface_fluxes(state.bgc.tracers, forcing,
                                        state.bgc.surface_ph,
@@ -243,7 +248,7 @@ def breakdown(dtype, state, grid, forcing, params, env):
             macros_source_sink(coupled.macros_tracer_block(state), active,
                                params.macros)),
     }
-    times = {k: cuda_ms(fn, reps=3, warmup=1, rounds=3)
+    times = {k: cuda_ms(fn, reps=1, warmup=1, rounds=3)
              for k, fn in parts.items()}
     rest = (times["bgc_source_sink"] - times["  K1"]
             - times["  ecosystem_kinetics"])
@@ -251,20 +256,21 @@ def breakdown(dtype, state, grid, forcing, params, env):
         log(f"  {dtype} {k}: {v:.3f} ms")
     log(f"  {dtype}   level recurrence + assembly + masking (remainder): "
         f"{rest:.3f} ms")
-    busy = device_busy_ms(parts["step"])
+    busy = device_busy_ms(lambda: coupled.step(
+        state, grid, forcing, params, DT, compute_diags=False, env=env))
     if busy is None:
         log(f"  {dtype} device busy share of a step: not measured (the "
             f"profiler reported no device time)")
     else:
         log(f"  {dtype} device busy share of a step: {busy:.3f} ms of "
-            f"{times['step']:.3f} ms ({100 * busy / times['step']:.1f}%)")
+            f"{step_ms:.3f} ms ({100 * busy / step_ms:.1f}%)")
 
 
 def device_busy_ms(fn):
-    """Sum of device kernel time over one call, from torch.profiler, or
-    None where the profiler sees no device activity."""
+    """Sum of device kernel time over one call of ``fn`` (already warm),
+    from torch.profiler, or None where the profiler sees no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -323,7 +329,7 @@ def main_path(dtype, params):
 
     # -- kernel vs plain version through the whole step --
     a = b = state0
-    for _ in range(3):
+    for _ in range(2):
         a, _ = step(a, grid, forcing, params, DT, compute_diags=False,
                     env=env, carbonate_impl="kernel")
         b, _ = step(b, grid, forcing, params, DT, compute_diags=False,
@@ -340,7 +346,7 @@ def main_path(dtype, params):
                      (a.bgc.ph_prev_3d, b.bgc.ph_prev_3d),
                      (a.bgc.ph_prev_alt_3d, b.bgc.ph_prev_alt_3d)))
     xacc = solver_xacc(dtype)
-    log(f"main path {dtype}: kernel vs torch over 3 steps: tracers/DMS/"
+    log(f"main path {dtype}: kernel vs torch over 2 steps: tracers/DMS/"
         f"MACROS bitwise equal {same}, max|dpH| {ph_diff:.3g}, max|dH|/xacc "
         f"{h_diff / xacc:.3g} (limit 2)")
     if not same:
@@ -359,7 +365,7 @@ def main_path(dtype, params):
         nonlocal cur
         cur, _ = step(cur, grid, forcing, params, DT, compute_diags=False,
                       env=env)
-    ms = cuda_ms(one, reps=3, warmup=1, rounds=5)
+    ms = cuda_ms(one, reps=2, warmup=1, rounds=5)
     log(f"step {dtype} at {NLEV}x{NCOL} (ragged, env on, diags off): "
         f"{ms:.3f} ms/step, {NCOL / (ms / 1e3):.1f} columns/s")
 
@@ -384,24 +390,35 @@ def main_path(dtype, params):
         f"once per forcing snapshot) {standin_ms:.3f} ms")
 
     log(f"breakdown of one {dtype} step at {NLEV}x{NCOL}:")
-    breakdown(dtype, states[-1], grid, forcing, params, env)
-    return dict(launches=launches, **k1), dict(world=world, env=env,
-                                               warm=states[0], step_ms=ms)
+    breakdown(dtype, states[-1], grid, forcing, params, env, ms)
+    return dict(launches=launches, **k1), dict(
+        world=world, env=env, warm=states[0], after=states, step_ms=ms)
 
 
-def k2_bound(fields, outs, dtype, k1_args):
+def k2_bound(fields, outs, dtype, k1_args, active):
     """(bound_ms, bound_by, bytes, operations) of K2 on these inputs: the
-    bytes of every field it reads and writes, once each, over the HBM
-    rate, against its operations over the peak rate of the type — the
-    pH solve counted as K1's on the same carbonate inputs (iteration
-    counts from the plain version) less K1's speciation, plus the rest
-    of the interior per cell."""
-    n = k1_args[0].numel()
-    k1_ops = k1_bound(k1_args, dtype)[3]
-    ops = (k1_ops - 2 * n * (OPS_SCENARIO - OPS_K2_NO_SPECIATION)
-           + n * OPS_K2_CELL)
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*fields.values(), *outs) if t is not None)
+    bytes it must move, over the HBM rate, against its operations over
+    the peak rate of the type.  Bytes: every per-cell input read once in
+    the active cells (``active``, the (nlev, ncol) mask) and the previous
+    pH fields in all cells, the per-column rows once, every output
+    written once.  Operations, over the active cells: the pH solve
+    counted as K1's on the same carbonate inputs (iteration counts from
+    the plain version) less K1's speciation, plus the rest of the
+    interior."""
+    n_act = int(active.sum())
+    ops = (solve_ops(k1_args, active)[0]
+           - 2 * n_act * (OPS_SCENARIO - OPS_K2_NO_SPECIATION)
+           + n_act * OPS_K2_CELL)
+    ncell = active.numel()
+    nbytes = 0
+    for name, t in fields.items():
+        if t is None:
+            continue
+        if name in ("ph_prev", "ph_prev_alt") or t.numel() < ncell:
+            nbytes += t.numel() * t.element_size()
+        else:
+            nbytes += t.numel() // ncell * n_act * t.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in outs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -410,7 +427,7 @@ def k2_bound(fields, outs, dtype, k1_args):
 
 def check_k2(dtype, world, env, warm_state, params):
     """K2 against its plain version on cold and warm inputs; returns the
-    measured numbers of the warm (steady-state) inputs.
+    numbers measured on the warm (steady-state) ones.
 
     pH: bitwise (the same device solve as K1 on the same inputs).
     Tendencies: within K2_TOL of each tracer's largest magnitude; the
@@ -423,7 +440,6 @@ def check_k2(dtype, world, env, warm_state, params):
         kernel_inputs)
     from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES
     state, grid, forcing = world
-    out = {}
     for label, st in (("cold", state), ("warm", warm_state)):
         b = st.bgc
         args = (b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
@@ -458,33 +474,34 @@ def check_k2(dtype, world, env, warm_state, params):
         if not (ph_equal and finite and not over.any()):
             raise AssertionError(f"K2 {dtype} {label} disagrees with its "
                                  f"plain version")
-        ms = cuda_ms(lambda: k2(*args, env=env, impl="kernel"), reps=10)
-        plain_ms = cuda_ms(lambda: plain(*args, env=env), reps=1, warmup=1,
-                           rounds=3)
-        fields = kernel_inputs(*args, env)
-        bound_ms, bound_by, nbytes, ops = k2_bound(
-            fields, got, dtype, k1_inputs(st, grid, forcing, env))
-        log(f"K2 {dtype} {label}: {ms:.4f} ms/launch, plain {plain_ms:.3f} "
-            f"ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
-        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-    return out["warm"]
+    ms = cuda_ms(lambda: k2(*args, env=env, impl="kernel"), reps=10)
+    plain_ms = cuda_ms(lambda: plain(*args, env=env), reps=1, warmup=1,
+                       rounds=3)
+    bound_ms, bound_by, nbytes, ops = k2_bound(
+        kernel_inputs(*args, env), got, dtype,
+        k1_inputs(warm_state, grid, forcing, env), grid.active_mask())
+    log(f"K2 {dtype} warm: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} Gop; {int(grid.active_mask().sum())} of "
+        f"{NLEV * NCOL} cells active)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
-def trajectory_gate(dtype, state0, grid, forcing, params, env):
+def trajectory_gate(dtype, state0, grid, forcing, params, env, default):
     """TRAJ_STEPS fused steps against as many default steps from the same
     state: per tracer, max|fused - default| <= 30 envelope + floor scale,
     the envelope being the default path's distance from a run whose
     initial tracers were scaled by (1 + eps) (scripts/qualify_fused.py's
-    criterion)."""
+    criterion).  ``default`` holds the main path's first default steps
+    from ``state0``; the default run continues from the last of them."""
     import dataclasses
 
     from ocean_bgc_tpu_torch.models.coupled import step
     from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES
 
-    def run(s, impl):
-        for _ in range(TRAJ_STEPS):
+    def run(s, impl, steps=TRAJ_STEPS):
+        for _ in range(steps):
             s, _ = step(s, grid, forcing, params, DT, compute_diags=False,
                         env=env, interior_impl=impl)
         return s.bgc.tracers.double()
@@ -492,7 +509,7 @@ def trajectory_gate(dtype, state0, grid, forcing, params, env):
     eps, floor = TRAJ_EPS_FLOOR[dtype]
     t0 = time.perf_counter()
     fused = run(state0, "fused")
-    ref = run(state0, "auto")
+    ref = run(default[-1], "auto", TRAJ_STEPS - len(default))
     pert = dataclasses.replace(state0, bgc=dataclasses.replace(
         state0.bgc, tracers=state0.bgc.tracers * torch.tensor(
             1.0 + eps, dtype=dtype)))
@@ -596,7 +613,7 @@ def fused_path(dtype, params, ctx):
             raise AssertionError(f"non-finite {name} after 10 fused steps")
 
     k2 = check_k2(dtype, world, env, ctx["warm"], params)
-    trajectory_gate(dtype, state0, grid, forcing, params, env)
+    trajectory_gate(dtype, state0, grid, forcing, params, env, ctx["after"])
 
     cur = state
 

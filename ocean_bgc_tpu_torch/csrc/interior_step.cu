@@ -15,7 +15,11 @@
 // padding is needed.  PAR (a running product of the attenuation of the
 // levels above) and the 11-field sinking carry are the only dependences
 // across levels; both live in registers, and every other term is
-// per cell, so nothing of length nlev is stored.  Each expression keeps
+// per cell, so nothing of length nlev is stored.  The loop computes the
+// active levels k < kmax only; below them it writes zero tendencies and
+// copies the previous pH, which is all the plain version keeps there
+// (the TPU kernel solves a stand-in problem in those cells only because
+// it works on full 128-lane tiles).  Each expression keeps
 // the plain version's operation order, with PyTorch's CUDA semantics:
 // a tensor divided by a Python scalar is multiplied by the scalar's
 // reciprocal in the working type (div_scalar), selects and clamps keep
@@ -28,14 +32,15 @@
 // Templated on float and double; built with --fmad=false and IEEE
 // division.
 //
-// Bound.  Per cell it must read 62 fields (30 tracers, 7 per-level
-// fields, 15 constants, the Q10 response, 8 dissolution factors and the
-// stand-in pH) and write 32 (30 tendencies, 2 pH), ~94 * sizeof(T)
-// bytes: ~370 MB at f64 and ~185 MB at f32 for the 60 x 8192 flagship
-// world, ~0.11 / 0.055 ms at 3.35 TB/s.  Its arithmetic is ~1,700
-// operations per cell besides the pH solve (counted in chip_smoke.py,
-// OPS_K2_CELL), ~0.04 ms at the f64 rate: the kernel is bound by device
-// memory.  What the design does about it: every field is read once and
+// Bound.  Per active cell it must read 61 fields (30 tracers, 7
+// per-level fields, 15 constants, the Q10 response and 8 dissolution
+// factors), per inactive cell the 2 previous pH fields, and per cell
+// write 32 (30 tendencies, 2 pH): ~93 * sizeof(T) bytes per active cell,
+// ~0.1 / 0.05 ms at 3.35 TB/s for the 60 x 8192 flagship world at f64 /
+// f32 (chip_smoke.py computes it from the run's kmax).  Its arithmetic
+// is ~1,700 operations per active cell besides the pH solve (counted in
+// chip_smoke.py, OPS_K2_CELL), ~0.04 ms at the f64 rate: the kernel is
+// bound by device memory.  What the design does about it: every field is read once and
 // every output written once, coalesced, with nothing staged in device
 // memory between the solve, the kinetics, the sinking and the assembly.
 // What it leaves: one thread per column fills only 128 blocks of 64
@@ -136,9 +141,8 @@ struct Params {
 // The device pointers, in the order of ops/cuda_step.py::KERNEL_FIELDS:
 // (nlev, 30, ncol) tracers; (nlev, ncol) fields; (ncol,) rows; the 15
 // equilibrium constants in CarbCoeffs order; the Q10 response; the 8
-// dissolution factors in DissolutionCache order; the stand-in pH (null
-// without an env cache); the 4 restoring fields (null where the lrest_*
-// gate is off); the 3 outputs.
+// dissolution factors in DissolutionCache order; the 4 restoring fields
+// (null where the lrest_* gate is off); the 3 outputs.
 enum Field : int {
   F_tracers,
   F_temp,
@@ -176,7 +180,6 @@ enum Field : int {
   F_decay_sio2,
   F_sio2_diss,
   F_decay_dust,
-  F_standin_ph,
   F_rtau,
   F_no3_clim,
   F_po4_clim,
@@ -255,7 +258,7 @@ __device__ __forceinline__ T sed_pow(T x) { return m_pow(T(0.99), x); }
 // What the sinking update and the tendency assembly read.
 template <typename T>
 struct Kinetics {
-  T par_in, par_out, kpar_dz, att_eff;
+  T par_in, par_out, kpar_dz, att;
   T zoo_loss, zoo_loss_dic;
   T doc_prod, don_prod, dop_prod, dofe_prod;
   T doc_remin, don_remin, dofe_remin, dop_remin, donr_remin, dopr_remin;
@@ -269,12 +272,12 @@ struct Kinetics {
   T nfix[kNumAuto], nexcrete[kNumAuto], rem_p_dip[kNumAuto];
 };
 
-// ``par_prod`` is the product of the effective attenuation of the
-// active levels above (1 at the surface): _par_field's exclusive
-// cumulative product, carried down the column.
+// ``par_prod`` is the product of the attenuation of the levels above (1
+// at the surface): _par_field's exclusive cumulative product, carried
+// down the column.  Called for active cells only.
 template <typename T>
 __device__ __forceinline__ Kinetics<T> ecosystem_kinetics(
-    const T (&tr)[TR_CNT], T temp, T dz, T center, bool active, bool north,
+    const T (&tr)[TR_CNT], T temp, T dz, T center, bool north,
     bool south, T par_surf, T par_prod, T tfunc, const Params& p) {
   Kinetics<T> K;
   const T no3 = tr[TR_NO3], sio3 = tr[TR_SIO3], nh4 = tr[TR_NH4];
@@ -341,7 +344,7 @@ __device__ __forceinline__ Kinetics<T> ecosystem_kinetics(
   const T kpar = morel_kpar(clamp_min(total_chl, T(0.02)));
   K.kpar_dz = kpar * dz;
   const T att = m_exp(-K.kpar_dz);
-  K.att_eff = active ? att : T(1);   // inactive cells pass PAR through
+  K.att = att;
   K.par_in = par_surf * par_prod;
   K.par_out = K.par_in * att;
   const T par_avg = (K.par_in * (T(1) - att)) / K.kpar_dz;
@@ -630,7 +633,7 @@ struct Carry {
       fe_h, qa_dust_def;
 };
 
-// The per-level results the tendency assembly reads, masked to active.
+// The per-level results the tendency assembly reads.
 template <typename T>
 struct ParticleOut {
   T poc_remin, caco3_remin, sio2_remin, fe_remin, sed_denitrif, other_remin;
@@ -654,13 +657,13 @@ struct Dissolution {
       decay_sio2, sio2_diss, decay_dust;
 };
 
-// particulate_level_update with precomputed dissolution factors; updates
-// ``cr`` to the carry of the next level.
+// particulate_level_update with precomputed dissolution factors, for an
+// active cell; updates ``cr`` to the carry of the next level.
 template <typename T>
 __device__ __forceinline__ ParticleOut<T> particulate_level_update(
     Carry<T>& cr, T poc_prod, T caco3_prod, T sio2_prod, T fe_prod, T o2_loc,
-    T no3_loc, T dz, T cell_bottom_depth, T fesedflux, bool is_bottom,
-    bool active, const Dissolution<T>& d, const Params& p) {
+    T no3_loc, T dz, T cell_bottom_depth, T fesedflux, bool bot,
+    const Dissolution<T>& d, const Params& p) {
   const T dzr = T(1) / dz;
   const double poc_diss0 = p.g(P_parm_POC_diss);
 
@@ -736,7 +739,6 @@ __device__ __forceinline__ ParticleOut<T> particulate_level_update(
 
   // bottom cell: burial, sedimentary denitrification, anoxic remin
   // (BGC_mod.F90:2522-2631)
-  const bool bot = is_bottom && active;
   const T poc_flux = poc_s_out + poc_h_out;
   const bool bot_poc = bot && poc_flux > T(0);
   const T flux_alt_day = (poc_flux * T(MPERCM)) * T(SPD);
@@ -785,24 +787,20 @@ __device__ __forceinline__ ParticleOut<T> particulate_level_update(
   poc_remin = bot_poc ? poc_remin + (poc_flux - poc_sed_loss) * dzr
                       : poc_remin;
 
-  // the bottom cell zeroes all outgoing fluxes (BGC_mod.F90:2615-2628),
-  // and the carry freezes below the bottom of ragged columns
-  if (active) {
-    cr.poc_s = bot ? T(0) : poc_s_out;
-    cr.poc_h = bot ? T(0) : poc_h_out;
-    cr.caco3_s = bot ? T(0) : caco3_s_out;
-    cr.caco3_h = bot ? T(0) : caco3_h_out;
-    cr.sio2_s = bot ? T(0) : sio2_s_out;
-    cr.sio2_h = bot ? T(0) : sio2_h_out;
-    cr.dust_s = bot ? T(0) : dust_s_out;
-    cr.dust_h = bot ? T(0) : dust_h_out;
-    cr.fe_s = bot ? T(0) : fe_s_out;
-    cr.fe_h = bot ? T(0) : fe_h_out;
-    cr.qa_dust_def = new_qa;
-  }
-  return {active ? poc_remin : T(0),   active ? caco3_remin : T(0),
-          active ? sio2_remin : T(0),  active ? fe_remin : T(0),
-          active ? sed_denitrif : T(0), active ? other_remin : T(0)};
+  // the bottom cell zeroes all outgoing fluxes (BGC_mod.F90:2615-2628)
+  cr.poc_s = bot ? T(0) : poc_s_out;
+  cr.poc_h = bot ? T(0) : poc_h_out;
+  cr.caco3_s = bot ? T(0) : caco3_s_out;
+  cr.caco3_h = bot ? T(0) : caco3_h_out;
+  cr.sio2_s = bot ? T(0) : sio2_s_out;
+  cr.sio2_h = bot ? T(0) : sio2_h_out;
+  cr.dust_s = bot ? T(0) : dust_s_out;
+  cr.dust_h = bot ? T(0) : dust_h_out;
+  cr.fe_s = bot ? T(0) : fe_s_out;
+  cr.fe_h = bot ? T(0) : fe_h_out;
+  cr.qa_dust_def = new_qa;
+  return {poc_remin, caco3_remin, sio2_remin, fe_remin, sed_denitrif,
+          other_remin};
 }
 
 // ---- the 30 tendency expressions (ops/bgc.py::assemble_tendencies,
@@ -1002,15 +1000,17 @@ __global__ void __launch_bounds__(kThreads)
   Carry<T> cr = init_carry(clamp_min(in<T>(f, F_dust)[col], T(0)));
   T par_prod = T(1);
 
-  const T* const standin = in<T>(f, F_standin_ph);
   const bool rest_no3 = p.g(P_lrest_no3) != 0.0;
   const bool rest_po4 = p.g(P_lrest_po4) != 0.0;
   const bool rest_sio3 = p.g(P_lrest_sio3) != 0.0;
   const double fe_scav0 = p.g(P_parm_fe_scavenge_rate0);
 
-  for (int k = 0; k < nlev; ++k) {
+  // the active levels k < kmax; PAR and the carry only move downwards,
+  // so nothing below them changes their results
+  const int kend = kmax < 0 ? 0 : (kmax < nlev ? kmax : nlev);
+  int k = 0;
+  for (; k < kend; ++k) {
     const int64_t cell = k * n + col;
-    const bool active = k < kmax;
     const bool is_bottom = k + 1 == kmax;
 
     // setup: clip negative tracers (BGC_mod.F90:747-785)
@@ -1023,13 +1023,11 @@ __global__ void __launch_bounds__(kThreads)
     const T ph_prev = in<T>(f, F_ph_prev)[cell];
     const T ph_prev_alt = in<T>(f, F_ph_prev_alt)[cell];
 
-    // dual pH solve (ops/bgc.py::carbonate_inputs, then K1's solve):
-    // inactive cells solve the stand-in problem, warm from the env
-    // cache's stand-in pH where there is one; their roots are dropped
+    // dual pH solve (ops/bgc.py::carbonate_inputs, then K1's solve),
+    // warm from the previous pH
     {
-      const MassUnits<T> m = to_mass_units(
-          active ? tr[TR_DIC] : T(2000), active ? tr[TR_ALK] : T(2300),
-          active ? tr[TR_PO4] : T(0), active ? tr[TR_SIO3] : T(0));
+      const MassUnits<T> m = to_mass_units(tr[TR_DIC], tr[TR_ALK],
+                                           tr[TR_PO4], tr[TR_SIO3]);
       const Coeffs<T> c{
           in<T>(f, F_k0)[cell],  in<T>(f, F_k1)[cell],
           in<T>(f, F_k2)[cell],  in<T>(f, F_ff)[cell],
@@ -1039,20 +1037,15 @@ __global__ void __launch_bounds__(kThreads)
           in<T>(f, F_ks)[cell],  in<T>(f, F_kf)[cell],
           in<T>(f, F_bt)[cell],  in<T>(f, F_st)[cell],
           in<T>(f, F_ft)[cell]};
-      const T seed_a = (standin != nullptr && !active) ? standin[cell]
-                                                       : ph_prev;
-      const T seed_b = (standin != nullptr && !active) ? standin[cell]
-                                                       : ph_prev_alt;
-      const T ph_a = -m_log10(solve_scenario(c, m, seed_a));
-      const T ph_b = -m_log10(solve_scenario(c, m, seed_b));
-      out<T>(f, F_ph)[cell] = active ? ph_a : ph_prev;
-      out<T>(f, F_ph_alt)[cell] = active ? ph_b : ph_prev_alt;
+      out<T>(f, F_ph)[cell] = -m_log10(solve_scenario(c, m, ph_prev));
+      out<T>(f, F_ph_alt)[cell] =
+          -m_log10(solve_scenario(c, m, ph_prev_alt));
     }
 
     const Kinetics<T> K = ecosystem_kinetics(
-        tr, temp, dz, in<T>(f, F_center)[cell], active, north, south,
-        par_surf, par_prod, in<T>(f, F_tfunc)[cell], p);
-    par_prod = par_prod * K.att_eff;
+        tr, temp, dz, in<T>(f, F_center)[cell], north, south, par_surf,
+        par_prod, in<T>(f, F_tfunc)[cell], p);
+    par_prod = par_prod * K.att;
 
     // iron scavenging scales with the sinking mass flux entering this
     // level, i.e. the carry (BGC_mod.F90:1510-1522)
@@ -1077,8 +1070,8 @@ __global__ void __launch_bounds__(kThreads)
     const ParticleOut<T> pt = particulate_level_update(
         cr, K.poc_prod, K.caco3_prod, K.sio2_prod,
         K.fe_prod_base + fe_scavenge, tr[TR_O2], tr[TR_NO3], dz,
-        in<T>(f, F_bottom)[cell], in<T>(f, F_fesed)[cell], is_bottom,
-        active, d, p);
+        in<T>(f, F_bottom)[cell], in<T>(f, F_fesed)[cell], is_bottom, d,
+        p);
 
     // nutrient restoring, gated by the static lrest_* flags
     // (ops/bgc.py::compute_restoring); the fields are read only when on
@@ -1100,7 +1093,17 @@ __global__ void __launch_bounds__(kThreads)
                         restore_po4, p, tend);
     T* tk = out<T>(f, F_tend) + k * TR_CNT * n + col;
 #pragma unroll
-    for (int i = 0; i < TR_CNT; ++i) tk[i * n] = active ? tend[i] : T(0);
+    for (int i = 0; i < TR_CNT; ++i) tk[i * n] = tend[i];
+  }
+  // below the bottom (all levels of land columns): no tendency, and the
+  // pH fields keep their previous values
+  for (; k < nlev; ++k) {
+    const int64_t cell = k * n + col;
+    T* tk = out<T>(f, F_tend) + k * TR_CNT * n + col;
+#pragma unroll
+    for (int i = 0; i < TR_CNT; ++i) tk[i * n] = T(0);
+    out<T>(f, F_ph)[cell] = in<T>(f, F_ph_prev)[cell];
+    out<T>(f, F_ph_alt)[cell] = in<T>(f, F_ph_prev_alt)[cell];
   }
 }
 
@@ -1116,12 +1119,13 @@ int launch(const void* const* fields, const double* params, int nlev,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel's device functions at the sites where PyTorch's CUDA ops
-// special-case their arguments, elementwise over n values, for the card
-// tests: site 0 is sed_pow (torch.pow with the scalar base 0.99), site 1
-// morel_kpar (ops/numerics.py::morel_kpar).
+// Test hook, on no path of the model: the kernel's device functions at
+// the sites where PyTorch's CUDA ops special-case their arguments,
+// elementwise over n values, for the card tests to hold against the
+// torch ops: site 0 is sed_pow (torch.pow with the scalar base 0.99),
+// site 1 morel_kpar (ops/numerics.py::morel_kpar).
 template <typename T>
-__global__ void pointwise_kernel(int site, const T* x, T* y, int64_t n) {
+__global__ void site_test_kernel(int site, const T* x, T* y, int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
@@ -1152,17 +1156,18 @@ extern "C" int obgc_interior_num_params() { return obgc::kNumParams; }
 
 extern "C" int obgc_interior_num_fields() { return obgc::F_COUNT; }
 
-extern "C" int obgc_interior_pointwise(int is_double, int site,
+// The test hook's launcher (ops/cuda_step.py::site_test_hook).
+extern "C" int obgc_interior_site_test_hook(int is_double, int site,
                                        const void* x, void* y, long long n,
                                        void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
   if (is_double) {
-    obgc::pointwise_kernel<double><<<blocks, 256, 0, s>>>(
+    obgc::site_test_kernel<double><<<blocks, 256, 0, s>>>(
         site, static_cast<const double*>(x), static_cast<double*>(y), n);
   } else {
-    obgc::pointwise_kernel<float><<<blocks, 256, 0, s>>>(
+    obgc::site_test_kernel<float><<<blocks, 256, 0, s>>>(
         site, static_cast<const float*>(x), static_cast<float*>(y), n);
   }
   return static_cast<int>(cudaGetLastError());

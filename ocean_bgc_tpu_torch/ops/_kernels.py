@@ -41,6 +41,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                           "toolkit's bin directory on PATH")
+    return path
+
+
 def _shared_constants() -> Dict[str, float]:
     """Module constants of the plain versions that the kernels repeat."""
     from ocean_bgc_tpu_torch.ops import carbonate, numerics, particulates
@@ -150,19 +163,6 @@ def build(names=SOURCES) -> Dict[str, dict]:
         raise RuntimeError(f"nvcc failed on csrc/{failed[0]}.cu:\n"
                            f"{failed[1]}")
     return report
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is not None:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
-                           "toolkit's bin directory on PATH")
-    return path
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,9 +11,9 @@ precomputed: from the env cache when one is given, otherwise evaluated
 here first with the plain version's own torch functions.
 
 :func:`fused_interior_step` launches the kernel for CUDA tensors and
-takes :func:`fused_interior_step_torch` for CPU tensors, or wherever the
-caller asks for ``impl="torch"``.  Both compute the same function at f64
-and f32; a CUDA tensor never falls back to the plain version.
+takes :func:`fused_interior_step_torch` for CPU tensors.  Both compute
+the same function at f64 and f32; a CUDA tensor never falls back to the
+plain version.
 """
 
 from __future__ import annotations
@@ -40,15 +40,14 @@ from ocean_bgc_tpu_torch.ops.carbonate import CarbCoeffs
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
 
-IMPLS = ("auto", "kernel", "torch")
+IMPLS = ("auto", "kernel")
 
 # The kernel's pointer arguments, in the order of the enum Field in
 # csrc/interior_step.cu (tests/test_torch_fused.py holds the two equal).
 KERNEL_FIELDS = (
     "tracers", "temp", "dz", "center", "bottom", "fesed", "ph_prev",
     "ph_prev_alt", "kmax", "lat", "dust", "shortwave",
-    *CarbCoeffs._fields, "tfunc", *DissolutionCache._fields, "standin_ph",
-    "rtau", "no3_clim", "po4_clim", "sio3_clim", "tend", "ph", "ph_alt",
+    *CarbCoeffs._fields, "tfunc", *DissolutionCache._fields, "rtau", "no3_clim", "po4_clim", "sio3_clim", "tend", "ph", "ph_alt",
 )
 
 
@@ -75,18 +74,16 @@ def kernel_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
                   ph_prev_3d, ph_prev_alt_3d, params: BGCParams,
                   env: Optional[EnvCache] = None) -> dict:
     """The kernel's input tensors by :data:`KERNEL_FIELDS` name (outputs
-    excluded), as the kernel reads them; ``None`` for the stand-in pH
-    without an env cache and for restoring fields whose gate is off."""
+    excluded), as the kernel reads them; ``None`` for restoring fields
+    whose gate is off."""
     if env is not None:
         coeffs, tfunc, diss = env.coeffs, env.tfunc, env.diss
-        standin = env.standin_ph
     else:
         coeffs = interior_coeffs(grid, forcing)
         tfunc = q10_tfunc(forcing.potential_temperature)
         diss = precompute_dissolution(forcing.potential_temperature,
                                       grid.cell_thickness,
                                       grid.cell_bottom_depth, params)
-        standin = None
     any_rest = params.lrest_no3 or params.lrest_po4 or params.lrest_sio3
     fields = dict(
         tracers=tracers, temp=forcing.potential_temperature,
@@ -96,7 +93,6 @@ def kernel_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
         lat=grid.latitude, dust=forcing.dust_flux_in,
         shortwave=forcing.shortwave_surface,
         **coeffs._asdict(), tfunc=tfunc, **diss._asdict(),
-        standin_ph=standin,
         rtau=forcing.nutr_restore_rtau if any_rest else None,
         no3_clim=forcing.no3_clim if params.lrest_no3 else None,
         po4_clim=forcing.po4_clim if params.lrest_po4 else None,
@@ -107,7 +103,7 @@ def kernel_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
 
 @functools.lru_cache(maxsize=16)
 def _packed(params: BGCParams):
-    values = pack_bgc_params(params).tolist()
+    values = pack_bgc_params(params)
     return (ctypes.c_double * len(values))(*values)
 
 
@@ -179,14 +175,13 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
     fields.  ``env``: the env cache (:func:`ops.bgc.precompute_env`), or
     None to evaluate its tables here first.  ``impl``: "auto" launches the
     kernel on CUDA tensors and uses the plain version on CPU tensors;
-    "kernel" requires CUDA tensors; "torch" takes the plain version on
-    any device.  Each kernel launch adds one to
+    "kernel" requires CUDA tensors.  Each kernel launch adds one to
     ``fused_interior_step.launches``.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown interior kernel impl {impl!r}; "
                          f"expected one of {IMPLS}")
-    if impl == "torch" or (impl == "auto" and tracers.device.type == "cpu"):
+    if impl == "auto" and tracers.device.type == "cpu":
         return fused_interior_step_torch(tracers, grid, forcing, ph_prev_3d,
                                          ph_prev_alt_3d, params, env=env)
     if tracers.device.type != "cuda":
@@ -204,18 +199,19 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
 fused_interior_step.launches = 0
 
 
-def interior_pointwise(x: torch.Tensor, site: str) -> torch.Tensor:
-    """The kernel's device function at one PyTorch special-case site,
-    elementwise on a contiguous CUDA tensor (for the card tests):
-    ``"sed_pow"`` is 0.99 ** x, ``"morel_kpar"`` the PAR attenuation
-    coefficient of chlorophyll x."""
+def site_test_hook(x: torch.Tensor, site: str) -> torch.Tensor:
+    """Test hook, on no path of the model: the kernel's device function
+    at one site where PyTorch's CUDA ops special-case their arguments,
+    elementwise on a contiguous CUDA tensor, so that the card tests can
+    hold it to the torch op.  ``"sed_pow"`` is 0.99 ** x,
+    ``"morel_kpar"`` the PAR attenuation coefficient of chlorophyll x."""
     sites = ("sed_pow", "morel_kpar")
     if x.device.type != "cuda" or not x.is_contiguous() or x.dtype not in (
             torch.float32, torch.float64):
-        raise ValueError("interior_pointwise takes a contiguous float32 or "
+        raise ValueError("site_test_hook takes a contiguous float32 or "
                          "float64 CUDA tensor")
     lib = _kernels.load("interior_step")
-    fn = lib.obgc_interior_pointwise
+    fn = lib.obgc_interior_site_test_hook
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -223,5 +219,5 @@ def interior_pointwise(x: torch.Tensor, site: str) -> torch.Tensor:
     code = fn(int(x.dtype == torch.float64), sites.index(site), x.data_ptr(),
               y.data_ptr(), x.numel(),
               torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(lib, code, "interior_pointwise launch")
+    _kernels.check(lib, code, "site_test_hook launch")
     return y

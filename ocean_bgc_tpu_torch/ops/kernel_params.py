@@ -1,4 +1,4 @@
-"""The parameters K2 reads, packed into one flat float64 tensor.
+"""The parameters K2 reads, packed into one flat tuple of floats.
 
 ``pack_bgc_params(params)`` lays out every scalar of :class:`BGCParams`
 that the interior kernel (``csrc/interior_step.cu``) reads, in the order
@@ -9,7 +9,7 @@ lists as the enums ``GlobalParam`` and ``TraitParam``;
 parameters the plain version reads equal, since a mismatch would give
 plausible but wrong physics.
 
-The pack stays in float64 at both working types: the kernel takes it by
+The pack stays in double at both working types: the kernel takes it by
 value as a launch argument and forms each product of parameters (as
 ``c.CKS * au.kFe``) in double, as Python forms it, before rounding to the
 working type, as PyTorch rounds a Python scalar.  Booleans and the
@@ -23,8 +23,6 @@ and ``parm_Fe_bioavail`` belong to ``ops/surface.py``.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ocean_bgc_tpu_torch.constants import AUTOTROPH_CNT
 from ocean_bgc_tpu_torch.params import BGCParams
@@ -73,11 +71,11 @@ def check_traits(params: BGCParams) -> None:
                              f"{T.CACO3_IND[g]}")
 
 
-def pack_bgc_params(params: BGCParams) -> torch.Tensor:
-    """``(NUM_PARAMS,)`` float64 CPU tensor: :data:`GLOBAL_FIELDS` of
-    ``params``, then :data:`TRAIT_FIELDS` of each autotroph group."""
+def pack_bgc_params(params: BGCParams) -> tuple:
+    """``NUM_PARAMS`` floats: :data:`GLOBAL_FIELDS` of ``params``, then
+    :data:`TRAIT_FIELDS` of each autotroph group."""
     check_traits(params)
     values = [float(getattr(params, f)) for f in GLOBAL_FIELDS]
     for au in params.autotrophs:
         values += [float(getattr(au, f)) for f in TRAIT_FIELDS]
-    return torch.tensor(values, dtype=torch.float64)
+    return tuple(values)

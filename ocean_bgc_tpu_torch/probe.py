@@ -27,7 +27,6 @@ import torch
 from ocean_bgc_tpu_torch.ops import _kernels
 
 NLEV, NTR, C = 12, 5, 128
-IMPLS = ("auto", "kernel", "torch")
 # kernel vs plain version on the card: the same operations in the same
 # order, so the two agree to float32 rounding of the library calls
 RTOL = 1e-6
@@ -90,14 +89,10 @@ def probe_patterns_torch(tr, temp, kmax):
     return out, tend
 
 
-def probe_patterns(tr, temp, kmax, *, impl="auto"):
-    """P on CUDA tensors (the plain version on CPU tensors, or anywhere
-    with ``impl="torch"``).  Each kernel launch adds one to
-    ``probe_patterns.launches``."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown probe impl {impl!r}; expected one of "
-                         f"{IMPLS}")
-    if impl == "torch" or (impl == "auto" and tr.device.type == "cpu"):
+def probe_patterns(tr, temp, kmax):
+    """P on CUDA tensors, its plain version on CPU tensors.  Each kernel
+    launch adds one to ``probe_patterns.launches``."""
+    if tr.device.type == "cpu":
         return probe_patterns_torch(tr, temp, kmax)
     nlev, ntr, ncol = tr.shape
     for t, dtype, shape in ((tr, torch.float32, (nlev, ntr, ncol)),

@@ -21,7 +21,7 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
 from ocean_bgc_tpu_torch.ops.cuda_step import (
     fused_interior_step,
     fused_interior_step_torch,
-    interior_pointwise,
+    site_test_hook,
 )
 from ocean_bgc_tpu_torch.ops.numerics import morel_kpar
 from ocean_bgc_tpu_torch.params import ModelParams
@@ -149,10 +149,10 @@ def test_special_cased_torch_sites_match(cuda, dtype):
     gen = torch.Generator().manual_seed(3)
     x = (torch.rand(100_000, generator=gen, dtype=torch.float64) * 700
          - 350).to(dtype=dtype, device=cuda)
-    assert torch.equal(interior_pointwise(x, "sed_pow"), torch.pow(0.99, x))
+    assert torch.equal(site_test_hook(x, "sed_pow"), torch.pow(0.99, x))
     chl = (torch.rand(100_000, generator=gen, dtype=torch.float64) * 5
            + 0.02).to(dtype=dtype, device=cuda)
-    assert torch.equal(interior_pointwise(chl, "morel_kpar"),
+    assert torch.equal(site_test_hook(chl, "morel_kpar"),
                        morel_kpar(chl))
 
 
