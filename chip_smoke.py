@@ -10,12 +10,15 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    (``tests/oracle/coupled_ref.py``);
 3. the default path, at f64 and f32 — ``synthetic_world(60, 8192,
    ragged)``, ``precompute_env`` once, 10 ``step``s with diagnostics off
-   — with K1's launches counted; tracers/DMS/MACROS bitwise equal
-   between ``carbonate_impl="kernel"`` and ``"torch"``, pH within the
-   solver's tolerance; K1 against its plain version on cold and warm
-   inputs (all 8 outputs bitwise equal);
+   — with every kernel's launches counted (the dual K1 10, its bracket-in
+   instance 10 for the surface pair, K2 0); tracers/DMS/MACROS bitwise
+   equal between ``carbonate_impl="kernel"`` and ``"torch"``, pH within
+   the solver's tolerance; K1 against its plain version on cold and warm
+   inputs (all 8 outputs bitwise equal); the bracket-in instance against
+   its plain version on the surface pair and the stand-in (bitwise);
 4. the fused path (``interior_impl="fused"``), at f64 and f32 on the
-   same world: 10 steps with K2's and K1's launches counted (10 and 0);
+   same world: 10 steps with the launches counted (K2's two kernels 20,
+   the dual K1 0, the bracket-in instance 10);
    K2 against its plain version on cold and warm inputs (pH bitwise
    equal, tendencies within 1e-10 (f64) / 3e-5 (f32) of each tracer's
    scale); 24 fused steps against 24 default steps within 30 times the
@@ -25,7 +28,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    version;
 6. one f64 step of each path at 60 x 131072 columns;
 7. numbers: columns/s of both steps, each kernel's time beside its plain
-   version's and its bound, and where each step's time goes.
+   version's and its bound, each kernel's registers and spills from the
+   build log, and where each step's time goes (the default path's
+   breakdown at f64 only).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +40,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,6 +66,12 @@ PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12}
 # iteration start, speciation)
 OPS_TALK, OPS_TALK_FN, OPS_ITER, OPS_GROW = 124, 63, 22, 8
 OPS_CELL, OPS_SCENARIO = 8, 7 + 4 + 18
+# the bracket-in instance's work per lane besides its residuals and
+# steps: the orientation and the iteration's start
+OPS_BRACKET_LANE = 4
+# it reads dic, x1, x2 and writes H per lane, and reads ta, pt, sit and
+# the 15 constants per shared element
+BRACKET_FIELDS_LANE, BRACKET_FIELDS_SHARED = 4, 18
 # K1 reads 21 fields per cell and writes 8; of the 8 the step reads only
 # the two pH fields (the speciation feeds diagnostics, not ported yet)
 K1_FIELDS_IN, K1_FIELDS_OUT, K1_FIELDS_OUT_READ = 21, 8, 2
@@ -111,6 +124,52 @@ def cuda_ms(fn, reps, warmup=2, rounds=5):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / reps)
     return statistics.median(times)
+
+
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
+    cuda_carbonate.co3_terms_dual_coeffs.launches = 0
+    cuda_carbonate.solve_htotal_brackets.launches = 0
+    cuda_step.fused_interior_step.launches = 0
+
+
+def read_counts():
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
+    return dict(k1=cuda_carbonate.co3_terms_dual_coeffs.launches,
+                brackets=cuda_carbonate.solve_htotal_brackets.launches,
+                k2=cuda_step.fused_interior_step.launches)
+
+
+def ptxas_lines(log_text):
+    """One line per kernel entry of an ``nvcc -Xptxas -v`` log: its name
+    (demangled where c++filt is found), registers and spill bytes."""
+    rows, name, spill = [], None, ("?", "?")
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m[1]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (m[1], m[2])
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, m[1], *spill))
+            name, spill = None, ("?", "?")
+    names = [r[0] for r in rows]
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and names:
+        out = subprocess.run([cxxfilt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0:
+            names = out.stdout.splitlines()
+    names = [n.replace("obgc::(anonymous namespace)::", "").split("(")[0]
+             for n in names]
+    return [f"    {n}: {r[1]} registers, {r[2]} B spill stores, {r[3]} B "
+            f"spill loads" for n, r in zip(names, rows)]
 
 
 def k1_inputs(state, grid, forcing, env):
@@ -194,7 +253,16 @@ def check_k1(dtype, world, env, warm_state):
         if not finite or err != 0.0:
             raise AssertionError(f"K1 {dtype} {label} disagrees with its "
                                  f"plain version")
-    ms = cuda_ms(lambda: k1(*args, impl="kernel"), reps=20)
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import REFILL, _launch
+    call_ms = cuda_ms(lambda: k1(*args, impl="kernel"), reps=20)
+    fields = (*args[:6], *args[6])
+    lanes_ms = {r: cuda_ms(lambda: _launch(fields, dtype, refill=r), reps=20)
+                for r in (True, False)}
+    ms = lanes_ms[REFILL[dtype]]
+    log(f"K1 {dtype} warm: {lanes_ms[True]:.4f} ms/launch with refill, "
+        f"{lanes_ms[False]:.4f} ms/launch with one lane per thread; "
+        f"{call_ms:.4f} ms per call of the wrapper (its host work "
+        f"included)")
     plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=1, rounds=3)
     bound_ms, bound_by, nbytes, ops, iters, path_ms = k1_bound(args, dtype)
     log(f"K1 {dtype} warm: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
@@ -203,6 +271,132 @@ def check_k1(dtype, world, env, warm_state):
         f"{iters[1]:.2f}); bound of the {K1_FIELDS_IN} + "
         f"{K1_FIELDS_OUT_READ} fields the step needs {path_ms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def surface_lanes(state, forcing):
+    """The surface pair's solver arguments as co2calc_surface_dual builds
+    them in a step from ``state``: lanes (2, ncol), the rest (ncol,)."""
+    from ocean_bgc_tpu_torch import constants as c
+    from ocean_bgc_tpu_torch.ops import carbonate as tc
+    from ocean_bgc_tpu_torch.state import BGCTracers as T
+    surf = state.bgc.tracers[0].clamp_min(0.0)
+    coeffs = tc.carbonate_coeffs(forcing.surface_depth, forcing.sst,
+                                 forcing.sss, False)
+    da, ta, pt, sit = tc._to_mass_units(surf[T.DIC], surf[T.ALK],
+                                        surf[T.PO4], surf[T.SIO3])
+    db = tc._to_mass_units(surf[T.DIC_ALT_CO2], surf[T.ALK], surf[T.PO4],
+                           surf[T.SIO3])[0]
+    br = [tc.warm_brackets_h(ph, c.PHLO_SURF_INIT, c.PHHI_SURF_INIT,
+                             c.DEL_PH)
+          for ph in (state.bgc.surface_ph, state.bgc.surface_ph_alt)]
+    return (coeffs, torch.stack([da, db]), ta, pt, sit,
+            torch.stack([br[0][0], br[1][0]]),
+            torch.stack([br[0][1], br[1][1]]))
+
+
+def standin_lanes(env):
+    """precompute_env's stand-in solve: every cell, cold."""
+    from ocean_bgc_tpu_torch import constants as c
+    from ocean_bgc_tpu_torch.ops.carbonate import _to_mass_units
+    full = torch.ones_like(env.standin_ph)
+    m = _to_mass_units(2000.0 * full, 2300.0 * full, 0.0 * full,
+                       0.0 * full)
+    return (env.coeffs, *m, full * 10.0 ** -c.PHHI_3D_INIT,
+            full * 10.0 ** -c.PHLO_3D_INIT)
+
+
+def bracket_bound(args, dtype):
+    """(bound_ms, bound_by, bytes, operations, mean and most steps) of the
+    bracket-in instance on these lanes: each lane's and each shared
+    element's fields once over the HBM rate, against the operations the
+    plain version's per-lane counts need over the peak rate of the
+    type."""
+    from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
+    coeffs, dic, ta = args[0], args[1], args[2]
+    _, st = _solve_htotal_impl(*args, with_stats=True)
+    iters, grows = st["iters"].double(), st["grows"].double()
+    n = dic.numel()
+    ops = (n * (2 * OPS_TALK_FN + OPS_BRACKET_LANE)
+           + (grows * (OPS_GROW + 2 * OPS_TALK_FN)).sum().item()
+           + (iters * (OPS_ITER + OPS_TALK)).sum().item())
+    nbytes = ((BRACKET_FIELDS_LANE * n + BRACKET_FIELDS_SHARED * ta.numel())
+              * dic.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops, iters.mean().item(),
+            iters.max().item())
+
+
+def check_brackets(dtype, world, env, warm_state):
+    """K1's bracket-in instance against its plain version
+    (``_solve_htotal_impl``) on the surface pair of the cold and of the
+    warm state and on the stand-in; returns the numbers measured on the
+    warm surface pair.
+
+    Tolerance: none, H bitwise equal (the same per-lane iteration in the
+    same order, --fmad=false, IEEE division and sqrt)."""
+    from ocean_bgc_tpu_torch.ops.carbonate import (
+        _solve_htotal_impl as plain, co2calc_surface_dual)
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+        REFILL, _launch_brackets, solve_htotal_brackets as kb)
+    from ocean_bgc_tpu_torch.state import BGCTracers as T
+    state, grid, forcing = world
+    cases = {"surface pair, cold": surface_lanes(state, forcing),
+             "surface pair, warm": surface_lanes(warm_state, forcing),
+             "stand-in": standin_lanes(env)}
+    for label, args in cases.items():
+        got = kb(*args, impl="kernel")
+        torch.cuda.synchronize()
+        want = plain(*args)
+        err = (got - want).abs().max().item()
+        ok = torch.equal(got, want) and bool(torch.isfinite(got).all())
+        log(f"bracket-in K1 {dtype} {label} ({got.numel()} lanes): bitwise "
+            f"equal to its plain version {ok}, max abs error {err:.3g} "
+            f"(limit 0)")
+        if not ok:
+            raise AssertionError(f"the bracket-in K1 {dtype} {label} "
+                                 f"disagrees with its plain version")
+        if label == "surface pair, warm":
+            warm_err = err
+    args = cases["surface pair, warm"]
+    fields = dict(dic=args[1], x1=args[5], x2=args[6], ta=args[2],
+                  pt=args[3], sit=args[4], **args[0]._asdict())
+    call_ms = cuda_ms(lambda: kb(*args, impl="kernel"), reps=20)
+    lanes_ms = {r: cuda_ms(lambda: _launch_brackets(fields, refill=r),
+                           reps=20) for r in (True, False)}
+    ms = lanes_ms[REFILL[dtype]]
+    plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=1, rounds=3)
+    bound_ms, bound_by, nbytes, ops, mean_it, max_it = bracket_bound(
+        args, dtype)
+    surf = warm_state.bgc.tracers[0].clamp_min(0.0)
+
+    def pair(impl):
+        return co2calc_surface_dual(
+            forcing.surface_depth, forcing.sst, forcing.sss, surf[T.DIC],
+            surf[T.DIC_ALT_CO2], surf[T.ALK], surf[T.PO4], surf[T.SIO3],
+            None, None, None, None, forcing.atm_co2, forcing.atm_co2_alt,
+            forcing.surface_pressure, brackets_a=(args[5][0], args[6][0]),
+            brackets_b=(args[5][1], args[6][1]), impl=impl)
+    pair_ms = cuda_ms(lambda: pair("kernel"), reps=5, warmup=1, rounds=3)
+    pair_plain_ms = cuda_ms(lambda: pair("torch"), reps=1, warmup=1,
+                            rounds=3)
+    sargs = cases["stand-in"]
+    standin_ms = cuda_ms(lambda: kb(*sargs, impl="kernel"), reps=5)
+    standin_plain_ms = cuda_ms(lambda: plain(*sargs), reps=1, warmup=1,
+                               rounds=3)
+    log(f"bracket-in K1 {dtype}, surface pair ({NCOL} columns, warm): "
+        f"{ms:.4f} ms/launch ({lanes_ms[True]:.4f} with refill, "
+        f"{lanes_ms[False]:.4f} with one lane per thread; {call_ms:.4f} per "
+        f"call of the wrapper), plain "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.2e} ms by "
+        f"{bound_by} ({nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} Mop, steps "
+        f"mean {mean_it:.2f}, most {max_it:.0f}); co2calc_surface_dual "
+        f"whole {pair_ms:.3f} ms on the kernel, {pair_plain_ms:.3f} ms "
+        f"plain; stand-in ({NLEV * NCOL} lanes, cold) {standin_ms:.4f} ms, "
+        f"plain {standin_plain_ms:.3f} ms")
+    return dict(max_abs_err=warm_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -285,16 +479,8 @@ def main_path(dtype, params):
     """Phase 3 at one dtype; returns the kernel entry's numbers."""
     from ocean_bgc_tpu_torch.models.coupled import step
     from ocean_bgc_tpu_torch.ops.bgc import precompute_env
-    from ocean_bgc_tpu_torch.ops.carbonate import co2calc_surface_dual
-    from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
-    from ocean_bgc_tpu_torch.ops.carbonate import _to_mass_units
     from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
-    from ocean_bgc_tpu_torch.ops.carbonate import warm_brackets_h
-    from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_coeffs
-    from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
-    from ocean_bgc_tpu_torch.state import BGCTracers as T
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
-    import ocean_bgc_tpu_torch.constants as c
 
     world = synthetic_world(nlev=NLEV, ncol=NCOL, seed=SEED, ragged=True,
                             dtype=dtype)
@@ -302,8 +488,7 @@ def main_path(dtype, params):
     env = precompute_env(grid, forcing, params.bgc)
 
     # -- the main path, counted --
-    co3_terms_dual_coeffs.launches = 0
-    fused_interior_step.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = state0
@@ -314,12 +499,13 @@ def main_path(dtype, params):
         states.append(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = co3_terms_dual_coeffs.launches
+    counts = read_counts()
+    launches = counts["k1"]
     log(f"main path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
-        f"K1 launches {launches}, K2 launches "
-        f"{fused_interior_step.launches}")
-    if launches != 10 or fused_interior_step.launches != 0:
-        raise AssertionError(f"K1 launched {launches} times in 10 steps")
+        f"launches {counts}")
+    if counts != dict(k1=10, brackets=10, k2=0):
+        raise AssertionError(f"the default path's launches in 10 steps: "
+                             f"{counts}, expected k1 10, brackets 10, k2 0")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros)):
         if not torch.isfinite(t).all():
@@ -369,30 +555,16 @@ def main_path(dtype, params):
     log(f"step {dtype} at {NLEV}x{NCOL} (ragged, env on, diags off): "
         f"{ms:.3f} ms/step, {NCOL / (ms / 1e3):.1f} columns/s")
 
-    # -- the plain solves outside K1: surface pair and stand-in --
-    surf = states[0].bgc.tracers[0].clamp_min(0.0)
-    br = warm_brackets_h(states[0].bgc.surface_ph, c.PHLO_SURF_INIT,
-                         c.PHHI_SURF_INIT, c.DEL_PH)
-    surf_ms = cuda_ms(lambda: co2calc_surface_dual(
-        forcing.surface_depth, forcing.sst, forcing.sss, surf[T.DIC],
-        surf[T.DIC_ALT_CO2], surf[T.ALK], surf[T.PO4], surf[T.SIO3],
-        None, None, None, None, forcing.atm_co2, forcing.atm_co2_alt,
-        forcing.surface_pressure, brackets_a=br, brackets_b=br),
-        reps=3, warmup=1, rounds=3)
-    full = torch.full_like(env.standin_ph, 1.0)
-    m = _to_mass_units(2000.0 * full, 2300.0 * full, 0.0 * full,
-                       0.0 * full)
-    standin_ms = cuda_ms(lambda: _solve_htotal_impl(
-        env.coeffs, *m, full * 10.0 ** -c.PHHI_3D_INIT,
-        full * 10.0 ** -c.PHLO_3D_INIT), reps=1, warmup=1, rounds=3)
-    log(f"plain solves {dtype}: surface pair ({NCOL} columns, warm) "
-        f"{surf_ms:.3f} ms/step; stand-in ({NLEV * NCOL} cells, cold, "
-        f"once per forcing snapshot) {standin_ms:.3f} ms")
+    # -- the bracket-in instance: surface pair and stand-in --
+    kb = check_brackets(dtype, world, env, states[0])
 
-    log(f"breakdown of one {dtype} step at {NLEV}x{NCOL}:")
-    breakdown(dtype, states[-1], grid, forcing, params, env, ms)
-    return dict(launches=launches, **k1), dict(
-        world=world, env=env, warm=states[0], after=states, step_ms=ms)
+    if dtype == torch.float64:
+        log(f"breakdown of one {dtype} step at {NLEV}x{NCOL}:")
+        breakdown(dtype, states[-1], grid, forcing, params, env, ms)
+    return (dict(launches=launches, **k1),
+            dict(launches=counts["brackets"], **kb),
+            dict(world=world, env=env, warm=states[0], after=states,
+                 step_ms=ms))
 
 
 def k2_bound(fields, outs, dtype, k1_args, active):
@@ -423,6 +595,37 @@ def k2_bound(fields, outs, dtype, k1_args, active):
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
+
+
+def k2_launches(dtype, fields, want, params):
+    """Each of K2's two launches timed alone: the solve with and without
+    refill, the biology kernel at several tile widths; every variant's
+    outputs must equal ``want`` bitwise.  Returns the configuration's
+    times."""
+    from ocean_bgc_tpu_torch.ops import cuda_step as cs
+    out = cs.FusedInteriorOut(*(torch.empty_like(t) for t in want))
+
+    def same():
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(out, want)):
+            raise AssertionError(f"a K2 {dtype} variant's outputs differ")
+
+    times = {}
+    for refill in (True, False):
+        t = cuda_ms(lambda: cs._launch_solve(fields, out, refill=refill),
+                    reps=10)
+        times[f"solve, refill {refill}"] = t
+    same()
+    base = cs.columns_per_block(NLEV, want.tendencies.element_size())
+    for cols in (base // 2, base, 2 * base):
+        t = cuda_ms(lambda: cs._launch_bio(fields, out, params.bgc,
+                                           cols=cols), reps=10)
+        times[f"biology, {cols} columns/block"] = t
+        same()
+    log(f"K2 {dtype} launches alone (ms): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    return dict(solve=times[f"solve, refill {cs.REFILL[dtype]}"],
+                bio=times[f"biology, {base} columns/block"])
 
 
 def check_k2(dtype, world, env, warm_state, params):
@@ -474,13 +677,19 @@ def check_k2(dtype, world, env, warm_state, params):
         if not (ph_equal and finite and not over.any()):
             raise AssertionError(f"K2 {dtype} {label} disagrees with its "
                                  f"plain version")
-    ms = cuda_ms(lambda: k2(*args, env=env, impl="kernel"), reps=10)
+    call_ms = cuda_ms(lambda: k2(*args, env=env, impl="kernel"), reps=10)
+    launch_ms = k2_launches(dtype, kernel_inputs(*args, env), got, params)
+    ms = launch_ms["solve"] + launch_ms["bio"]
+    log(f"K2 {dtype} warm: solve {launch_ms['solve']:.4f} + biology "
+        f"{launch_ms['bio']:.4f} = {ms:.4f} ms; {call_ms:.4f} ms per call of "
+        f"the wrapper (both launches and its host work)")
     plain_ms = cuda_ms(lambda: plain(*args, env=env), reps=1, warmup=1,
                        rounds=3)
     bound_ms, bound_by, nbytes, ops = k2_bound(
         kernel_inputs(*args, env), got, dtype,
         k1_inputs(warm_state, grid, forcing, env), grid.active_mask())
-    log(f"K2 {dtype} warm: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
+    log(f"K2 {dtype} warm: {ms:.4f} ms for both launches, plain "
+        f"{plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.3f} Gop; {int(grid.active_mask().sum())} of "
         f"{NLEV * NCOL} cells active)")
@@ -582,15 +791,12 @@ def fused_breakdown(dtype, state, grid, forcing, params, env, step_ms):
 def fused_path(dtype, params, ctx):
     """Phase 4 at one dtype; returns K2's kernel entry's numbers."""
     from ocean_bgc_tpu_torch.models.coupled import step
-    from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_coeffs
-    from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
 
     world, env = ctx["world"], ctx["env"]
     state0, grid, forcing = world
 
     # -- the fused path, counted --
-    co3_terms_dual_coeffs.launches = 0
-    fused_interior_step.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = state0
@@ -599,13 +805,14 @@ def fused_path(dtype, params, ctx):
                         compute_diags=False, env=env, interior_impl="fused")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_interior_step.launches
-    k1_launches = co3_terms_dual_coeffs.launches
+    counts = read_counts()
+    launches = counts["k2"]
     log(f"fused path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
-        f"K2 launches {launches}, K1 launches {k1_launches}")
-    if launches != 10 or k1_launches != 0:
-        raise AssertionError(f"the fused path launched K2 {launches} and "
-                             f"K1 {k1_launches} times in 10 steps")
+        f"launches {counts}")
+    if counts != dict(k1=0, brackets=10, k2=20):
+        raise AssertionError(f"the fused path's launches in 10 steps: "
+                             f"{counts}, expected k1 0, brackets 10, k2 20 "
+                             f"(two kernels per step)")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros),
                     ("pH", state.bgc.ph_prev_3d)):
@@ -775,19 +982,23 @@ def main():
     report = _kernels.build()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
-        log(f"  {name}: {r['seconds']:.2f} s\n{r['log'].strip()}")
+        log(f"  {name}: {r['seconds']:.2f} s; ptxas:")
+        for line in ptxas_lines(r["log"]):
+            log(line)
 
     params = ModelParams()
     oracle_check(params)
     kernels = []
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split('.')[-1]
-        k1, ctx = main_path(dtype, params)
+        k1, kb, ctx = main_path(dtype, params)
         k2 = fused_path(dtype, params, ctx)
         del ctx
         for kname, src, tpu, k in (
                 ("carbonate_dual", "carbonate_dual.cu",
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", k1),
+                ("solve_htotal_brackets", "carbonate_dual.cu",
+                 "ocean_bgc_tpu/ops/pallas_carbonate.py:63", kb),
                 ("interior_step", "interior_step.cu",
                  "ocean_bgc_tpu/ops/pallas_step.py:146", k2)):
             kernels.append(dict(

@@ -1,45 +1,57 @@
-// K1: the dual interior pH solve, CUDA C++ for Hopper (sm_90a).
+// K1: the pH solve, CUDA C++ for Hopper (sm_90a), in two instances.
 //
 // Replaces the Pallas TPU kernel
-//   ocean_bgc_tpu/ops/pallas_carbonate.py::_carbonate_kernel (:63),
-// in the instance the production step launches: equilibrium constants
-// read from the env cache (coeffs_in=True), no saturation outputs
-// (with_sat=False), no iteration seed.
+//   ocean_bgc_tpu/ops/pallas_carbonate.py::_carbonate_kernel (:63).
 //
-// Per cell: tracers to mass units, then for each of the two scenarios
-// (ambient, ALT_CO2) the pH bracket (previous pH +/- DEL_PH, or the cold
-// [6, 9] window where the previous pH is the 0 sentinel), the bracketed
-// safe-Newton root of the total-alkalinity residual (drtsafe_row,
-// co2calc.F90:872-997) and the speciation into pH, H2CO3, HCO3 and CO3.
+// The dual interior instance (obgc_carbonate_dual) is the one the
+// default step launches: equilibrium constants read from the env cache
+// (coeffs_in=True), no saturation outputs (with_sat=False), no iteration
+// seed.  Per cell: tracers to mass units, then for each of the two
+// scenarios (ambient, ALT_CO2) the pH bracket (previous pH +/- DEL_PH, or
+// the cold [6, 9] window where the previous pH is the 0 sentinel), the
+// bracketed safe-Newton root of the total-alkalinity residual
+// (drtsafe_row, co2calc.F90:872-997) and the speciation into pH, H2CO3,
+// HCO3 and CO3.
 //
-// Design.  One thread per cell, each running its own loop, grid-stride
-// over the nlev*ncol cells; the ragged edge is masked by the loop bound.
-// Each lane freezes on its own convergence in the reference too
-// (ocean_bgc_tpu/ops/carbonate.py:416-425), so a thread-private loop
-// gives each lane the same iterate sequence the batched solve gives it.
-// The TPU kernel's 128-lane tiles, padding and stacked/sequential dual
-// choice have no counterpart here: each thread solves ambient, then
-// ALT_CO2.  The per-cell solve is carbonate_solve.cuh, which K2
-// (interior_step.cu) runs too.  Templated on float/double with the solver
-// tolerance chosen per type as the plain version chooses it (1e-10 at
-// f64, 1e-13 at f32).
-// The alkalinity residual keeps the reference's association order term
-// by term; built with --fmad=false and IEEE division, so the kernel and
-// its plain PyTorch version differ only where an iterate flips a
-// convergence test.
+// The bracket-in instance (obgc_solve_htotal_brackets) is
+// ops/carbonate.py::_solve_htotal_impl itself: H of every lane from
+// H-space brackets given as input.  It solves the surface pair of every
+// step (ambient and ALT_CO2 over all columns, co2calc_surface_dual) and
+// the env cache's stand-in problem (precompute_env).  Lanes whose
+// alkalinity, nutrients and constants are shared (the surface pair's two
+// scenarios) read them in place: lane l reads element l % m of each
+// shared field, so nothing is expanded in memory.
 //
-// Bound.  The kernel must read 21 fields per cell (DIC, ALK, PO4, SiO3,
-// the two previous pH fields, 15 cached coefficients) and write 8:
-// 29 * sizeof(T) bytes per cell, ~114 MB at f64 and ~57 MB at f32 for
-// the 60 x 8192 flagship world.  Warm cells converge in ~3 iterations of
-// ~150 arithmetic operations each, so at that size the kernel is bound
-// by device memory bandwidth; cold cells (first step) take ~13
-// iterations and move it towards the f64 arithmetic rate.  Coalescing is
-// what the design keeps: thread i reads element i of each field, so a
-// warp reads 32 neighbouring columns.  Divergence between a warp's lanes
-// (a lane that needs more iterations holds its warp) is the cost it
-// accepts; the step keeps it small by warm-seeding every lane, inactive
-// ones included, from a converged root.
+// Design.  Each lane freezes on its own convergence in the reference too
+// (ocean_bgc_tpu/ops/carbonate.py:416-425), so a lane may be advanced by
+// any thread.  Both instances run carbonate_solve.cuh's lanes in one of
+// two schedules, chosen per launch: one lane per thread, solved start to
+// end in a loop, or refill, where the lane is a state machine advanced by
+// one residual evaluation per trip and a thread whose lane converged
+// takes the next lane of its warp's prefetched chunk.  The TPU kernel's
+// 128-lane tiles, padding and stacked/sequential dual choice have no
+// counterpart here.  Templated on float/double with the solver tolerance
+// chosen per type as the plain version chooses it (1e-10 at f64, 1e-13 at
+// f32).  The alkalinity residual keeps the reference's association order
+// term by term; built with --fmad=false and IEEE division, each lane's
+// iterates are bitwise those of the plain PyTorch version in either
+// schedule.
+//
+// Bound.  The dual instance must read 21 fields per cell (DIC, ALK, PO4,
+// SiO3, the two previous pH fields, 15 cached coefficients) and write 8:
+// 29 * sizeof(T) bytes per cell, ~114 MB at f64 and ~57 MB at f32 for the
+// 60 x 8192 flagship world, ~0.034 / 0.017 ms at 3.35 TB/s.  Warm cells
+// converge in 2-3 steps at f64; at f32 a third of them take 14-24 (a
+// bisection tail near the f32 rounding of the residual), so with one lane
+// per thread most of a warp waits for its slowest lane, and the f32
+// launch runs at 8.6x its bound.  Refill keeps the threads busy, but on
+// the H100 its trips cost more issue slots than the loop's iterations
+// (the phases of a warp's lanes diverge), and it measured slower at both
+// types (PERF.md): ops/cuda_carbonate.py::REFILL keeps one lane per
+// thread.  The bracket-in instance at the surface reads 3 fields per
+// lane and 18 per column and writes one per lane (~1.7 MB at f64 for
+// 8192 columns): it is bound by its launch and its slowest lanes, not by
+// the card's rates.
 
 #include <cuda_runtime.h>
 
@@ -53,72 +65,207 @@ namespace {
 constexpr int kNumCoeffs = 15;
 constexpr int kNumIn = 6 + kNumCoeffs;
 constexpr int kNumOut = 8;
+constexpr int kThreads = 256;
 
 template <typename T>
-struct Args {
+struct DualLanes {
   // dic, ta, pt, sit (mmol/m^3), ph_prev_a, ph_prev_b, then the 15
   // coefficients in CarbCoeffs order
   const T* in[kNumIn];
   // ph_a, h2co3_a, hco3_a, co3_a, ph_b, h2co3_b, hco3_b, co3_b
   T* out[kNumOut];
+
+  // lane i is cell i: ambient first, then ALT_CO2 on the same constants;
+  // its inputs are dic, ta, pt, sit, ph_prev_a, ph_prev_b, 15 constants
+  static constexpr int kRaw = kNumIn;
+
+  __device__ __forceinline__ const T* raw(int j, int64_t i) const {
+    return in[j] + i;
+  }
+
+  __device__ __forceinline__ const int32_t* aux(int64_t) const {
+    return nullptr;
+  }
+
+  __device__ __forceinline__ bool begin(int64_t, const T (&v)[kRaw], int,
+                                        Lane<T>& s) const {
+    const MassUnits<T> m = to_mass_units(v[0], v[1], v[2], v[3]);
+    s.t = talk_terms(coeffs_of(v + 6), m);
+    s.dic = m.dic;
+    s.ph_alt = v[5];
+    s.part = 0;
+    T x1, x2;
+    ph_bracket(v[4], x1, x2);
+    lane_begin(s, x1, x2);
+    return true;
+  }
+
+  __device__ __forceinline__ bool finish(int64_t i, Lane<T>& s) const {
+    const T h = s.soln;
+    const T h2 = h * h;
+    const T k12 = s.t.k12;
+    const T denom = T(1) / (h2 + s.t.k1 * h + k12);
+    // constant indices keep the pointers in the kernel's parameters
+    const bool a = s.part == 0;
+    (a ? out[0] : out[4])[i] = -m_log10(h);
+    (a ? out[1] : out[5])[i] = s.dic * h2 * denom * T(cst::MASS_TO_VOL);
+    (a ? out[2] : out[6])[i] =
+        s.dic * s.t.k1 * h * denom * T(cst::MASS_TO_VOL);
+    (a ? out[3] : out[7])[i] = s.dic * k12 * denom * T(cst::MASS_TO_VOL);
+    if (s.part == 1) return true;
+    s.part = 1;
+    T x1, x2;
+    ph_bracket(s.ph_alt, x1, x2);
+    lane_begin(s, x1, x2);
+    return false;
+  }
+};
+
+// The bracket-in instance's pointers, in the order of
+// ops/cuda_carbonate.py::BRACKET_FIELDS (tests/test_torch_carbonate.py
+// holds the two equal): per lane dic, x1, x2; per shared element ta, pt,
+// sit and the 15 constants; the output H per lane.
+enum BracketField : int {
+  B_dic,
+  B_x1,
+  B_x2,
+  B_ta,
+  B_pt,
+  B_sit,
+  B_k0,
+  B_k1,
+  B_k2,
+  B_ff,
+  B_kb,
+  B_k1p,
+  B_k2p,
+  B_k3p,
+  B_ksi,
+  B_kw,
+  B_ks,
+  B_kf,
+  B_bt,
+  B_st,
+  B_ft,
+  B_h,
+  B_COUNT
 };
 
 template <typename T>
-__global__ void carbonate_dual_kernel(Args<T> a, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const MassUnits<T> m =
-        to_mass_units(a.in[0][i], a.in[1][i], a.in[2][i], a.in[3][i]);
-    const T* const* k = a.in + 6;
-    const Coeffs<T> c{k[0][i],  k[1][i],  k[2][i],  k[3][i],  k[4][i],
-                      k[5][i],  k[6][i],  k[7][i],  k[8][i],  k[9][i],
-                      k[10][i], k[11][i], k[12][i], k[13][i], k[14][i]};
+struct BracketLanes {
+  const T* in[B_h];
+  T* h;
+  int64_t m;   // elements of each shared field
 
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const T h = solve_scenario(c, m, a.in[4 + s][i]);
-      const T h2 = h * h;
-      const T k12 = c.k1 * c.k2;
-      const T denom = T(1) / (h2 + c.k1 * h + k12);
-      T* const* out = a.out + 4 * s;
-      out[0][i] = -m_log10(h);
-      out[1][i] = m.dic * h2 * denom * T(cst::MASS_TO_VOL);
-      out[2][i] = m.dic * c.k1 * h * denom * T(cst::MASS_TO_VOL);
-      out[3][i] = m.dic * k12 * denom * T(cst::MASS_TO_VOL);
-    }
+  // lane l's inputs: dic, x1, x2 of lane l, then ta, pt, sit and the 15
+  // constants of shared element l % m
+  static constexpr int kRaw = B_h;
+
+  __device__ __forceinline__ const T* raw(int k, int64_t l) const {
+    return in[k] + (k < B_ta ? l : l % m);
   }
+
+  __device__ __forceinline__ const int32_t* aux(int64_t) const {
+    return nullptr;
+  }
+
+  __device__ __forceinline__ bool begin(int64_t, const T (&v)[kRaw], int,
+                                        Lane<T>& s) const {
+    s.t = talk_terms(coeffs_of(v + B_k0),
+                     MassUnits<T>{v[B_dic], v[B_ta], v[B_pt], v[B_sit]});
+    s.part = 0;
+    lane_begin(s, v[B_x1], v[B_x2]);
+    return true;
+  }
+
+  __device__ __forceinline__ bool finish(int64_t l, Lane<T>& s) const {
+    h[l] = s.soln;
+    return true;
+  }
+};
+
+template <typename T, bool kRefill, typename Src>
+__global__ void __launch_bounds__(kThreads)
+    lanes_kernel(Src src, int64_t n, LaneQueue q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  solve_lanes<T, kRefill>(src, n, q, smem);
+}
+
+template <typename T, bool kRefill, typename Src>
+int launch_lanes(const Src& src, int64_t n, void* counter,
+                 cudaStream_t stream) {
+  const int smem = kRefill ? kThreads / 32 * refill_warp_bytes<T, Src>() : 0;
+  const unsigned blocks = lane_blocks<lanes_kernel<T, kRefill, Src>>(
+      kThreads, n, kRefill, smem);
+  const LaneQueue q{static_cast<unsigned long long*>(counter),
+                    static_cast<int64_t>(blocks) * kThreads};
+  lanes_kernel<T, kRefill, Src><<<blocks, kThreads, smem, stream>>>(src, n,
+                                                                    q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename Src>
+int launch(const Src& src, int64_t n, void* counter, int refill,
+           cudaStream_t stream) {
+  return refill ? launch_lanes<T, true>(src, n, counter, stream)
+                : launch_lanes<T, false>(src, n, counter, stream);
 }
 
 template <typename T>
-int launch(const void* const* ins, void* const* outs, int64_t n,
-           cudaStream_t stream) {
-  Args<T> a;
-  for (int j = 0; j < kNumIn; ++j) a.in[j] = static_cast<const T*>(ins[j]);
-  for (int j = 0; j < kNumOut; ++j) a.out[j] = static_cast<T*>(outs[j]);
-  constexpr int kThreads = 256;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > (int64_t{1} << 30)) blocks = int64_t{1} << 30;
-  carbonate_dual_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             stream>>>(a, n);
-  return static_cast<int>(cudaGetLastError());
+int launch_dual(const void* const* ins, void* const* outs, int64_t n,
+                void* counter, int refill, cudaStream_t stream) {
+  DualLanes<T> src;
+  for (int j = 0; j < kNumIn; ++j) src.in[j] = static_cast<const T*>(ins[j]);
+  for (int j = 0; j < kNumOut; ++j) src.out[j] = static_cast<T*>(outs[j]);
+  return launch<T>(src, n, counter, refill, stream);
+}
+
+template <typename T>
+int launch_brackets(void* const* fields, int64_t n, int64_t m,
+                    void* counter, int refill, cudaStream_t stream) {
+  BracketLanes<T> src;
+  for (int j = 0; j < B_h; ++j) src.in[j] = static_cast<const T*>(fields[j]);
+  src.h = static_cast<T*>(fields[B_h]);
+  src.m = m;
+  return launch<T>(src, n, counter, refill, stream);
 }
 
 }  // namespace
 }  // namespace obgc
 
-// Plain C interface for ctypes.  ``ins`` holds 21 device pointers and
-// ``outs`` 8, all contiguous arrays of ``n`` elements of one type
-// (double if ``is_double``, else float).  Launches on ``stream`` and
-// returns cudaGetLastError() (0 on success).
+// Plain C interface for ctypes.  All floating arrays are contiguous and of
+// one type (double if ``is_double``, else float).  ``counter`` is one
+// zeroed unsigned 64-bit integer of device memory, used when ``refill``
+// is nonzero.  Each launches on ``stream`` and returns cudaGetLastError()
+// (0 on success).
+
+// The dual instance: ``ins`` holds 21 device pointers and ``outs`` 8,
+// each of ``n`` elements.
 extern "C" int obgc_carbonate_dual(int is_double, const void* const* ins,
                                    void* const* outs, long long n,
-                                   void* stream) {
+                                   void* counter, int refill, void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) return obgc::launch<double>(ins, outs, n, s);
-  return obgc::launch<float>(ins, outs, n, s);
+  if (is_double) return obgc::launch_dual<double>(ins, outs, n, counter,
+                                                  refill, s);
+  return obgc::launch_dual<float>(ins, outs, n, counter, refill, s);
 }
+
+// The bracket-in instance: ``fields`` holds the obgc::BracketField
+// pointers; per-lane fields have ``n`` elements, shared ones ``m``, and
+// ``m`` divides ``n``.
+extern "C" int obgc_solve_htotal_brackets(int is_double, void* const* fields,
+                                          long long n, long long m,
+                                          void* counter, int refill,
+                                          void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (is_double) return obgc::launch_brackets<double>(fields, n, m, counter,
+                                                      refill, s);
+  return obgc::launch_brackets<float>(fields, n, m, counter, refill, s);
+}
+
+extern "C" int obgc_brackets_num_fields() { return obgc::B_COUNT; }
 
 extern "C" const char* obgc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -4,17 +4,22 @@
 // Device counterpart of ops/carbonate.py: ``talk`` (the total-alkalinity
 // residual and its slope, same association order term by term),
 // ``_solve_htotal_impl`` for one lane (bracket growth, orientation, the
-// bracketed safe-Newton iteration that stops on |dx| < xacc or a stall),
-// ``_to_mass_units`` and the pH-space bracket of
-// ops/cuda_carbonate.py::_ph_brackets.  Built with --fmad=false and IEEE
-// division, each lane follows the plain version's iterate sequence.
+// bracketed safe-Newton iteration that stops on |dx| < xacc or a stall)
+// as a state machine with one residual evaluation per step, the driver
+// that runs lanes over a grid with refill, ``_to_mass_units`` and the
+// pH-space bracket of ops/cuda_carbonate.py::_ph_brackets.  Built with
+// --fmad=false and IEEE division, each lane follows the plain version's
+// iterate sequence.
 //
 // The constants (obgc_constants.h) are generated from
 // ocean_bgc_tpu_torch/constants.py by ops/_kernels.py at build time.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "obgc_constants.h"
 
@@ -71,58 +76,94 @@ __device__ __forceinline__ MassUnits<T> to_mass_units(T dic, T alk, T po4,
           clamp_min(sio3, T(0)) * T(cst::VOL_TO_MASS)};
 }
 
-// Total alkalinity residual fn(H) and its slope (ops/carbonate.py::talk),
-// same association order term by term.
+// The terms of the total-alkalinity residual that do not depend on H,
+// formed once per problem: the products talk would otherwise form at
+// every evaluation, each in the association order of ops/carbonate.py::
+// talk, so the residual keeps its bits.
 template <typename T>
-__device__ __forceinline__ void talk(const Coeffs<T>& c, const MassUnits<T>& m,
-                                     T h, T& fn, T& df) {
-  const T dic = m.dic, ta = m.ta, pt = m.pt, sit = m.sit;
+struct TalkTerms {
+  T ta, pt, k1, k1p, k1p2, k12, k12p, k123p, kb, ksi, kw, kf, st, ft;
+  T k1_dic, dic2_k12, bt_kb, pt_k12p, pt2_k123p, sit_ksi;
+  T htot_ks, hfree_per_htot;
+};
+
+template <typename T>
+__device__ __forceinline__ TalkTerms<T> talk_terms(const Coeffs<T>& c,
+                                                   const MassUnits<T>& m) {
+  TalkTerms<T> t;
+  t.ta = m.ta;
+  t.pt = m.pt;
+  t.k1 = c.k1;
+  t.k1p = c.k1p;
+  t.k1p2 = T(2) * c.k1p;
+  t.k12 = c.k1 * c.k2;
+  t.k12p = c.k1p * c.k2p;
+  t.k123p = t.k12p * c.k3p;
+  t.kb = c.kb;
+  t.ksi = c.ksi;
+  t.kw = c.kw;
+  t.kf = c.kf;
+  t.st = c.st;
+  t.ft = c.ft;
+  t.k1_dic = c.k1 * m.dic;
+  t.dic2_k12 = T(2) * m.dic * t.k12;
+  t.bt_kb = c.bt * c.kb;
+  t.pt_k12p = m.pt * t.k12p;
+  t.pt2_k123p = T(2) * m.pt * t.k123p;
+  t.sit_ksi = m.sit * c.ksi;
+  const T htot_per_hfree = T(1) + c.st / c.ks;
+  t.htot_ks = htot_per_hfree * c.ks;
+  t.hfree_per_htot = T(1) / htot_per_hfree;
+  return t;
+}
+
+// Total alkalinity residual fn(H) and, if ``want_df``, its slope
+// (ops/carbonate.py::talk), same association order term by term.
+template <typename T>
+__device__ __forceinline__ void talk(const TalkTerms<T>& t, T h, T& fn,
+                                     T& df, bool want_df = true) {
   const T inv_h = T(1) / h;
   const T h2 = h * h;
   const T inv_h2 = inv_h * inv_h;
   const T h3 = h2 * h;
-  const T k12 = c.k1 * c.k2;
-  const T k12p = c.k1p * c.k2p;
-  const T k123p = k12p * c.k3p;
-  const T phos_den = h3 + c.k1p * h2 + k12p * h + k123p;
+  const T phos_den = h3 + t.k1p * h2 + t.k12p * h + t.k123p;
   const T inv_phos_den = T(1) / phos_den;
   const T inv_phos_den2 = inv_phos_den * inv_phos_den;
-  const T dphos_den = T(3) * h2 + T(2) * c.k1p * h + k12p;
-  const T carb_den = h2 + c.k1 * h + k12;
+  const T dphos_den = T(3) * h2 + t.k1p2 * h + t.k12p;
+  const T carb_den = h2 + t.k1 * h + t.k12;
   const T inv_carb_den = T(1) / carb_den;
   const T inv_carb_den2 = inv_carb_den * inv_carb_den;
-  const T dcarb_den = T(2) * h + c.k1;
-  const T htot_per_hfree = T(1) + c.st / c.ks;
-  const T hfree_per_htot = T(1) / htot_per_hfree;
-  const T inv_borate_den = T(1) / (c.kb + h);
-  const T inv_sili_den = T(1) / (c.ksi + h);
-  const T hso4_frac = T(1) / (T(1) + htot_per_hfree * c.ks * inv_h);
-  const T hf_frac = T(1) / (T(1) + c.kf * inv_h);
+  const T dcarb_den = T(2) * h + t.k1;
+  const T inv_borate_den = T(1) / (t.kb + h);
+  const T inv_sili_den = T(1) / (t.ksi + h);
+  const T hso4_frac = T(1) / (T(1) + t.htot_ks * inv_h);
+  const T hf_frac = T(1) / (T(1) + t.kf * inv_h);
 
-  fn = c.k1 * dic * h * inv_carb_den
-     + T(2) * dic * k12 * inv_carb_den
-     + c.bt * c.kb * inv_borate_den
-     + c.kw * inv_h
-     + pt * k12p * h * inv_phos_den
-     + T(2) * pt * k123p * inv_phos_den
-     + sit * c.ksi * inv_sili_den
-     - h * hfree_per_htot
-     - c.st * hso4_frac
-     - c.ft * hf_frac
-     - pt * h3 * inv_phos_den
-     - ta;
+  fn = t.k1_dic * h * inv_carb_den
+     + t.dic2_k12 * inv_carb_den
+     + t.bt_kb * inv_borate_den
+     + t.kw * inv_h
+     + t.pt_k12p * h * inv_phos_den
+     + t.pt2_k123p * inv_phos_den
+     + t.sit_ksi * inv_sili_den
+     - h * t.hfree_per_htot
+     - t.st * hso4_frac
+     - t.ft * hf_frac
+     - t.pt * h3 * inv_phos_den
+     - t.ta;
+  if (!want_df) return;
 
-  df = c.k1 * dic * (carb_den - h * dcarb_den) * inv_carb_den2
-     - T(2) * dic * k12 * dcarb_den * inv_carb_den2
-     - c.bt * c.kb * inv_borate_den * inv_borate_den
-     - c.kw * inv_h2
-     + (pt * k12p * (phos_den - h * dphos_den)) * inv_phos_den2
-     - T(2) * pt * k123p * dphos_den * inv_phos_den2
-     - sit * c.ksi * inv_sili_den * inv_sili_den
-     - T(1) * hfree_per_htot
-     - c.st * hso4_frac * hso4_frac * (htot_per_hfree * c.ks * inv_h2)
-     - c.ft * hf_frac * hf_frac * c.kf * inv_h2
-     - pt * h2 * (T(3) * phos_den - h * dphos_den) * inv_phos_den2;
+  df = t.k1_dic * (carb_den - h * dcarb_den) * inv_carb_den2
+     - t.dic2_k12 * dcarb_den * inv_carb_den2
+     - t.bt_kb * inv_borate_den * inv_borate_den
+     - t.kw * inv_h2
+     + (t.pt_k12p * (phos_den - h * dphos_den)) * inv_phos_den2
+     - t.pt2_k123p * dphos_den * inv_phos_den2
+     - t.sit_ksi * inv_sili_den * inv_sili_den
+     - T(1) * t.hfree_per_htot
+     - t.st * hso4_frac * hso4_frac * (t.htot_ks * inv_h2)
+     - t.ft * hf_frac * hf_frac * t.kf * inv_h2
+     - t.pt * h2 * (T(3) * phos_den - h * dphos_den) * inv_phos_den2;
 }
 
 template <typename T>
@@ -130,20 +171,20 @@ __device__ __forceinline__ bool not_bracketed(T flo, T fhi) {
   return (flo > T(0) && fhi > T(0)) || (flo < T(0) && fhi < T(0));
 }
 
-// One lane of ops/carbonate.py::_solve_htotal_impl.
+// One lane of ops/carbonate.py::_solve_htotal_impl, start to end in one
+// thread (the launches without refill).
 template <typename T>
-__device__ T solve_htotal(const Coeffs<T>& c, const MassUnits<T>& m, T x1,
-                          T x2, T xacc) {
+__device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc) {
   T flo, fhi, unused;
-  talk(c, m, x1, flo, unused);
-  talk(c, m, x2, fhi, unused);
+  talk(t, x1, flo, unused, false);
+  talk(t, x2, fhi, unused, false);
   for (int it = 0; it < cst::BRACKET_GROW_GUARD && not_bracketed(flo, fhi);
        ++it) {
     const T growth = m_sqrt(x2 / x1);
     x1 = x1 / growth;
     x2 = x2 * growth;
-    talk(c, m, x1, flo, unused);
-    talk(c, m, x2, fhi, unused);
+    talk(t, x1, flo, unused, false);
+    talk(t, x2, fhi, unused, false);
   }
   const bool neg_at_x1 = flo < T(0);
   T xlo = neg_at_x1 ? x1 : x2;
@@ -153,7 +194,7 @@ __device__ T solve_htotal(const Coeffs<T>& c, const MassUnits<T>& m, T x1,
   T dxold = m_abs(xlo - xhi);
   T dx = dxold;
   T f, df;
-  talk(c, m, soln, f, df);
+  talk(t, soln, f, df);
   for (int it = 0; it < cst::MAXIT; ++it) {
     // bisect when Newton would leave the bracket or converges too slowly
     const bool leave_bracket =
@@ -168,7 +209,7 @@ __device__ T solve_htotal(const Coeffs<T>& c, const MassUnits<T>& m, T x1,
     dx = bisect ? dx_bis : dx_newt;
     soln = soln_n;
     if (stalled || m_abs(dx) < xacc) break;
-    talk(c, m, soln, f, df);
+    talk(t, soln, f, df);
     if (f < T(0)) {
       xlo = soln;
     } else if (f >= T(0)) {
@@ -178,20 +219,291 @@ __device__ T solve_htotal(const Coeffs<T>& c, const MassUnits<T>& m, T x1,
   return soln;
 }
 
-// H of one scenario of one cell: the pH-space bracket ph_prev -/+ DEL_PH
-// (the cold [PHLO_3D_INIT, PHHI_3D_INIT] window where ph_prev is the 0
-// sentinel), each end converted with one exp
-// (ops/cuda_carbonate.py::_ph_brackets), then the bracketed root.
+// The 15 constants from consecutive values in CarbCoeffs order.
 template <typename T>
-__device__ __forceinline__ T solve_scenario(const Coeffs<T>& c,
-                                            const MassUnits<T>& m,
-                                            T ph_prev) {
+__device__ __forceinline__ Coeffs<T> coeffs_of(const T* k) {
+  return {k[0], k[1], k[2],  k[3],  k[4],  k[5],  k[6], k[7],
+          k[8], k[9], k[10], k[11], k[12], k[13], k[14]};
+}
+
+// The H-space bracket of one scenario of one cell: the pH-space window
+// ph_prev -/+ DEL_PH (the cold [PHLO_3D_INIT, PHHI_3D_INIT] window where
+// ph_prev is the 0 sentinel), each end converted with one exp
+// (ops/cuda_carbonate.py::_ph_brackets).
+template <typename T>
+__device__ __forceinline__ void ph_bracket(T ph_prev, T& x1, T& x2) {
   const bool warm = ph_prev != T(0);
   const T phlo = warm ? ph_prev - T(cst::DEL_PH) : T(cst::PHLO_3D_INIT);
   const T phhi = warm ? ph_prev + T(cst::DEL_PH) : T(cst::PHHI_3D_INIT);
-  const T x1 = m_exp(T(-cst::LN10) * phhi);
-  const T x2 = m_exp(T(-cst::LN10) * phlo);
-  return solve_htotal(c, m, x1, x2, solver_xacc<T>());
+  x1 = m_exp(T(-cst::LN10) * phhi);
+  x2 = m_exp(T(-cst::LN10) * phlo);
+}
+
+// ---- one lane of ops/carbonate.py::_solve_htotal_impl as a state machine
+//
+// Each call of lane_step makes exactly one residual evaluation: the low
+// and the high bracket end (kEvalLo, kEvalHi; after kEvalHi the bracket
+// grows geometrically, or is oriented so that f(xlo) < 0), then one
+// Newton-or-bisection step per call (kNewton).  The iterate sequence, the
+// caps BRACKET_GROW_GUARD and MAXIT and the stall test are the plain
+// version's, so a lane's root is the same bits whichever thread advances
+// it and whatever the thread did before.  Since every call evaluates the
+// residual once, threads that advance lanes in different phases stay
+// together on the expensive part.
+
+enum LanePhase : int { kEvalLo, kEvalHi, kNewton };
+
+template <typename T>
+struct Lane {
+  TalkTerms<T> t;
+  T dic;                          // mol/kg, for the speciation
+  T x1, x2, flo;                  // the bracket phase
+  T xlo, xhi, soln, dx, dxold;    // the iteration
+  int phase, grows, iters;
+  int part;                       // which of a lane's problems (scenario)
+  T ph_alt;                       // the second scenario's previous pH
+};
+
+// Start the solve of one problem on the bracket [x1, x2] (t set).
+template <typename T>
+__device__ __forceinline__ void lane_begin(Lane<T>& s, T x1, T x2) {
+  s.x1 = x1;
+  s.x2 = x2;
+  s.phase = kEvalLo;
+  s.grows = 0;
+  s.iters = 0;
+}
+
+// Advance the lane by one residual evaluation; true when s.soln is the
+// root.
+template <typename T>
+__device__ __forceinline__ bool lane_step(Lane<T>& s, T xacc) {
+  const T x = s.phase == kEvalLo ? s.x1 : (s.phase == kEvalHi ? s.x2
+                                                              : s.soln);
+  T f, df;
+  talk(s.t, x, f, df, s.phase == kNewton);
+  if (s.phase == kEvalLo) {
+    s.flo = f;
+    s.phase = kEvalHi;
+    return false;
+  }
+  if (s.phase == kEvalHi) {
+    if (s.grows < cst::BRACKET_GROW_GUARD && not_bracketed(s.flo, f)) {
+      const T growth = m_sqrt(s.x2 / s.x1);
+      s.x1 = s.x1 / growth;
+      s.x2 = s.x2 * growth;
+      ++s.grows;
+      s.phase = kEvalLo;
+      return false;
+    }
+    const bool neg_at_x1 = s.flo < T(0);
+    s.xlo = neg_at_x1 ? s.x1 : s.x2;
+    s.xhi = neg_at_x1 ? s.x2 : s.x1;
+    s.soln = T(0.5) * (s.xlo + s.xhi);
+    s.dxold = m_abs(s.xlo - s.xhi);
+    s.dx = s.dxold;
+    s.phase = kNewton;
+    return false;
+  }
+  // re-bracket on the residual at the newest iterate (none before the
+  // first step: f is then the residual at the midpoint)
+  if (s.iters > 0) {
+    if (f < T(0)) {
+      s.xlo = s.soln;
+    } else if (f >= T(0)) {
+      s.xhi = s.soln;
+    }
+  }
+  // bisect when Newton would leave the bracket or converges too slowly
+  const T soln = s.soln, xlo = s.xlo, xhi = s.xhi;
+  const bool leave_bracket =
+      ((soln - xhi) * df - f) * ((soln - xlo) * df - f) >= T(0);
+  const bool dx_decrease = m_abs(T(2) * f) <= m_abs(s.dxold * df);
+  const bool bisect = leave_bracket || !dx_decrease;
+  s.dxold = s.dx;
+  const T dx_bis = T(0.5) * (xhi - xlo);
+  const T dx_newt = -f / df;
+  const T soln_n = bisect ? xlo + dx_bis : soln + dx_newt;
+  const bool stalled = bisect ? (xlo == soln_n) : (soln == soln_n);
+  s.dx = bisect ? dx_bis : dx_newt;
+  s.soln = soln_n;
+  ++s.iters;
+  return stalled || m_abs(s.dx) < xacc || s.iters == cst::MAXIT;
+}
+
+// ---- lanes over the threads of a grid, with or without refill
+//
+// Without refill the grid has one thread per lane, and each thread solves
+// its lane start to end with solve_htotal, so a warp waits for its
+// slowest lane.  With refill each warp works through chunks of 32
+// consecutive lanes and keeps every thread busy: at the top of each trip
+// it gives its threads whose lane is done the next lanes of its current
+// chunk, in the order of the threads.  Each chunk's inputs are copied
+// into shared memory one chunk ahead, while the warp works on the chunk
+// before (cp.async, one lane per thread, coalesced), so a refill waits
+// on no device memory and the copies hold no registers.  When the
+// current chunk is used up, the prefetched one takes its place, one
+// thread claims the next chunk from a counter in device memory (zero at
+// launch) and the warp starts copying it.  The loop is warp-synchronous:
+// every thread of a warp stays in it until no thread of the warp has a
+// lane.
+//
+// A lane source ``Src`` gives: ``kRaw``, the number of values of one
+// lane's inputs, and ``raw(j, i)``, the address of lane i's value j;
+// ``aux(i)``, the address of one int32 of lane i (or null); ``begin(i,
+// v, a, s)``, which starts lane i in s from its values v and int a and
+// returns true, or writes a result that needs no solve and returns false;
+// and ``finish(i, s)``, which writes the root s.soln of problem s.part and
+// returns true, or starts the lane's next problem in s and returns false.
+
+struct LaneQueue {
+  unsigned long long* counter;
+  int64_t nthreads;
+};
+
+// Shared memory of one warp's two chunk buffers, in bytes.
+template <typename T, typename Src>
+__host__ __device__ constexpr int refill_warp_bytes() {
+  return 2 * 32 * (Src::kRaw * static_cast<int>(sizeof(T)) + 4);
+}
+
+template <typename T, bool kRefill, typename Src>
+__device__ __forceinline__ void solve_lanes(const Src& src, int64_t n,
+                                            const LaneQueue& q,
+                                            unsigned char* smem) {
+  constexpr int kRaw = Src::kRaw;
+  const T xacc = solver_xacc<T>();
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  Lane<T> s;
+  T v[kRaw];
+  if constexpr (!kRefill) {
+    for (int64_t lane = first; lane < n; lane += q.nthreads) {
+#pragma unroll
+      for (int j = 0; j < kRaw; ++j) v[j] = *src.raw(j, lane);
+      const int32_t* a = src.aux(lane);
+      if (!src.begin(lane, v, a ? *a : 0, s)) continue;
+      do {
+        s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
+      } while (!src.finish(lane, s));
+    }
+    return;
+  }
+  constexpr unsigned kAll = 0xffffffffu;
+  const int me = static_cast<int>(threadIdx.x % 32);
+  const unsigned below = (1u << me) - 1u;
+  // this warp's buffers: values [buffer][j][slot], then ints [buffer][slot]
+  T* const vals = reinterpret_cast<T*>(
+      smem + (threadIdx.x / 32) * refill_warp_bytes<T, Src>());
+  int32_t* const ints = reinterpret_cast<int32_t*>(vals + 2 * kRaw * 32);
+  // copy lane base + me's inputs into buffer b
+  auto copy = [&](int b, int64_t base) {
+    const int64_t lane = base + me;
+    if (lane < n) {
+#pragma unroll
+      for (int j = 0; j < kRaw; ++j) {
+        __pipeline_memcpy_async(vals + (b * kRaw + j) * 32 + me,
+                                src.raw(j, lane), sizeof(T));
+      }
+      if (const int32_t* a = src.aux(lane)) {
+        __pipeline_memcpy_async(ints + b * 32 + me, a, sizeof(int32_t));
+      }
+    }
+    __pipeline_commit();
+  };
+  auto claim = [&](int b) {
+    unsigned long long c = 0;
+    if (me == 0) c = atomicAdd(q.counter, 32ull);
+    const int64_t base =
+        q.nthreads + static_cast<int64_t>(__shfl_sync(kAll, c, 0));
+    copy(b, base);
+    return base;
+  };
+  // the current chunk [cur, cur + 32) in buffer ``now`` (``used`` lanes
+  // handed out) and the next one [nxt, nxt + 32) in buffer 1 - now
+  int now = 0, used = 0;
+  int64_t cur = first - me;
+  copy(now, cur);
+  int64_t nxt = claim(1 - now);
+  __pipeline_wait_prior(1);
+  __syncwarp();
+  int64_t lane = n;
+  bool busy = false, done = false;
+  for (;;) {
+    // hand out lanes to the threads without one (a lane that needs no
+    // solve leaves its thread without one again); every value that
+    // decides a branch here is the same in all threads of the warp, and
+    // a trip where every thread is busy costs one ballot
+    unsigned idle = __ballot_sync(kAll, !busy);
+    while (idle != 0 && cur < n) {
+      if (used == 32) {
+        __pipeline_wait_prior(0);
+        __syncwarp();
+        now = 1 - now;
+        cur = nxt;
+        used = 0;
+        if (cur >= n) break;
+        nxt = claim(1 - now);
+      }
+      const int rank = __popc(idle & below);
+      const int take = min(__popc(idle), 32 - used);
+      if (!busy && rank < take) {
+        const int slot = used + rank;
+        lane = cur + slot;
+        if (lane < n) {
+#pragma unroll
+          for (int j = 0; j < kRaw; ++j) {
+            v[j] = vals[(now * kRaw + j) * 32 + slot];
+          }
+          busy = src.begin(lane, v, ints[now * 32 + slot], s);
+        }
+      }
+      used += take;
+      idle = __ballot_sync(kAll, !busy);
+    }
+    if (idle == kAll) break;
+    // a converged problem waits (``done``) until a quarter of the warp's
+    // threads have one, or all busy threads do, and then they write their
+    // results together: so the speciation and the next problem's start,
+    // which diverge from the residual, are paid once per batch and not
+    // in nearly every trip
+    if (busy && !done) done = lane_step(s, xacc);
+    const unsigned fin = __ballot_sync(kAll, done);
+    if (__popc(fin) >= 8 || fin == ~idle) {
+      if (done) {
+        done = false;
+        if (src.finish(lane, s)) busy = false;
+      }
+    }
+  }
+}
+
+// Blocks of ``threads`` for ``n`` lanes: with refill as many as are
+// resident on the card at once with ``smem`` bytes of shared memory each
+// (queried at the kernel's first launch in the process, so later
+// launches pay no host query), else one thread per lane.
+template <auto Kernel>
+inline unsigned lane_blocks(int threads, int64_t n, bool refill,
+                            int smem) {
+  int64_t blocks = (n + threads - 1) / threads;
+  if (refill) {
+    static const int64_t resident = [threads, smem] {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (smem > 48 * 1024) {
+        cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+      }
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                    threads, smem);
+      return static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+    }();
+    if (blocks > resident) blocks = resident;
+  }
+  if (blocks > 0x7fffffff) blocks = 0x7fffffff;
+  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
 }
 
 }  // namespace obgc

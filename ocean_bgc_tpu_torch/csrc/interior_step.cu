@@ -9,45 +9,59 @@
 // scavenging from the incoming sinking flux, the sinking-particle level
 // update, nutrient restoring and the 30 tendency expressions.
 //
-// Design.  One thread per column, with a loop over levels inside.
-// Columns are the fastest axis of every array, so a warp's loads of
-// level k are coalesced; the ragged edge is masked by col < ncol, so no
-// padding is needed.  PAR (a running product of the attenuation of the
-// levels above) and the 11-field sinking carry are the only dependences
-// across levels; both live in registers, and every other term is
-// per cell, so nothing of length nlev is stored.  The loop computes the
-// active levels k < kmax only; below them it writes zero tendencies and
-// copies the previous pH, which is all the plain version keeps there
-// (the TPU kernel solves a stand-in problem in those cells only because
-// it works on full 128-lane tiles).  Each expression keeps
-// the plain version's operation order, with PyTorch's CUDA semantics:
-// a tensor divided by a Python scalar is multiplied by the scalar's
-// reciprocal in the working type (div_scalar), selects and clamps keep
-// NaN.  The equilibrium constants, the Q10 response and the 8
-// dissolution factors are read precomputed (the env cache, or the
-// wrapper's torch evaluation of the same expressions), so the kernel
-// holds no copy of carbonate_coeffs.  Parameters arrive by value, in
+// Design.  Two kernels per step, both cell-parallel.  With diagnostics
+// off the pH solve feeds nothing else here, so it is its own kernel: the
+// solve kernel runs the dual solve of every active cell as lanes of
+// carbonate_solve.cuh (the routine K1 runs: one lane per thread, or with
+// refill), and copies the previous pH below the bottom.  The biology
+// kernel gives each block of 128 threads all levels of a few whole
+// columns (16 at f64 and 32 at f32 for 60 levels; threads loop over the
+// tile's cells) and runs five phases separated by barriers, staging 8
+// values per cell in dynamic shared memory: (1) per cell, the clipped
+// tracers' PAR attenuation; (2) per column, one thread, PAR's running
+// product of the attenuation in level order, the rounding order of the
+// plain version's sequential cumprod; (3) per cell, the kinetics'
+// particulate sources; (4) per column, one thread, Fe scavenging and the
+// sinking-particle level update down the active levels, with the
+// 11-field carry in registers and each level's other inputs loaded from
+// device memory one level ahead; (5) per cell, the kinetics again,
+// restoring and the 30 tendencies (zero below the bottom).  Phase 5
+// recomputes the kinetics: a thread holds several cells, and one cell's
+// ~200 live values across two barriers already spill at f64.  Columns
+// are the fastest axis of every array and a tile's neighbouring threads
+// take neighbouring columns, so global loads are coalesced in groups of
+// ``cols``; the ragged edge is masked by col < ncol.  Each expression
+// keeps the plain version's operation order, with PyTorch's CUDA
+// semantics: a tensor divided by a Python scalar is multiplied by the
+// scalar's reciprocal in the working type (div_scalar), selects and
+// clamps keep NaN.  The equilibrium constants, the Q10 response and the
+// 8 dissolution factors are read precomputed (the env cache, or the
+// wrapper's torch evaluation of the same expressions), so the kernels
+// hold no copy of carbonate_coeffs.  Parameters arrive by value, in
 // double (ops/kernel_params.py); each product of parameters is formed
 // in double and rounded to the working type, as Python and PyTorch do.
 // Templated on float and double; built with --fmad=false and IEEE
 // division.
 //
-// Bound.  Per active cell it must read 61 fields (30 tracers, 7
+// Bound.  Per active cell the pair must read 61 fields (30 tracers, 7
 // per-level fields, 15 constants, the Q10 response and 8 dissolution
 // factors), per inactive cell the 2 previous pH fields, and per cell
 // write 32 (30 tendencies, 2 pH): ~93 * sizeof(T) bytes per active cell,
 // ~0.1 / 0.05 ms at 3.35 TB/s for the 60 x 8192 flagship world at f64 /
 // f32 (chip_smoke.py computes it from the run's kmax).  Its arithmetic
 // is ~1,700 operations per active cell besides the pH solve (counted in
-// chip_smoke.py, OPS_K2_CELL), ~0.04 ms at the f64 rate: the kernel is
-// bound by device memory.  What the design does about it: every field is read once and
-// every output written once, coalesced, with nothing staged in device
-// memory between the solve, the kinetics, the sinking and the assembly.
-// What it leaves: one thread per column fills only 128 blocks of 64
-// threads at 8192 columns (one block per SM of the 132, two warps), so
-// the kernel is latency-bound well above its bound, and at f64 the ~200
-// live values of the kinetics spill registers; both are for a later PR
-// (one thread per cell with a level scan, shared-memory staging).
+// chip_smoke.py, OPS_K2_CELL, with each division, exp and log as one),
+// ~0.04 ms at the f64 rate.  What held the first version (one thread per
+// column, 1.66 / 1.96 ms at f64 / f32 on the H100) far above that: 8192
+// threads for 491,520 cells, two warps per SM, each thread's pH solves,
+// kinetics and sinking in series down 60 levels.  This design gives
+// every cell a thread in the solve and the kinetics.  What bounds it now
+// (PERF.md): the kinetics need ~200-255 registers, so an SM holds 8
+// warps of the biology kernel, and the per-column scans run on ``cols``
+// threads of a block while its other threads wait at the barrier; the
+// tile is sized so that two blocks fit on an SM and one block's scans
+// overlap the other's per-cell phases.  The tracers are read three times
+// per cell (phases 1, 3 and 5), the repeats mostly from L2.
 
 #include <cuda_runtime.h>
 
@@ -252,6 +266,42 @@ __device__ __forceinline__ T morel_kpar(T chl) {
 template <typename T>
 __device__ __forceinline__ T sed_pow(T x) { return m_pow(T(0.99), x); }
 
+// ---- PAR attenuation of a cell, which the level scan of PAR reads and
+// the kinetics repeat ----------------------------------------------------
+
+// True where group g's coupled pools are masked to zero (a zero
+// chlorophyll, carbon, iron or silica pool; BGC_mod.F90:826-844).
+template <typename T>
+__device__ __forceinline__ bool pools_zero(const T (&tr)[TR_CNT], int g) {
+  bool zero = tr[TR_CHL_IND[g]] == T(0) || tr[TR_C_IND[g]] == T(0) ||
+              tr[TR_FE_IND[g]] == T(0);
+  if (TR_SI_IND[g] >= 0) zero = zero || tr[TR_SI_IND[g]] == T(0);
+  return zero;
+}
+
+// The chlorophyll of each group after the zero mask.
+template <typename T>
+__device__ __forceinline__ void active_chl(const T (&tr)[TR_CNT],
+                                           T (&a_chl)[kNumAuto]) {
+#pragma unroll
+  for (int g = 0; g < kNumAuto; ++g) {
+    a_chl[g] = pools_zero(tr, g) ? T(0) : tr[TR_CHL_IND[g]];
+  }
+}
+
+// exp(-KPARdz) of a cell from its masked chlorophyll (BGC_mod.F90:
+// 907-924); sets ``kpar_dz``.
+template <typename T>
+__device__ __forceinline__ T attenuation(const T (&a_chl)[kNumAuto], T dz,
+                                         T& kpar_dz) {
+  T total_chl = T(0);
+#pragma unroll
+  for (int g = 0; g < kNumAuto; ++g) total_chl = total_chl + a_chl[g];
+  const T kpar = morel_kpar(clamp_min(total_chl, T(0.02)));
+  kpar_dz = kpar * dz;
+  return m_exp(-kpar_dz);
+}
+
 // ---- the per-cell ecosystem kinetics (ops/bgc.py::ecosystem_kinetics,
 // BGC_mod.F90:826-1529) -------------------------------------------------
 
@@ -289,13 +339,12 @@ __device__ __forceinline__ Kinetics<T> ecosystem_kinetics(
   // zero-mask coupled phyto pools (BGC_mod.F90:826-844)
   T a_chl[kNumAuto], a_c[kNumAuto], a_fe[kNumAuto], a_si[kNumAuto],
       a_caco3[kNumAuto];
+  active_chl(tr, a_chl);
 #pragma unroll
   for (int g = 0; g < kNumAuto; ++g) {
-    const T chl_g = tr[TR_CHL_IND[g]], c_g = tr[TR_C_IND[g]];
+    const T c_g = tr[TR_C_IND[g]];
     const T fe_g = tr[TR_FE_IND[g]];
-    bool zero = chl_g == T(0) || c_g == T(0) || fe_g == T(0);
-    if (TR_SI_IND[g] >= 0) zero = zero || tr[TR_SI_IND[g]] == T(0);
-    a_chl[g] = zero ? T(0) : chl_g;
+    const bool zero = pools_zero(tr, g);
     a_c[g] = zero ? T(0) : c_g;
     a_fe[g] = zero ? T(0) : fe_g;
     a_si[g] = (TR_SI_IND[g] >= 0 && !zero) ? tr[TR_SI_IND[g]] : T(0);
@@ -338,12 +387,7 @@ __device__ __forceinline__ Kinetics<T> ecosystem_kinetics(
   }
 
   // PAR attenuation (BGC_mod.F90:907-924)
-  T total_chl = T(0);
-#pragma unroll
-  for (int g = 0; g < kNumAuto; ++g) total_chl = total_chl + a_chl[g];
-  const T kpar = morel_kpar(clamp_min(total_chl, T(0.02)));
-  K.kpar_dz = kpar * dz;
-  const T att = m_exp(-K.kpar_dz);
+  const T att = attenuation(a_chl, dz, K.kpar_dz);
   K.att = att;
   K.par_in = par_surf * par_prod;
   K.par_out = K.par_in * att;
@@ -980,99 +1024,271 @@ __device__ __forceinline__ void assemble_tendencies(
   tend[TR_O2] = o2_production - o2_consumption;
 }
 
-// ---- the kernel: one thread per column, one pass down the column -----
+// ---- the solve kernel: the dual pH solve of every cell, cell-parallel --
 
-constexpr int kThreads = 64;
+// Lane i is cell i = k * ncol + col: ambient, then ALT_CO2 on the same
+// constants; a cell below its column's bottom copies both previous pH
+// fields and needs no solve.
+template <typename T>
+struct InteriorLanes {
+  Ptrs f;
+  int64_t ncol;
+
+  // DIC, ALK, PO4, SiO3 (unclipped), the two previous pH fields, the 15
+  // constants; the int is the column's kmax
+  static constexpr int kRaw = 21;
+
+  __device__ __forceinline__ const T* raw(int j, int64_t i) const {
+    if (j < 4) {
+      constexpr int kTracer[4] = {TR_DIC, TR_ALK, TR_PO4, TR_SIO3};
+      const int64_t k = i / ncol, col = i - k * ncol;
+      return in<T>(f, F_tracers) + (k * TR_CNT + kTracer[j]) * ncol + col;
+    }
+    return in<T>(f, j == 4 ? F_ph_prev
+                           : (j == 5 ? F_ph_prev_alt : F_k0 + (j - 6))) + i;
+  }
+
+  __device__ __forceinline__ const int32_t* aux(int64_t i) const {
+    return in<int32_t>(f, F_kmax) + i % ncol;
+  }
+
+  __device__ __forceinline__ bool begin(int64_t i, const T (&v)[kRaw],
+                                        int kmax, Lane<T>& s) const {
+    if (i / ncol >= kmax) {
+      out<T>(f, F_ph)[i] = v[4];
+      out<T>(f, F_ph_alt)[i] = v[5];
+      return false;
+    }
+    // clip the tracers (BGC_mod.F90:747-785), then ops/bgc.py::
+    // carbonate_inputs' mass units
+    s.t = talk_terms(coeffs_of(v + 6),
+                     to_mass_units(clamp_min(v[0], T(0)),
+                                   clamp_min(v[1], T(0)),
+                                   clamp_min(v[2], T(0)),
+                                   clamp_min(v[3], T(0))));
+    s.ph_alt = v[5];
+    s.part = 0;
+    T x1, x2;
+    ph_bracket(v[4], x1, x2);
+    lane_begin(s, x1, x2);
+    return true;
+  }
+
+  __device__ __forceinline__ bool finish(int64_t i, Lane<T>& s) const {
+    out<T>(f, s.part == 0 ? F_ph : F_ph_alt)[i] = -m_log10(s.soln);
+    if (s.part == 1) return true;
+    s.part = 1;
+    T x1, x2;
+    ph_bracket(s.ph_alt, x1, x2);
+    lane_begin(s, x1, x2);
+    return false;
+  }
+};
+
+constexpr int kSolveThreads = 256;
+
+template <typename T, bool kRefill>
+__global__ void __launch_bounds__(kSolveThreads)
+    interior_solve_kernel(InteriorLanes<T> src, int64_t n, LaneQueue q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  solve_lanes<T, kRefill>(src, n, q, smem);
+}
+
+// ---- the biology kernel: a tile of whole columns per block ------------
+
+// The per-cell values staged in shared memory, one slot of cols * nlev
+// values each (ops/cuda_step.py::STAGED_FIELDS counts them).  The sinking
+// scan (phase 4) reads a level's particulate sources and then writes
+// that level's results over them.
+enum Stage : int {
+  S_par_prod,      // att (phase 1), then the product of the levels above
+  S_poc,           // poc_prod, then poc_remin
+  S_caco3,         // caco3_prod, then caco3_remin
+  S_sio2,          // sio2_prod, then sio2_remin
+  S_fe,            // fe_prod_base, then fe_remin
+  S_sed_denitrif,
+  S_other_remin,
+  S_fe_scavenge,
+  S_COUNT
+};
+
+// ops/cuda_step.py::BIO_THREADS
+constexpr int kBioThreads = 128;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    interior_step_kernel(Ptrs f, Params p, int nlev, int ncol) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= ncol) return;
-  const int64_t n = ncol;
-  const int kmax = in<int32_t>(f, F_kmax)[col];
+__device__ __forceinline__ void load_tracers(const Ptrs& f, int64_t k,
+                                             int64_t col, int64_t n,
+                                             T (&tr)[TR_CNT]) {
+  const T* trk = in<T>(f, F_tracers) + k * TR_CNT * n + col;
+#pragma unroll
+  for (int i = 0; i < TR_CNT; ++i) tr[i] = clamp_min(trk[i * n], T(0));
+}
+
+// The kinetics of the active cell (k, col), PAR from its staged product.
+template <typename T>
+__device__ __forceinline__ Kinetics<T> cell_kinetics(
+    const Ptrs& f, const Params& p, int64_t k, int64_t col, int64_t n,
+    const T (&tr)[TR_CNT], T par_prod) {
+  const int64_t cell = k * n + col;
   const T lat = in<T>(f, F_lat)[col];
-  const bool north = lat >= T(0);
-  const bool south = lat <= T(0);
   // surface initializations (BGC_mod.F90:808-814)
   const T par_surf =
       clamp_min(in<T>(f, F_shortwave)[col], T(0)) * T(F_QSW_PAR);
-  Carry<T> cr = init_carry(clamp_min(in<T>(f, F_dust)[col], T(0)));
-  T par_prod = T(1);
+  return ecosystem_kinetics(tr, in<T>(f, F_temp)[cell], in<T>(f, F_dz)[cell],
+                            in<T>(f, F_center)[cell], lat >= T(0),
+                            lat <= T(0), par_surf, par_prod,
+                            in<T>(f, F_tfunc)[cell], p);
+}
 
+// What the sinking scan reads of a level from device memory: the clipped
+// Fe, O2 and NO3 and the per-level fields.  The scan loads the next
+// level's while it computes this one's.
+template <typename T>
+struct LevelIn {
+  T fe, o2, no3, dz, bottom, fesed;
+  Dissolution<T> d;
+
+  __device__ __forceinline__ void load(const Ptrs& f, int64_t k, int64_t col,
+                                       int64_t n) {
+    const T* trk = in<T>(f, F_tracers) + k * TR_CNT * n + col;
+    const int64_t cell = k * n + col;
+    fe = clamp_min(trk[TR_FE * n], T(0));
+    o2 = clamp_min(trk[TR_O2 * n], T(0));
+    no3 = clamp_min(trk[TR_NO3 * n], T(0));
+    dz = in<T>(f, F_dz)[cell];
+    bottom = in<T>(f, F_bottom)[cell];
+    fesed = in<T>(f, F_fesed)[cell];
+    d = {in<T>(f, F_scalelength)[cell],  in<T>(f, F_decay_hard)[cell],
+         in<T>(f, F_decay_hard_dust)[cell], in<T>(f, F_decay_caco3)[cell],
+         in<T>(f, F_caco3_diss)[cell],   in<T>(f, F_decay_sio2)[cell],
+         in<T>(f, F_sio2_diss)[cell],    in<T>(f, F_decay_dust)[cell]};
+  }
+};
+
+// Block b holds columns [b * cols, b * cols + cols) at every level: tile
+// cell i is level i / cols of column b * cols + i % cols, so neighbouring
+// threads read neighbouring columns.  Threads loop over the tile's cells.
+// The phases are separated by barriers, and every thread reaches every
+// barrier.  Two blocks are kept resident per SM.
+template <typename T>
+__global__ void __launch_bounds__(kBioThreads, 2)
+    interior_bio_kernel(Ptrs f, Params p, int nlev, int ncol, int cols) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const st = reinterpret_cast<T*>(smem);
+  const int tile = cols * nlev;
+  const int64_t n = ncol;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const int32_t* const kmax = in<int32_t>(f, F_kmax);
+  auto at = [&](int slot, int i) -> T& { return st[slot * tile + i]; };
+
+  // 1. per cell: clip the tracers, the cell's PAR attenuation
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+    const int64_t k = i / cols, col = col0 + i % cols;
+    if (col >= n || k >= kmax[col]) continue;
+    T tr[TR_CNT];
+    load_tracers(f, k, col, n, tr);
+    T a_chl[kNumAuto], kpar_dz;
+    active_chl(tr, a_chl);
+    at(S_par_prod, i) = attenuation(a_chl, in<T>(f, F_dz)[k * n + col],
+                                    kpar_dz);
+  }
+  __syncthreads();
+
+  // 2. per column, one thread: PAR's running product of the attenuation
+  // of the levels above, in level order (_par_field's exclusive cumprod)
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    const int64_t col = col0 + c;
+    if (col >= n) continue;
+    T par_prod = T(1);
+    for (int k = 0; k < nlev && k < kmax[col]; ++k) {
+      T& slot = at(S_par_prod, k * cols + c);
+      const T att = slot;
+      slot = par_prod;
+      par_prod = par_prod * att;
+    }
+  }
+  __syncthreads();
+
+  // 3. per cell: the kinetics' particulate sources
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+    const int64_t k = i / cols, col = col0 + i % cols;
+    if (col >= n || k >= kmax[col]) continue;
+    T tr[TR_CNT];
+    load_tracers(f, k, col, n, tr);
+    const Kinetics<T> K =
+        cell_kinetics(f, p, k, col, n, tr, at(S_par_prod, i));
+    at(S_poc, i) = K.poc_prod;
+    at(S_caco3, i) = K.caco3_prod;
+    at(S_sio2, i) = K.sio2_prod;
+    at(S_fe, i) = K.fe_prod_base;
+  }
+  __syncthreads();
+
+  // 4. per column, one thread: Fe scavenging and the sinking-particle
+  // level update down the active levels, the carry in registers
+  const double fe_scav0 = p.g(P_parm_fe_scavenge_rate0);
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    const int64_t col = col0 + c;
+    if (col >= n) continue;
+    const int kbot = kmax[col];
+    const int kend = kbot < nlev ? kbot : nlev;
+    Carry<T> cr = init_carry(clamp_min(in<T>(f, F_dust)[col], T(0)));
+    LevelIn<T> next;
+    if (kend > 0) next.load(f, 0, col, n);
+    for (int k = 0; k < kend; ++k) {
+      const int i = k * cols + c;
+      const LevelIn<T> lv = next;
+      if (k + 1 < kend) next.load(f, k + 1, col, n);
+      // iron scavenging scales with the sinking mass flux entering this
+      // level, i.e. the carry (BGC_mod.F90:1510-1522)
+      T fe_scavenge_rate =
+          T(fe_scav0) * ((((cr.poc_s + cr.poc_h) * T(120.1) +
+                           (cr.caco3_s + cr.caco3_h) * T(P_CACO3_MASS)) +
+                          (cr.sio2_s + cr.sio2_h) * T(P_SIO2_MASS)) +
+                         (cr.dust_s + cr.dust_h) * T(DUST_FESCAV_SCALE));
+      fe_scavenge_rate =
+          lv.fe > T(FE_SCAVENGE_THRES1)
+              ? fe_scavenge_rate +
+                    (lv.fe - T(FE_SCAVENGE_THRES1)) * T(FE_MAX_SCALE2)
+              : fe_scavenge_rate;
+      const T fe_scavenge = (lv.fe * T(YPS)) * fe_scavenge_rate;
+      const ParticleOut<T> pt = particulate_level_update(
+          cr, at(S_poc, i), at(S_caco3, i), at(S_sio2, i),
+          at(S_fe, i) + fe_scavenge, lv.o2, lv.no3, lv.dz, lv.bottom,
+          lv.fesed, k + 1 == kbot, lv.d, p);
+      at(S_poc, i) = pt.poc_remin;
+      at(S_caco3, i) = pt.caco3_remin;
+      at(S_sio2, i) = pt.sio2_remin;
+      at(S_fe, i) = pt.fe_remin;
+      at(S_sed_denitrif, i) = pt.sed_denitrif;
+      at(S_other_remin, i) = pt.other_remin;
+      at(S_fe_scavenge, i) = fe_scavenge;
+    }
+  }
+  __syncthreads();
+
+  // 5. per cell: the kinetics again, restoring and the 30 tendencies;
+  // zero below the bottom (all levels of land columns)
   const bool rest_no3 = p.g(P_lrest_no3) != 0.0;
   const bool rest_po4 = p.g(P_lrest_po4) != 0.0;
   const bool rest_sio3 = p.g(P_lrest_sio3) != 0.0;
-  const double fe_scav0 = p.g(P_parm_fe_scavenge_rate0);
-
-  // the active levels k < kmax; PAR and the carry only move downwards,
-  // so nothing below them changes their results
-  const int kend = kmax < 0 ? 0 : (kmax < nlev ? kmax : nlev);
-  int k = 0;
-  for (; k < kend; ++k) {
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+    const int64_t k = i / cols, col = col0 + i % cols;
+    if (col >= n) continue;
     const int64_t cell = k * n + col;
-    const bool is_bottom = k + 1 == kmax;
-
-    // setup: clip negative tracers (BGC_mod.F90:747-785)
-    T tr[TR_CNT];
-    const T* trk = in<T>(f, F_tracers) + k * TR_CNT * n + col;
+    T* tk = out<T>(f, F_tend) + k * TR_CNT * n + col;
+    if (k >= kmax[col]) {
 #pragma unroll
-    for (int i = 0; i < TR_CNT; ++i) tr[i] = clamp_min(trk[i * n], T(0));
-    const T temp = in<T>(f, F_temp)[cell];
-    const T dz = in<T>(f, F_dz)[cell];
-    const T ph_prev = in<T>(f, F_ph_prev)[cell];
-    const T ph_prev_alt = in<T>(f, F_ph_prev_alt)[cell];
-
-    // dual pH solve (ops/bgc.py::carbonate_inputs, then K1's solve),
-    // warm from the previous pH
-    {
-      const MassUnits<T> m = to_mass_units(tr[TR_DIC], tr[TR_ALK],
-                                           tr[TR_PO4], tr[TR_SIO3]);
-      const Coeffs<T> c{
-          in<T>(f, F_k0)[cell],  in<T>(f, F_k1)[cell],
-          in<T>(f, F_k2)[cell],  in<T>(f, F_ff)[cell],
-          in<T>(f, F_kb)[cell],  in<T>(f, F_k1p)[cell],
-          in<T>(f, F_k2p)[cell], in<T>(f, F_k3p)[cell],
-          in<T>(f, F_ksi)[cell], in<T>(f, F_kw)[cell],
-          in<T>(f, F_ks)[cell],  in<T>(f, F_kf)[cell],
-          in<T>(f, F_bt)[cell],  in<T>(f, F_st)[cell],
-          in<T>(f, F_ft)[cell]};
-      out<T>(f, F_ph)[cell] = -m_log10(solve_scenario(c, m, ph_prev));
-      out<T>(f, F_ph_alt)[cell] =
-          -m_log10(solve_scenario(c, m, ph_prev_alt));
+      for (int j = 0; j < TR_CNT; ++j) tk[j * n] = T(0);
+      continue;
     }
-
-    const Kinetics<T> K = ecosystem_kinetics(
-        tr, temp, dz, in<T>(f, F_center)[cell], north, south, par_surf,
-        par_prod, in<T>(f, F_tfunc)[cell], p);
-    par_prod = par_prod * K.att;
-
-    // iron scavenging scales with the sinking mass flux entering this
-    // level, i.e. the carry (BGC_mod.F90:1510-1522)
-    const T fe_k = tr[TR_FE];
-    T fe_scavenge_rate =
-        T(fe_scav0) * ((((cr.poc_s + cr.poc_h) * T(120.1) +
-                         (cr.caco3_s + cr.caco3_h) * T(P_CACO3_MASS)) +
-                        (cr.sio2_s + cr.sio2_h) * T(P_SIO2_MASS)) +
-                       (cr.dust_s + cr.dust_h) * T(DUST_FESCAV_SCALE));
-    fe_scavenge_rate =
-        fe_k > T(FE_SCAVENGE_THRES1)
-            ? fe_scavenge_rate +
-                  (fe_k - T(FE_SCAVENGE_THRES1)) * T(FE_MAX_SCALE2)
-            : fe_scavenge_rate;
-    const T fe_scavenge = (fe_k * T(YPS)) * fe_scavenge_rate;
-
-    const Dissolution<T> d{
-        in<T>(f, F_scalelength)[cell], in<T>(f, F_decay_hard)[cell],
-        in<T>(f, F_decay_hard_dust)[cell], in<T>(f, F_decay_caco3)[cell],
-        in<T>(f, F_caco3_diss)[cell], in<T>(f, F_decay_sio2)[cell],
-        in<T>(f, F_sio2_diss)[cell], in<T>(f, F_decay_dust)[cell]};
-    const ParticleOut<T> pt = particulate_level_update(
-        cr, K.poc_prod, K.caco3_prod, K.sio2_prod,
-        K.fe_prod_base + fe_scavenge, tr[TR_O2], tr[TR_NO3], dz,
-        in<T>(f, F_bottom)[cell], in<T>(f, F_fesed)[cell], is_bottom, d,
-        p);
-
+    T tr[TR_CNT];
+    load_tracers(f, k, col, n, tr);
+    const Kinetics<T> K =
+        cell_kinetics(f, p, k, col, n, tr, at(S_par_prod, i));
+    const ParticleOut<T> pt{at(S_poc, i),          at(S_caco3, i),
+                            at(S_sio2, i),         at(S_fe, i),
+                            at(S_sed_denitrif, i), at(S_other_remin, i)};
     // nutrient restoring, gated by the static lrest_* flags
     // (ops/bgc.py::compute_restoring); the fields are read only when on
     const T restore_no3 =
@@ -1087,35 +1303,58 @@ __global__ void __launch_bounds__(kThreads)
         rest_po4 ? in<T>(f, F_rtau)[cell] *
                        (in<T>(f, F_po4_clim)[cell] - tr[TR_PO4])
                  : T(0);
-
     T tend[TR_CNT];
-    assemble_tendencies(K, pt, fe_scavenge, tr, restore_no3, restore_sio3,
-                        restore_po4, p, tend);
-    T* tk = out<T>(f, F_tend) + k * TR_CNT * n + col;
+    assemble_tendencies(K, pt, at(S_fe_scavenge, i), tr, restore_no3,
+                        restore_sio3, restore_po4, p, tend);
 #pragma unroll
-    for (int i = 0; i < TR_CNT; ++i) tk[i * n] = tend[i];
-  }
-  // below the bottom (all levels of land columns): no tendency, and the
-  // pH fields keep their previous values
-  for (; k < nlev; ++k) {
-    const int64_t cell = k * n + col;
-    T* tk = out<T>(f, F_tend) + k * TR_CNT * n + col;
-#pragma unroll
-    for (int i = 0; i < TR_CNT; ++i) tk[i * n] = T(0);
-    out<T>(f, F_ph)[cell] = in<T>(f, F_ph_prev)[cell];
-    out<T>(f, F_ph_alt)[cell] = in<T>(f, F_ph_prev_alt)[cell];
+    for (int j = 0; j < TR_CNT; ++j) tk[j * n] = tend[j];
   }
 }
 
+// Shared memory of one block of ``cols`` columns.
 template <typename T>
-int launch(const void* const* fields, const double* params, int nlev,
-           int ncol, cudaStream_t stream) {
+size_t bio_smem_bytes(int nlev, int cols) {
+  return static_cast<size_t>(S_COUNT) * nlev * cols * sizeof(T);
+}
+
+template <typename T, bool kRefill>
+int launch_solve(const void* const* fields, int nlev, int ncol,
+                 void* counter, cudaStream_t stream) {
+  InteriorLanes<T> src;
+  for (int j = 0; j < F_COUNT; ++j) src.f.p[j] = fields[j];
+  src.ncol = ncol;
+  const int64_t n = static_cast<int64_t>(nlev) * ncol;
+  const int smem =
+      kRefill ? kSolveThreads / 32 * refill_warp_bytes<T, InteriorLanes<T>>()
+              : 0;
+  const unsigned blocks = lane_blocks<interior_solve_kernel<T, kRefill>>(
+      kSolveThreads, n, kRefill, smem);
+  const LaneQueue q{static_cast<unsigned long long*>(counter),
+                    static_cast<int64_t>(blocks) * kSolveThreads};
+  interior_solve_kernel<T, kRefill><<<blocks, kSolveThreads, smem, stream>>>(
+      src, n, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bio(const void* const* fields, const double* params, int nlev,
+               int ncol, int cols, cudaStream_t stream) {
   Ptrs f;
   for (int j = 0; j < F_COUNT; ++j) f.p[j] = fields[j];
   Params p;
   for (int j = 0; j < kNumParams; ++j) p.v[j] = params[j];
-  const int blocks = (ncol + kThreads - 1) / kThreads;
-  interior_step_kernel<T><<<blocks, kThreads, 0, stream>>>(f, p, nlev, ncol);
+  const size_t smem = bio_smem_bytes<T>(nlev, cols);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        interior_bio_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int tile = cols * nlev;
+  const int threads = tile < kBioThreads ? tile : kBioThreads;
+  const unsigned blocks = static_cast<unsigned>((ncol + cols - 1) / cols);
+  interior_bio_kernel<T><<<blocks, threads, smem, stream>>>(f, p, nlev, ncol,
+                                                            cols);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1136,20 +1375,60 @@ __global__ void site_test_kernel(int site, const T* x, T* y, int64_t n) {
 }  // namespace obgc
 
 // Plain C interface for ctypes.  ``fields`` holds the obgc::Field
-// pointers (ops/cuda_step.py::KERNEL_FIELDS), ``params`` the
-// obgc_interior_num_params() host doubles of
-// ops/kernel_params.py::pack_bgc_params.  All floating fields are of
-// one type (double if ``is_double``, else float), kmax is int32.
-// Launches on ``stream`` and returns cudaGetLastError() (0 on success).
-extern "C" int obgc_interior_step(int is_double, const void* const* fields,
-                                  const double* params, int nlev, int ncol,
-                                  void* stream) {
+// pointers (ops/cuda_step.py::KERNEL_FIELDS).  All floating fields are
+// of one type (double if ``is_double``, else float), kmax is int32.  Each
+// launches on ``stream`` and returns cudaGetLastError() (0 on success).
+
+// The solve kernel: the pH fields of every cell.  ``counter`` is one
+// zeroed unsigned 64-bit integer of device memory, used when ``refill``
+// is nonzero.
+extern "C" int obgc_interior_solve(int is_double, const void* const* fields,
+                                   int nlev, int ncol, void* counter,
+                                   int refill, void* stream) {
   if (ncol <= 0 || nlev <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return obgc::launch<double>(fields, params, nlev, ncol, s);
+    return refill ? obgc::launch_solve<double, true>(fields, nlev, ncol,
+                                                     counter, s)
+                  : obgc::launch_solve<double, false>(fields, nlev, ncol,
+                                                      counter, s);
   }
-  return obgc::launch<float>(fields, params, nlev, ncol, s);
+  return refill ? obgc::launch_solve<float, true>(fields, nlev, ncol, counter,
+                                                  s)
+                : obgc::launch_solve<float, false>(fields, nlev, ncol,
+                                                   counter, s);
+}
+
+// The biology kernel: the tendencies of every cell, ``cols`` columns per
+// block; ``params`` holds the obgc_interior_num_params() host doubles of
+// ops/kernel_params.py::pack_bgc_params.
+extern "C" int obgc_interior_bio(int is_double, const void* const* fields,
+                                 const double* params, int nlev, int ncol,
+                                 int cols, void* stream) {
+  if (ncol <= 0 || nlev <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    return obgc::launch_bio<double>(fields, params, nlev, ncol, cols, s);
+  }
+  return obgc::launch_bio<float>(fields, params, nlev, ncol, cols, s);
+}
+
+// The biology kernel's shared memory for a block of ``cols`` columns of
+// ``nlev`` levels, in bytes.
+extern "C" long long obgc_interior_bio_smem(int is_double, int nlev,
+                                            int cols) {
+  return static_cast<long long>(
+      is_double ? obgc::bio_smem_bytes<double>(nlev, cols)
+                : obgc::bio_smem_bytes<float>(nlev, cols));
+}
+
+// The most dynamic shared memory a block of the current device may use.
+extern "C" long long obgc_interior_smem_limit() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
 }
 
 extern "C" int obgc_interior_num_params() { return obgc::kNumParams; }

@@ -146,7 +146,8 @@ def evaluate_tendencies(
     """The coupled model's right-hand side: surface fluxes + all three
     source-sink steps.  Returns (tendencies, diagnostics); with
     diagnostics off the dict is empty.  ``carbonate_impl``: "auto" |
-    "kernel" | "torch" (see ``ops/cuda_carbonate.py``).  ``interior_impl``:
+    "kernel" | "torch" (see ``ops/cuda_carbonate.py``), for the surface
+    pair's pH solve and the default interior's.  ``interior_impl``:
     "auto" | "xla" | "fused" (see :func:`_resolve_interior_impl`); the env
     cache reaches either interior."""
     impl = _resolve_interior_impl(interior_impl, compute_diags, health)
@@ -159,7 +160,8 @@ def evaluate_tendencies(
     # ---- 1. surface fluxes ----
     sflux = bgc_surface_fluxes(
         state.bgc.tracers, forcing,
-        state.bgc.surface_ph, state.bgc.surface_ph_alt, params.bgc)
+        state.bgc.surface_ph, state.bgc.surface_ph_alt, params.bgc,
+        carbonate_impl=carbonate_impl)
     dflux = dms_surface_fluxes(
         state.dms[0, 0], forcing.sst, forcing.sss, forcing.ice_fraction,
         forcing.wind_speed_squared_10m, forcing.surface_pressure,

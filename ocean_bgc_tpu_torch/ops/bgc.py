@@ -28,12 +28,14 @@ import torch
 from ocean_bgc_tpu_torch import constants as c
 from ocean_bgc_tpu_torch.ops.carbonate import (
     CarbCoeffs,
-    _solve_htotal_impl,
     _to_mass_units,
     carbonate_coeffs,
     co3_sat_vals,
 )
-from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_coeffs
+from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+    co3_terms_dual_coeffs,
+    solve_htotal_brackets,
+)
 from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, safe_div
 from ocean_bgc_tpu_torch.ops.particulates import (
     DissolutionCache,
@@ -119,8 +121,9 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
                    params: BGCParams) -> EnvCache:
     """Evaluate the forcing-invariant tables of :class:`EnvCache`, with
     the masked stand-ins and pressure gating the in-step code uses.  The
-    stand-in solve is the plain PyTorch solver, on the device of the
-    forcing."""
+    stand-in solve is K1's bracket-in instance on CUDA tensors and its
+    plain version on CPU tensors
+    (``ops/cuda_carbonate.py::solve_htotal_brackets``)."""
     nlev = grid.nlev
     active = grid.active_mask()
     temp = forcing.potential_temperature
@@ -139,7 +142,7 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
     dic_m, ta_m, pt_m, sit_m = _to_mass_units(
         torch.full_like(temp_s, 2000.0), torch.full_like(temp_s, 2300.0),
         zero, zero)
-    h_standin = _solve_htotal_impl(
+    h_standin = solve_htotal_brackets(
         coeffs, dic_m, ta_m, pt_m, sit_m,
         torch.full_like(temp_s, 10.0 ** -c.PHHI_3D_INIT),
         torch.full_like(temp_s, 10.0 ** -c.PHLO_3D_INIT))

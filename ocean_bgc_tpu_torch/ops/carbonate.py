@@ -404,13 +404,20 @@ def co2calc_surface_dual(depth_m, temp, salt, dic_a, dic_b, ta_in, pt_in,
                          sit_in, phlo_a, phhi_a, phlo_b, phhi_b,
                          xco2_a, xco2_b, atmpres, *,
                          locmip_k1_k2_bug_fix=True, brackets_a=None,
-                         brackets_b=None):
+                         brackets_b=None, impl="auto"):
     """The surface ambient + ALT_CO2 pair (BGC_mod.F90:2881-2912): shared
     coefficients, DIC/xCO2/bracket differing per scenario, one stacked
     solve.  ``brackets_a``/``brackets_b`` give H-space ``(x1, x2)``
     directly (:func:`warm_brackets_h`), and the phlo/phhi arguments are
-    then ignored.  Returns two (ph, co2star, dco2star, pco2surf, dpco2)
-    tuples, co2star terms in mmol/m^3 and pCO2 in ppmv."""
+    then ignored.  ``impl`` picks the solve as
+    ``ops/cuda_carbonate.py::solve_htotal_brackets`` does: its kernel on
+    CUDA tensors ("auto", "kernel") or :func:`_solve_htotal_impl`
+    ("torch", or CPU tensors); the two scenarios' lanes read the shared
+    coefficients and tracers in place.  Returns two (ph, co2star,
+    dco2star, pco2surf, dpco2) tuples, co2star terms in mmol/m^3 and pCO2
+    in ppmv."""
+    # the kernel's wrapper imports this module
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import solve_htotal_brackets
     coeffs = carbonate_coeffs(depth_m, temp, salt, False,
                               k1_k2_ph_tot=locmip_k1_k2_bug_fix)
     da, ta, pt, sit = _to_mass_units(dic_a, ta_in, pt_in, sit_in)
@@ -423,7 +430,8 @@ def co2calc_surface_dual(depth_m, temp, salt, dic_a, dic_b, ta_in, pt_in,
         brackets_b = (torch.pow(10.0, -phhi_b), torch.pow(10.0, -phlo_b))
     x1 = torch.stack([brackets_a[0].expand(shp), brackets_b[0].expand(shp)])
     x2 = torch.stack([brackets_a[1].expand(shp), brackets_b[1].expand(shp)])
-    htotal = _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2)
+    htotal = solve_htotal_brackets(coeffs, dic, ta, pt, sit, x1, x2,
+                                   impl=impl)
 
     xco2 = torch.stack([xco2_a.expand(shp), xco2_b.expand(shp)]) * 1e-6
     htotal2 = htotal * htotal

@@ -1,17 +1,27 @@
-"""K1, the dual interior pH solve: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""K1, the pH solve: the CUDA kernel's wrappers and their plain PyTorch
+versions, in two instances.
 
-Counterpart of ``ocean_bgc_tpu/ops/pallas_carbonate.py`` in the instance
-the production step launches (equilibrium constants read from the env
-cache, no saturation outputs).  Per cell, for the ambient and the
-ALT_CO2 scenario: the pH bracket from the previous pH (+/- DEL_PH, or the
-cold [6, 9] window where it is the 0 sentinel), the bracketed
-safe-Newton root of the alkalinity residual, and the speciation.
+Counterpart of ``ocean_bgc_tpu/ops/pallas_carbonate.py``.
 
-:func:`co3_terms_dual_coeffs` launches ``csrc/carbonate_dual.cu`` for
-CUDA tensors and takes :func:`co3_terms_dual_coeffs_torch` for CPU
-tensors, or wherever the caller asks for ``impl="torch"``.  Both compute
-the same function; a CUDA tensor never falls back to the plain version.
+- :func:`co3_terms_dual_coeffs`, the dual interior instance the default
+  step launches (equilibrium constants read from the env cache, no
+  saturation outputs).  Per cell, for the ambient and the ALT_CO2
+  scenario: the pH bracket from the previous pH (+/- DEL_PH, or the cold
+  [6, 9] window where it is the 0 sentinel), the bracketed safe-Newton
+  root of the alkalinity residual, and the speciation.
+- :func:`solve_htotal_brackets`, the bracket-in instance: H of every lane
+  from H-space brackets given as input, the function of
+  ``ops/carbonate.py::_solve_htotal_impl``.  It solves the surface pair
+  (``co2calc_surface_dual``) and the env cache's stand-in problem
+  (``ops/bgc.py::precompute_env``).
+
+Each launches ``csrc/carbonate_dual.cu`` for CUDA tensors and takes its
+plain version for CPU tensors, or wherever the caller asks for
+``impl="torch"``.  A CUDA tensor never falls back to the plain version.
+Both instances run their lanes (``csrc/carbonate_solve.cuh``) one per
+thread or, with refill, handed out from a device counter that the
+wrapper zeroes on the stream; :data:`REFILL` picks per dtype.  Neither
+makes a host synchronisation.
 """
 
 from __future__ import annotations
@@ -35,6 +45,15 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
 )
 
 IMPLS = ("auto", "kernel", "torch")
+# Whether each dtype's launches refill lanes from the device counter, or
+# run one lane per thread.  The card measured one lane per thread faster
+# at both types (PERF.md, PR 3); chip_smoke.py times both in every run.
+REFILL = {torch.float64: False, torch.float32: False}
+# The bracket-in instance's pointer arguments, in the order of the enum
+# BracketField in csrc/carbonate_dual.cu (tests/test_torch_carbonate.py
+# holds the two equal): per lane, per shared element, then the output.
+BRACKET_FIELDS = ("dic", "x1", "x2", "ta", "pt", "sit", *CarbCoeffs._fields,
+                  "h")
 
 
 def _speciate(h, dic, coeffs):
@@ -77,20 +96,39 @@ def co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
     return results[0], results[1]
 
 
-def _launch(fields, out_dtype):
+def _check_impl(impl):
+    if impl not in IMPLS:
+        raise ValueError(f"unknown carbonate impl {impl!r}; "
+                         f"expected one of {IMPLS}")
+
+
+def refill_counter(device):
+    """The refill counter: one zeroed 64-bit integer, set on the stream."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
+
+
+def counter_ptr(counter):
+    """The counter's device pointer, or null where the launch does not
+    refill."""
+    return None if counter is None else counter.data_ptr()
+
+
+def _launch(fields, out_dtype, refill=None):
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ref = fields[0]
+    refill = REFILL[out_dtype] if refill is None else refill
     outs = [torch.empty_like(ref) for _ in range(8)]
+    counter = refill_counter(ref.device) if refill else None
     ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
     outs_p = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in outs))
     stream = torch.cuda.current_stream(ref.device).cuda_stream
     code = fn(int(out_dtype == torch.float64), ins_p, outs_p, ref.numel(),
-              stream)
+              counter_ptr(counter), int(refill), stream)
     _kernels.check(lib, code, "carbonate_dual launch")
     return outs
 
@@ -109,9 +147,7 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
     concentrations in mmol/m^3.  Each kernel launch adds one to
     ``co3_terms_dual_coeffs.launches``.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"unknown carbonate impl {impl!r}; "
-                         f"expected one of {IMPLS}")
+    _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
         return co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
                                            ph_prev_b, coeffs)
@@ -136,3 +172,79 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
 
 
 co3_terms_dual_coeffs.launches = 0
+
+
+def _launch_brackets(fields, refill=None):
+    """Launch the bracket-in instance on ``fields`` (by
+    :data:`BRACKET_FIELDS` name, inputs only); returns H per lane."""
+    lib = _kernels.load("carbonate_dual")
+    fn = lib.obgc_solve_htotal_brackets
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if lib.obgc_brackets_num_fields() != len(BRACKET_FIELDS):
+        raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
+                           "disagree on the bracket-in argument layout")
+    dic = fields["dic"]
+    refill = REFILL[dic.dtype] if refill is None else refill
+    h = torch.empty_like(dic)
+    counter = refill_counter(dic.device) if refill else None
+    ptrs = {**fields, "h": h}
+    arr = (ctypes.c_void_p * len(BRACKET_FIELDS))(
+        *(ptrs[k].data_ptr() for k in BRACKET_FIELDS))
+    stream = torch.cuda.current_stream(dic.device).cuda_stream
+    code = fn(int(dic.dtype == torch.float64), arr, dic.numel(),
+              fields["ta"].numel(), counter_ptr(counter), int(refill),
+              stream)
+    _kernels.check(lib, code, "solve_htotal_brackets launch")
+    return h
+
+
+def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
+                          impl="auto"):
+    """H (mol/kg) of every lane from the H-space bracket [x1, x2]: the
+    function of :func:`ops.carbonate._solve_htotal_impl`, its plain
+    version.
+
+    ``dic``, ``x1`` and ``x2`` (mol/kg) hold one value per lane; ``ta``,
+    ``pt``, ``sit`` (mol/kg) and the 15 coefficients are shared by lanes
+    whose trailing indices agree: their shape is a trailing part of the
+    lanes' shape (the surface pair: lanes ``(2, ncol)``, shared
+    ``(ncol,)``), and the kernel reads them in place.  ``impl``: "auto"
+    launches the kernel on CUDA tensors and uses the plain version on CPU
+    tensors; "kernel" requires CUDA tensors; "torch" takes the plain
+    version on any device.  Each kernel launch adds one to
+    ``solve_htotal_brackets.launches``.
+    """
+    _check_impl(impl)
+    if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
+        return _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2)
+    if dic.device.type != "cuda":
+        raise ValueError(f"the solve_htotal_brackets kernel needs CUDA "
+                         f"tensors, got {dic.device}")
+    if dic.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"solve_htotal_brackets takes float32 or float64, "
+                        f"got {dic.dtype}")
+    lanes, shared = tuple(dic.shape), tuple(ta.shape)
+    if len(shared) > len(lanes) or lanes[len(lanes) - len(shared):] != shared:
+        raise ValueError(f"solve_htotal_brackets: the shared fields' shape "
+                         f"{shared} is not a trailing part of the lanes' "
+                         f"shape {lanes}")
+    fields = dict(dic=dic, x1=x1, x2=x2, ta=ta, pt=pt, sit=sit,
+                  **coeffs._asdict())
+    for name, t in fields.items():
+        shape = lanes if name in ("dic", "x1", "x2") else shared
+        if (t.device != dic.device or t.dtype != dic.dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"solve_htotal_brackets: {name} must be a contiguous "
+                f"{dic.dtype} tensor of shape {shape} on {dic.device}; got "
+                f"{t.dtype}, {tuple(t.shape)} on {t.device}, "
+                f"contiguous={t.is_contiguous()}")
+    h = _launch_brackets(fields)
+    solve_htotal_brackets.launches += 1
+    return h
+
+
+solve_htotal_brackets.launches = 0

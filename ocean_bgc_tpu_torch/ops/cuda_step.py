@@ -1,11 +1,12 @@
 """K2, the whole diagnostics-off BGC interior: the CUDA kernel's wrapper
 and its plain PyTorch version.
 
-Counterpart of ``ocean_bgc_tpu/ops/pallas_step.py``.  One launch of
-``csrc/interior_step.cu`` computes what
-``bgc_source_sink(..., compute_diags=False)`` computes: the dual pH solve
-(pH only), the ecosystem kinetics with PAR, the sinking recurrence with
-Fe scavenging, restoring and the tendency assembly.  The kernel reads
+Counterpart of ``ocean_bgc_tpu/ops/pallas_step.py``.  Two launches of
+``csrc/interior_step.cu`` compute what
+``bgc_source_sink(..., compute_diags=False)`` computes: the solve kernel
+the dual pH solve of every cell (pH only), the biology kernel the
+ecosystem kinetics with PAR, the sinking recurrence with Fe scavenging,
+restoring and the tendency assembly.  The kernel reads
 the equilibrium constants, the Q10 response and the dissolution factors
 precomputed: from the env cache when one is given, otherwise evaluated
 here first with the plain version's own torch functions.
@@ -37,6 +38,11 @@ from ocean_bgc_tpu_torch.ops.particulates import (
     precompute_dissolution,
 )
 from ocean_bgc_tpu_torch.ops.carbonate import CarbCoeffs
+from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+    REFILL,
+    counter_ptr,
+    refill_counter,
+)
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
 
@@ -135,33 +141,86 @@ def _check(fields: dict, nlev: int, ncol: int) -> None:
                 f"contiguous={t.is_contiguous()}")
 
 
-def _launch(fields: dict, params: BGCParams, nlev: int, ncol: int):
+def _pointers(fields: dict, outs: FusedInteriorOut):
+    ptrs = {**fields, "tend": outs.tendencies, "ph": outs.ph_prev_3d,
+            "ph_alt": outs.ph_prev_alt_3d}
+    return (ctypes.c_void_p * len(KERNEL_FIELDS))(
+        *(None if ptrs[k] is None else ptrs[k].data_ptr()
+          for k in KERNEL_FIELDS))
+
+
+def _library():
     lib = _kernels.load("interior_step")
-    fn = lib.obgc_interior_step
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     if (lib.obgc_interior_num_params() != NUM_PARAMS
             or lib.obgc_interior_num_fields() != len(KERNEL_FIELDS)):
         raise RuntimeError("csrc/interior_step.cu and ops/cuda_step.py / "
                            "ops/kernel_params.py disagree on the argument "
                            "layout")
+    return lib
+
+
+def _launch_solve(fields: dict, outs: FusedInteriorOut, refill=None):
+    """The solve kernel: both pH fields of every cell into ``outs``."""
+    lib = _library()
+    fn = lib.obgc_interior_solve
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     ref = fields["tracers"]
-    outs = dict(tend=torch.empty_like(ref),
-                ph=torch.empty((nlev, ncol), dtype=ref.dtype,
-                               device=ref.device),
-                ph_alt=torch.empty((nlev, ncol), dtype=ref.dtype,
-                                   device=ref.device))
-    ptrs = {**fields, **outs}
-    arr = (ctypes.c_void_p * len(KERNEL_FIELDS))(
-        *(None if ptrs[k] is None else ptrs[k].data_ptr()
-          for k in KERNEL_FIELDS))
-    stream = torch.cuda.current_stream(ref.device).cuda_stream
-    code = fn(int(ref.dtype == torch.float64), arr, _packed(params), nlev,
-              ncol, stream)
-    _kernels.check(lib, code, "interior_step launch")
-    return FusedInteriorOut(outs["tend"], outs["ph"], outs["ph_alt"])
+    nlev, _, ncol = ref.shape
+    refill = REFILL[ref.dtype] if refill is None else refill
+    counter = refill_counter(ref.device) if refill else None
+    code = fn(int(ref.dtype == torch.float64), _pointers(fields, outs), nlev,
+              ncol, counter_ptr(counter), int(refill),
+              torch.cuda.current_stream(ref.device).cuda_stream)
+    _kernels.check(lib, code, "interior_step solve launch")
+
+
+# The biology kernel's threads per block, at most (kBioThreads in
+# csrc/interior_step.cu), and the values it stages per cell in shared
+# memory (its enum Stage)
+BIO_THREADS = 128
+STAGED_FIELDS = 8
+# Its tile: the whole columns whose staged values fill about this many
+# bytes, so that two blocks fit on one SM and one block's per-column
+# scans overlap the other's per-cell phases (the card's measurement,
+# PERF.md); at least one column
+TILE_BYTES = 60 * 1024
+
+
+def columns_per_block(nlev: int, itemsize: int) -> int:
+    """The biology kernel's columns per block for ``nlev`` levels of
+    ``itemsize``-byte values: 16 at 60 levels of f64, 32 of f32."""
+    return max(1, TILE_BYTES // (STAGED_FIELDS * nlev * itemsize))
+
+
+def _launch_bio(fields: dict, outs: FusedInteriorOut, params: BGCParams,
+                cols=None):
+    """The biology kernel: the tendencies of every cell into ``outs``,
+    ``cols`` columns per block (:func:`columns_per_block` if None)."""
+    lib = _library()
+    fn = lib.obgc_interior_bio
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.obgc_interior_bio_smem.restype = ctypes.c_longlong
+    lib.obgc_interior_smem_limit.restype = ctypes.c_longlong
+    ref = fields["tracers"]
+    nlev, _, ncol = ref.shape
+    if cols is None:
+        cols = columns_per_block(nlev, ref.element_size())
+    is_double = int(ref.dtype == torch.float64)
+    need = lib.obgc_interior_bio_smem(is_double, nlev, cols)
+    limit = lib.obgc_interior_smem_limit()
+    if need > limit:
+        raise ValueError(f"interior_step: a block of {cols} columns of "
+                         f"{nlev} levels needs {need} B of shared memory; "
+                         f"the device allows {limit} B")
+    code = fn(is_double, _pointers(fields, outs), _packed(params), nlev, ncol,
+              cols, torch.cuda.current_stream(ref.device).cuda_stream)
+    _kernels.check(lib, code, "interior_step biology launch")
 
 
 def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
@@ -175,7 +234,8 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
     fields.  ``env``: the env cache (:func:`ops.bgc.precompute_env`), or
     None to evaluate its tables here first.  ``impl``: "auto" launches the
     kernel on CUDA tensors and uses the plain version on CPU tensors;
-    "kernel" requires CUDA tensors.  Each kernel launch adds one to
+    "kernel" requires CUDA tensors.  A call launches two kernels, the pH
+    solve and the biology, and each launch adds one to
     ``fused_interior_step.launches``.
     """
     if impl not in IMPLS:
@@ -191,8 +251,14 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
     fields = kernel_inputs(tracers, grid, forcing, ph_prev_3d,
                            ph_prev_alt_3d, params, env)
     _check(fields, nlev, ncol)
-    out = _launch(fields, params, nlev, ncol)
-    fused_interior_step.launches += 1
+    ref = fields["tracers"]
+    out = FusedInteriorOut(
+        torch.empty_like(ref),
+        torch.empty((nlev, ncol), dtype=ref.dtype, device=ref.device),
+        torch.empty((nlev, ncol), dtype=ref.dtype, device=ref.device))
+    _launch_solve(fields, out)
+    _launch_bio(fields, out, params)
+    fused_interior_step.launches += 2
     return out
 
 

@@ -48,10 +48,14 @@ def bgc_surface_fluxes(
     surface_ph: torch.Tensor,       # (ncol,) 0 sentinel = cold start
     surface_ph_alt: torch.Tensor,
     params: BGCParams,
+    *,
+    carbonate_impl: str = "auto",
 ) -> BGCSurfaceOut:
     """O2 and CO2 (ambient + alternative) gas exchange plus the
     deposition/river/sea-ice flux roll-up and the NH4-NO3 alkalinity
-    adjustment (BGC_mod.F90:2808-2942)."""
+    adjustment (BGC_mod.F90:2808-2942).  ``carbonate_impl``: the surface
+    pair's pH solve, "auto" | "kernel" | "torch"
+    (``ops/cuda_carbonate.py::solve_htotal_brackets``)."""
 
     surf = torch.clamp_min(tracers[0], 0.0)      # (30, ncol)
     dic = surf[T.DIC]
@@ -98,7 +102,7 @@ def bgc_surface_fluxes(
             dic, dic_alt, alk, po4, sio3, None, None, None, None,
             forcing.atm_co2, forcing.atm_co2_alt, forcing.surface_pressure,
             locmip_k1_k2_bug_fix=params.locmip_k1_k2_bug_fix,
-            brackets_a=br, brackets_b=br_alt)
+            brackets_a=br, brackets_b=br_alt, impl=carbonate_impl)
         gas[T.DIC] = pv_co2 * dco2star
         gas[T.DIC_ALT_CO2] = pv_co2 * dco2star_alt
     else:

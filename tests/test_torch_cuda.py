@@ -1,6 +1,7 @@
 """The kernels on the card against their plain versions: K1 (the dual pH
-solve) and the production step with it, K2 (the whole interior) and the
-fused step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
+solve, and its bracket-in instance for the surface pair and the stand-in)
+and the production step with it, K2 (the whole interior) and the fused
+step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 
@@ -13,10 +14,15 @@ from ocean_bgc_tpu_torch import probe
 
 from ocean_bgc_tpu_torch.models.coupled import step
 from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs, precompute_env
+from ocean_bgc_tpu_torch.ops import carbonate as tcarb
+from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
+from ocean_bgc_tpu_torch.ops import cuda_step as cs
 from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+    _ph_brackets,
     co3_terms_dual_coeffs,
     co3_terms_dual_coeffs_torch,
+    solve_htotal_brackets,
 )
 from ocean_bgc_tpu_torch.ops.cuda_step import (
     fused_interior_step,
@@ -24,6 +30,7 @@ from ocean_bgc_tpu_torch.ops.cuda_step import (
     site_test_hook,
 )
 from ocean_bgc_tpu_torch.ops.numerics import morel_kpar
+from ocean_bgc_tpu_torch.ops.surface import bgc_surface_fluxes
 from ocean_bgc_tpu_torch.params import ModelParams
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
@@ -115,7 +122,8 @@ def test_interior_kernel_matches_plain_version(cuda, dtype, use_env, rest):
     """K2 against its plain version (bgc_source_sink with the plain pH
     solve) on cold and warm inputs: pH bitwise equal (the same device
     solve as K1, on the same inputs), tendencies within 1e-10 (f64) or
-    3e-5 (f32) of each tracer's largest magnitude, one launch counted."""
+    3e-5 (f32) of each tracer's largest magnitude, its two launches
+    counted."""
     params, state, grid, forcing = _fused_world(cuda, dtype, rest)
     env = precompute_env(grid, forcing, params.bgc) if use_env else None
     warm, _ = step(state, grid, forcing, params, 3600.0,
@@ -128,7 +136,7 @@ def test_interior_kernel_matches_plain_version(cuda, dtype, use_env, rest):
                                   b.ph_prev_alt_3d, params.bgc, env=env,
                                   impl="kernel")
         torch.cuda.synchronize()
-        assert fused_interior_step.launches == before + 1
+        assert fused_interior_step.launches == before + 2
         want = fused_interior_step_torch(b.tracers, grid, forcing,
                                          b.ph_prev_3d, b.ph_prev_alt_3d,
                                          params.bgc, env=env)
@@ -157,18 +165,222 @@ def test_special_cased_torch_sites_match(cuda, dtype):
 
 
 def test_fused_step_launches_k2_once_per_step_and_never_k1(cuda):
+    """A fused step launches K2's two kernels (the pH solve and the
+    biology) and the surface pair's bracket-in K1, never the dual K1."""
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
                                            device=cuda)
     env = precompute_env(grid, forcing, params.bgc)
     k1, k2 = co3_terms_dual_coeffs.launches, fused_interior_step.launches
+    kb = solve_htotal_brackets.launches
     for _ in range(3):
         state, _ = step(state, grid, forcing, params, 3600.0,
                         compute_diags=False, env=env, interior_impl="fused")
     torch.cuda.synchronize()
-    assert fused_interior_step.launches == k2 + 3
+    assert fused_interior_step.launches == k2 + 6
+    assert solve_htotal_brackets.launches == kb + 3
     assert co3_terms_dual_coeffs.launches == k1
     assert torch.isfinite(state.bgc.tracers).all()
+
+
+def test_default_step_launches_k1_and_the_surface_instance(cuda):
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           device=cuda)
+    kb = solve_htotal_brackets.launches
+    env = precompute_env(grid, forcing, params.bgc)
+    assert solve_htotal_brackets.launches == kb + 1      # the stand-in
+    k1, k2 = co3_terms_dual_coeffs.launches, fused_interior_step.launches
+    for _ in range(3):
+        state, _ = step(state, grid, forcing, params, 3600.0,
+                        compute_diags=False, env=env)
+    torch.cuda.synchronize()
+    assert co3_terms_dual_coeffs.launches == k1 + 3
+    assert solve_htotal_brackets.launches == kb + 4
+    assert fused_interior_step.launches == k2
+
+
+def _bracket_lanes(cuda, dtype):
+    """Interior cells of a ragged world with four kinds of bracket, each
+    a quarter of the lanes: cold (the wide window), warm (the pH after
+    one step -/+ DEL_PH), off-window (that pH shifted by 0.5, so the
+    bracket must grow) and the step's own warm seeds of the ALT_CO2
+    scenario after two steps (at f32 a third of them take 14-24 steps)."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    s1, _ = step(state, grid, forcing, params, 3600.0, compute_diags=False,
+                 env=env)
+    s2, _ = step(s1, grid, forcing, params, 3600.0, compute_diags=False,
+                 env=env)
+    dic, ta, pt, sit, _, _, coeffs = carbonate_inputs(
+        s2.bgc.tracers, grid, forcing, s2.bgc.ph_prev_3d,
+        s2.bgc.ph_prev_alt_3d, env)
+    m = tcarb._to_mass_units(dic, ta, pt, sit)
+    ph1 = s1.bgc.ph_prev_3d
+    seeds = [torch.zeros_like(ph1), ph1,
+             torch.where(torch.arange(ph1.numel(), device=cuda).view(
+                 ph1.shape) % 2 == 0, ph1 + 0.5, ph1 - 0.5),
+             s2.bgc.ph_prev_alt_3d]
+    quarter = ph1.shape[1] // 4
+    ph = torch.cat([sd[:, i * quarter:(i + 1) * quarter]
+                    for i, sd in enumerate(seeds)], dim=1)
+    cut = slice(0, 4 * quarter)
+    m = [x[:, cut].contiguous() for x in m]
+    coeffs = tcarb.CarbCoeffs(*(k[:, cut].contiguous() for k in coeffs))
+    x1, x2 = _ph_brackets(ph.contiguous())
+    return coeffs, m, x1, x2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bracket_instance_matches_plain_solve(cuda, dtype):
+    """K1's bracket-in instance against _solve_htotal_impl, bitwise, on
+    cold, warm, off-window (bracket growth) and the step's own warm lanes;
+    one launch counted.  Then the surface layout: two scenarios of lanes
+    reading one shared set of tracers and constants in place."""
+    coeffs, m, x1, x2 = _bracket_lanes(cuda, dtype)
+    before = solve_htotal_brackets.launches
+    got = solve_htotal_brackets(coeffs, *m, x1, x2, impl="kernel")
+    torch.cuda.synchronize()
+    assert solve_htotal_brackets.launches == before + 1
+    want, stats = tcarb._solve_htotal_impl(coeffs, *m, x1, x2,
+                                           with_stats=True)
+    assert (stats["grows"] > 0).any()
+    assert torch.equal(got, want)
+
+    row = [x[3].contiguous() for x in m]
+    ccol = tcarb.CarbCoeffs(*(k[3].contiguous() for k in coeffs))
+    dic2 = torch.stack([row[0], row[0] * 0.97])
+    xs1 = torch.stack([x1[3], x1[5]])
+    xs2 = torch.stack([x2[3], x2[5]])
+    got = solve_htotal_brackets(ccol, dic2, *row[1:], xs1, xs2,
+                                impl="kernel")
+    want = tcarb._solve_htotal_impl(ccol, dic2, *row[1:], xs1, xs2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lane_schedules_agree(cuda, dtype):
+    """With and without refill, K1's two instances and K2's solve give the
+    same bits: a lane's iterates do not depend on the thread that runs
+    it."""
+    coeffs, m, x1, x2 = _bracket_lanes(cuda, dtype)
+    fields = dict(dic=m[0], x1=x1, x2=x2, ta=m[1], pt=m[2], sit=m[3],
+                  **coeffs._asdict())
+    assert torch.equal(cc._launch_brackets(fields, refill=True),
+                       cc._launch_brackets(fields, refill=False))
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False, env=env)
+    b = warm.bgc
+    args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                            b.ph_prev_alt_3d, env)
+    flat = (*args[:6], *args[6])
+    for x, y in zip(cc._launch(flat, dtype, refill=True),
+                    cc._launch(flat, dtype, refill=False)):
+        assert torch.equal(x, y)
+    kin = cs.kernel_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                           b.ph_prev_alt_3d, params.bgc, env)
+    outs = []
+    for refill in (True, False):
+        out = cs.FusedInteriorOut(torch.empty_like(b.tracers),
+                                  torch.empty_like(b.ph_prev_3d),
+                                  torch.empty_like(b.ph_prev_3d))
+        cs._launch_solve(kin, out, refill=refill)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].ph_prev_3d, outs[1].ph_prev_3d)
+    assert torch.equal(outs[0].ph_prev_alt_3d, outs[1].ph_prev_alt_3d)
+
+
+def test_surface_fluxes_make_no_host_sync(cuda):
+    """The surface pair on the bracket-in kernel: bgc_surface_fluxes on
+    CUDA tensors runs without one host synchronisation, and equals its
+    plain route bitwise."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           device=cuda)
+    b = state.bgc
+    args = (b.tracers, forcing, b.surface_ph, b.surface_ph_alt, params.bgc)
+    want = bgc_surface_fluxes(*args, carbonate_impl="torch")
+    bgc_surface_fluxes(*args)           # loads the library
+    torch.cuda.synchronize()
+    kb = solve_htotal_brackets.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bgc_surface_fluxes(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert solve_htotal_brackets.launches == kb + 1
+    for x, y in zip(got[:3], want[:3]):
+        assert torch.equal(x, y)
+
+
+def _hold_k2_to_plain(got, want, dtype):
+    assert torch.equal(got.ph_prev_3d, want.ph_prev_3d)
+    assert torch.equal(got.ph_prev_alt_3d, want.ph_prev_alt_3d)
+    assert torch.isfinite(got.tendencies).all()
+    tol = 1e-10 if dtype == torch.float64 else 3e-5
+    scale = want.tendencies.abs().amax(dim=(0, 2), keepdim=True) + 1e-30
+    err = ((got.tendencies - want.tendencies).abs() / scale).max()
+    assert err <= tol, err.item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_interior_kernel_on_irregular_worlds(cuda, dtype):
+    """K2 against its plain version where its tiles are ragged: 7 levels
+    over 37 columns (fewer than one block's tile), with columns of kmax 0,
+    1 and nlev, at the default tile and at 3 columns per block; cold and
+    warm."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=7, ncol=37, seed=5,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    kmax = grid.kmax.clone()
+    kmax[:3] = torch.tensor([0, 1, 7], dtype=kmax.dtype)
+    grid = dataclasses.replace(grid, kmax=kmax)
+    env = precompute_env(grid, forcing, params.bgc)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False, env=env)
+    for st in (state, warm):
+        b = st.bgc
+        a = (b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
+             params.bgc)
+        got = fused_interior_step(*a, env=env, impl="kernel")
+        torch.cuda.synchronize()
+        want = fused_interior_step_torch(*a, env=env)
+        _hold_k2_to_plain(got, want, dtype)
+        fields = cs.kernel_inputs(*a, env)
+        narrow = cs.FusedInteriorOut(*(torch.empty_like(t) for t in got))
+        cs._launch_solve(fields, narrow)
+        cs._launch_bio(fields, narrow, params.bgc, cols=3)
+        torch.cuda.synchronize()
+        _hold_k2_to_plain(narrow, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_interior_kernel_at_the_flagship_size(cuda, dtype):
+    """K2 against its plain version at 60 x 8192 (ragged), warm."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=60, ncol=8192, seed=17,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False, env=env)
+    b = warm.bgc
+    a = (b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
+         params.bgc)
+    got = fused_interior_step(*a, env=env, impl="kernel")
+    torch.cuda.synchronize()
+    _hold_k2_to_plain(got, fused_interior_step_torch(*a, env=env), dtype)
 
 
 def test_probe_kernel_matches_plain_version(cuda):

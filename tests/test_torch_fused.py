@@ -30,7 +30,7 @@ from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
 from ocean_bgc_tpu_torch import constants, probe
 from ocean_bgc_tpu_torch.models.coupled import step
-from ocean_bgc_tpu_torch.ops import _kernels, bgc, particulates
+from ocean_bgc_tpu_torch.ops import _kernels, bgc, cuda_step, particulates
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
 from ocean_bgc_tpu_torch.ops.cuda_step import (
@@ -206,6 +206,7 @@ def _enum(name):
     trailing count excluded."""
     src = (CSRC / "interior_step.cu").read_text()
     body = re.search(r"enum " + name + r" : int \{(.*?)\};", src, re.S)[1]
+    body = re.sub(r"//[^\n]*", "", body)
     names = [n.strip() for n in body.split(",") if n.strip()]
     assert names[-1].endswith("_COUNT")
     return names[:-1]
@@ -242,6 +243,20 @@ def test_kernel_argument_layout_matches_python():
     traits = set().union(*(_attributes_read(fn, {"au", "au2"})
                            for fn in interior))
     assert traits == set(TRAIT_FIELDS)
+
+
+def test_biology_kernel_tiles_match_python():
+    """The wrapper plans the biology kernel's tiles for the block size and
+    the staged fields the kernel declares: whole columns, at least one,
+    two blocks' staging within an SM's shared memory."""
+    src = (CSRC / "interior_step.cu").read_text()
+    assert int(re.search(r"constexpr int kBioThreads = (\d+);", src)[1]) \
+        == cuda_step.BIO_THREADS
+    assert len(_enum("Stage")) == cuda_step.STAGED_FIELDS
+    assert cuda_step.columns_per_block(60, 8) == 16
+    assert cuda_step.columns_per_block(60, 4) == 32
+    assert cuda_step.columns_per_block(5000, 8) == 1
+    assert 2 * cuda_step.TILE_BYTES <= 227 * 1024
 
 
 def test_pack_holds_each_field_at_its_enum_slot():

@@ -21,7 +21,10 @@ from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 from ocean_bgc_tpu_torch.constants import XACC
 from ocean_bgc_tpu_torch.models.coupled import CoupledState, step
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
-from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_coeffs
+from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+    co3_terms_dual_coeffs,
+    solve_htotal_brackets,
+)
 from ocean_bgc_tpu_torch.state import BGCState, BGCTracers as T
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, world_from_numpy
 from tests.oracle.coupled_ref import coupled_step_ref
@@ -206,3 +209,28 @@ def test_cpu_step_never_counts_a_launch():
     with pytest.raises(ValueError, match="CUDA"):
         step(state, grid, forcing, params, DT, compute_diags=False,
              carbonate_impl="kernel")
+
+
+def test_cpu_step_with_the_plain_solves_equals_the_default_step():
+    """carbonate_impl="torch" takes the plain route for the interior and
+    the surface pair alike; on CPU tensors "auto" does too, so two steps
+    are bitwise equal either way, with no launch counted."""
+    state, grid, forcing = world_from_numpy(*_np_world(nlev=4, ncol=8),
+                                            device="cpu")
+    params = params_from_dict(dataclasses.asdict(JaxModelParams()))
+    env = precompute_env(grid, forcing, params.bgc)
+    before = (co3_terms_dual_coeffs.launches,
+              solve_htotal_brackets.launches)
+    a = b = state
+    for _ in range(2):
+        a, _ = step(a, grid, forcing, params, DT, compute_diags=False,
+                    env=env)
+        b, _ = step(b, grid, forcing, params, DT, compute_diags=False,
+                    env=env, carbonate_impl="torch")
+    for x, y in ((a.bgc.tracers, b.bgc.tracers), (a.dms, b.dms),
+                 (a.macros, b.macros), (a.bgc.surface_ph, b.bgc.surface_ph),
+                 (a.bgc.surface_ph_alt, b.bgc.surface_ph_alt),
+                 (a.bgc.ph_prev_3d, b.bgc.ph_prev_3d)):
+        assert torch.equal(x, y)
+    assert (co3_terms_dual_coeffs.launches,
+            solve_htotal_brackets.launches) == before
