@@ -23,19 +23,17 @@
 // shared field, so nothing is expanded in memory.
 //
 // Design.  Each lane freezes on its own convergence in the reference too
-// (ocean_bgc_tpu/ops/carbonate.py:416-425), so a lane may be advanced by
-// any thread.  Both instances run carbonate_solve.cuh's lanes in one of
-// two schedules, chosen per launch: one lane per thread, solved start to
-// end in a loop, or refill, where the lane is a state machine advanced by
-// one residual evaluation per trip and a thread whose lane converged
-// takes the next lane of its warp's prefetched chunk.  The TPU kernel's
-// 128-lane tiles, padding and stacked/sequential dual choice have no
-// counterpart here.  Templated on float/double with the solver tolerance
-// chosen per type as the plain version chooses it (1e-10 at f64, 1e-13 at
-// f32).  The alkalinity residual keeps the reference's association order
-// term by term; built with --fmad=false and IEEE division, each lane's
-// iterates are bitwise those of the plain PyTorch version in either
-// schedule.
+// (ocean_bgc_tpu/ops/carbonate.py:416-425), so a lane may be solved by
+// any thread.  Both instances run carbonate_solve.cuh's lanes, one per
+// thread or with refill (a thread that finishes its lane claims the next
+// unstarted one from a device counter), chosen per launch.  The TPU
+// kernel's 128-lane tiles, padding and stacked/sequential dual choice
+// have no counterpart here.  Templated on float/double with the solver
+// tolerance chosen per type as the plain version chooses it (1e-10 at
+// f64, 1e-13 at f32).  The alkalinity residual keeps the reference's
+// association order term by term; built with --fmad=false and IEEE
+// division, each lane's iterates are bitwise those of the plain PyTorch
+// version in either schedule.
 //
 // Bound.  The dual instance must read 21 fields per cell (DIC, ALK, PO4,
 // SiO3, the two previous pH fields, 15 cached coefficients) and write 8:
@@ -45,13 +43,13 @@
 // bisection tail near the f32 rounding of the residual), so with one lane
 // per thread most of a warp waits for its slowest lane, and the f32
 // launch runs at 8.6x its bound.  Refill keeps the threads busy, but on
-// the H100 its trips cost more issue slots than the loop's iterations
-// (the phases of a warp's lanes diverge), and it measured slower at both
-// types (PERF.md): ops/cuda_carbonate.py::REFILL keeps one lane per
-// thread.  The bracket-in instance at the surface reads 3 fields per
-// lane and 18 per column and writes one per lane (~1.7 MB at f64 for
-// 8192 columns): it is bound by its launch and its slowest lanes, not by
-// the card's rates.
+// the H100 it measured no faster at either type (PERF.md; nor did a lane
+// state machine refilled per residual evaluation, whose warps' lanes
+// diverged): ops/cuda_carbonate.py::REFILL keeps one lane per thread.
+// The bracket-in instance at the surface reads 3 fields per lane and 18
+// per column and writes one per lane (~1.7 MB at f64 for 8192 columns):
+// it is bound by its launch and its slowest lanes, not by the card's
+// rates.
 
 #include <cuda_runtime.h>
 
@@ -187,20 +185,17 @@ struct BracketLanes {
 template <typename T, bool kRefill, typename Src>
 __global__ void __launch_bounds__(kThreads)
     lanes_kernel(Src src, int64_t n, LaneQueue q) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  solve_lanes<T, kRefill>(src, n, q, smem);
+  solve_lanes<T, kRefill>(src, n, q);
 }
 
 template <typename T, bool kRefill, typename Src>
 int launch_lanes(const Src& src, int64_t n, void* counter,
                  cudaStream_t stream) {
-  const int smem = kRefill ? kThreads / 32 * refill_warp_bytes<T, Src>() : 0;
-  const unsigned blocks = lane_blocks<lanes_kernel<T, kRefill, Src>>(
-      kThreads, n, kRefill, smem);
+  const unsigned blocks =
+      lane_blocks<lanes_kernel<T, kRefill, Src>>(kThreads, n, kRefill);
   const LaneQueue q{static_cast<unsigned long long*>(counter),
                     static_cast<int64_t>(blocks) * kThreads};
-  lanes_kernel<T, kRefill, Src><<<blocks, kThreads, smem, stream>>>(src, n,
-                                                                    q);
+  lanes_kernel<T, kRefill, Src><<<blocks, kThreads, 0, stream>>>(src, n, q);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,10 +4,11 @@
 // Device counterpart of ops/carbonate.py: ``talk`` (the total-alkalinity
 // residual and its slope, same association order term by term),
 // ``_solve_htotal_impl`` for one lane (bracket growth, orientation, the
-// bracketed safe-Newton iteration that stops on |dx| < xacc or a stall)
-// as a state machine with one residual evaluation per step, the driver
-// that runs lanes over a grid with refill, ``_to_mass_units`` and the
-// pH-space bracket of ops/cuda_carbonate.py::_ph_brackets.  Built with
+// bracketed safe-Newton iteration that stops on |dx| < xacc or a stall),
+// with its H-independent terms formed once per problem; the driver that
+// runs lanes over a grid, one per thread or with refill;
+// ``_to_mass_units`` and the pH-space bracket of
+// ops/cuda_carbonate.py::_ph_brackets.  Built with
 // --fmad=false and IEEE division, each lane follows the plain version's
 // iterate sequence.
 //
@@ -16,7 +17,6 @@
 
 #pragma once
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -117,11 +117,11 @@ __device__ __forceinline__ TalkTerms<T> talk_terms(const Coeffs<T>& c,
   return t;
 }
 
-// Total alkalinity residual fn(H) and, if ``want_df``, its slope
-// (ops/carbonate.py::talk), same association order term by term.
+// Total alkalinity residual fn(H) and its slope (ops/carbonate.py::talk),
+// same association order term by term.
 template <typename T>
 __device__ __forceinline__ void talk(const TalkTerms<T>& t, T h, T& fn,
-                                     T& df, bool want_df = true) {
+                                     T& df) {
   const T inv_h = T(1) / h;
   const T h2 = h * h;
   const T inv_h2 = inv_h * inv_h;
@@ -151,7 +151,6 @@ __device__ __forceinline__ void talk(const TalkTerms<T>& t, T h, T& fn,
      - t.ft * hf_frac
      - t.pt * h3 * inv_phos_den
      - t.ta;
-  if (!want_df) return;
 
   df = t.k1_dic * (carb_den - h * dcarb_den) * inv_carb_den2
      - t.dic2_k12 * dcarb_den * inv_carb_den2
@@ -171,20 +170,20 @@ __device__ __forceinline__ bool not_bracketed(T flo, T fhi) {
   return (flo > T(0) && fhi > T(0)) || (flo < T(0) && fhi < T(0));
 }
 
-// One lane of ops/carbonate.py::_solve_htotal_impl, start to end in one
-// thread (the launches without refill).
+// One problem of ops/carbonate.py::_solve_htotal_impl, start to end in
+// one thread.
 template <typename T>
 __device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc) {
   T flo, fhi, unused;
-  talk(t, x1, flo, unused, false);
-  talk(t, x2, fhi, unused, false);
+  talk(t, x1, flo, unused);
+  talk(t, x2, fhi, unused);
   for (int it = 0; it < cst::BRACKET_GROW_GUARD && not_bracketed(flo, fhi);
        ++it) {
     const T growth = m_sqrt(x2 / x1);
     x1 = x1 / growth;
     x2 = x2 * growth;
-    talk(t, x1, flo, unused, false);
-    talk(t, x2, fhi, unused, false);
+    talk(t, x1, flo, unused);
+    talk(t, x2, fhi, unused);
   }
   const bool neg_at_x1 = flo < T(0);
   T xlo = neg_at_x1 ? x1 : x2;
@@ -239,265 +238,99 @@ __device__ __forceinline__ void ph_bracket(T ph_prev, T& x1, T& x2) {
   x2 = m_exp(T(-cst::LN10) * phlo);
 }
 
-// ---- one lane of ops/carbonate.py::_solve_htotal_impl as a state machine
+// ---- lanes over the threads of a grid, with or without refill
 //
-// Each call of lane_step makes exactly one residual evaluation: the low
-// and the high bracket end (kEvalLo, kEvalHi; after kEvalHi the bracket
-// grows geometrically, or is oriented so that f(xlo) < 0), then one
-// Newton-or-bisection step per call (kNewton).  The iterate sequence, the
-// caps BRACKET_GROW_GUARD and MAXIT and the stall test are the plain
-// version's, so a lane's root is the same bits whichever thread advances
-// it and whatever the thread did before.  Since every call evaluates the
-// residual once, threads that advance lanes in different phases stay
-// together on the expensive part.
-
-enum LanePhase : int { kEvalLo, kEvalHi, kNewton };
+// A lane is one cell's problems (or one problem); each thread solves its
+// lane's problems start to end with solve_htotal.  Without refill the
+// grid has one thread per lane, so a warp waits for its slowest lane.
+// With refill the grid holds the blocks resident on the card, and a
+// thread whose lane is done takes the next unstarted lane from a counter
+// in device memory (zero at launch), one atomicAdd for the threads of a
+// warp that finish together: a warp then waits only at the end of the
+// launch.  Threads of one warp working on different lanes' iterations
+// still run the same loop, so they stay together on the residual.
+//
+// A lane source ``Src`` gives: ``kRaw``, the number of values of one
+// lane's inputs, and ``raw(j, i)``, the address of lane i's value j;
+// ``aux(i)``, the address of one int32 of lane i (or null); ``begin(i,
+// v, a, s)``, which sets up lane i's first problem in s from its values
+// v and int a and returns true, or writes a result that needs no solve
+// and returns false; and ``finish(i, s)``, which writes the root s.soln
+// of problem s.part and returns true, or sets up the lane's next problem
+// in s and returns false.
 
 template <typename T>
 struct Lane {
   TalkTerms<T> t;
   T dic;                          // mol/kg, for the speciation
-  T x1, x2, flo;                  // the bracket phase
-  T xlo, xhi, soln, dx, dxold;    // the iteration
-  int phase, grows, iters;
+  T x1, x2, soln;                 // the problem's bracket and root
   int part;                       // which of a lane's problems (scenario)
   T ph_alt;                       // the second scenario's previous pH
 };
 
-// Start the solve of one problem on the bracket [x1, x2] (t set).
+// Set up the problem on the bracket [x1, x2] (t set).
 template <typename T>
 __device__ __forceinline__ void lane_begin(Lane<T>& s, T x1, T x2) {
   s.x1 = x1;
   s.x2 = x2;
-  s.phase = kEvalLo;
-  s.grows = 0;
-  s.iters = 0;
 }
-
-// Advance the lane by one residual evaluation; true when s.soln is the
-// root.
-template <typename T>
-__device__ __forceinline__ bool lane_step(Lane<T>& s, T xacc) {
-  const T x = s.phase == kEvalLo ? s.x1 : (s.phase == kEvalHi ? s.x2
-                                                              : s.soln);
-  T f, df;
-  talk(s.t, x, f, df, s.phase == kNewton);
-  if (s.phase == kEvalLo) {
-    s.flo = f;
-    s.phase = kEvalHi;
-    return false;
-  }
-  if (s.phase == kEvalHi) {
-    if (s.grows < cst::BRACKET_GROW_GUARD && not_bracketed(s.flo, f)) {
-      const T growth = m_sqrt(s.x2 / s.x1);
-      s.x1 = s.x1 / growth;
-      s.x2 = s.x2 * growth;
-      ++s.grows;
-      s.phase = kEvalLo;
-      return false;
-    }
-    const bool neg_at_x1 = s.flo < T(0);
-    s.xlo = neg_at_x1 ? s.x1 : s.x2;
-    s.xhi = neg_at_x1 ? s.x2 : s.x1;
-    s.soln = T(0.5) * (s.xlo + s.xhi);
-    s.dxold = m_abs(s.xlo - s.xhi);
-    s.dx = s.dxold;
-    s.phase = kNewton;
-    return false;
-  }
-  // re-bracket on the residual at the newest iterate (none before the
-  // first step: f is then the residual at the midpoint)
-  if (s.iters > 0) {
-    if (f < T(0)) {
-      s.xlo = s.soln;
-    } else if (f >= T(0)) {
-      s.xhi = s.soln;
-    }
-  }
-  // bisect when Newton would leave the bracket or converges too slowly
-  const T soln = s.soln, xlo = s.xlo, xhi = s.xhi;
-  const bool leave_bracket =
-      ((soln - xhi) * df - f) * ((soln - xlo) * df - f) >= T(0);
-  const bool dx_decrease = m_abs(T(2) * f) <= m_abs(s.dxold * df);
-  const bool bisect = leave_bracket || !dx_decrease;
-  s.dxold = s.dx;
-  const T dx_bis = T(0.5) * (xhi - xlo);
-  const T dx_newt = -f / df;
-  const T soln_n = bisect ? xlo + dx_bis : soln + dx_newt;
-  const bool stalled = bisect ? (xlo == soln_n) : (soln == soln_n);
-  s.dx = bisect ? dx_bis : dx_newt;
-  s.soln = soln_n;
-  ++s.iters;
-  return stalled || m_abs(s.dx) < xacc || s.iters == cst::MAXIT;
-}
-
-// ---- lanes over the threads of a grid, with or without refill
-//
-// Without refill the grid has one thread per lane, and each thread solves
-// its lane start to end with solve_htotal, so a warp waits for its
-// slowest lane.  With refill each warp works through chunks of 32
-// consecutive lanes and keeps every thread busy: at the top of each trip
-// it gives its threads whose lane is done the next lanes of its current
-// chunk, in the order of the threads.  Each chunk's inputs are copied
-// into shared memory one chunk ahead, while the warp works on the chunk
-// before (cp.async, one lane per thread, coalesced), so a refill waits
-// on no device memory and the copies hold no registers.  When the
-// current chunk is used up, the prefetched one takes its place, one
-// thread claims the next chunk from a counter in device memory (zero at
-// launch) and the warp starts copying it.  The loop is warp-synchronous:
-// every thread of a warp stays in it until no thread of the warp has a
-// lane.
-//
-// A lane source ``Src`` gives: ``kRaw``, the number of values of one
-// lane's inputs, and ``raw(j, i)``, the address of lane i's value j;
-// ``aux(i)``, the address of one int32 of lane i (or null); ``begin(i,
-// v, a, s)``, which starts lane i in s from its values v and int a and
-// returns true, or writes a result that needs no solve and returns false;
-// and ``finish(i, s)``, which writes the root s.soln of problem s.part and
-// returns true, or starts the lane's next problem in s and returns false.
 
 struct LaneQueue {
   unsigned long long* counter;
   int64_t nthreads;
+
+  // the next unstarted lane, for this thread and the threads of its warp
+  // that ask at the same time
+  __device__ __forceinline__ int64_t claim() const {
+    const unsigned group = __activemask();
+    const int me = static_cast<int>(threadIdx.x % 32);
+    const int leader = __ffs(group) - 1;
+    unsigned long long base = 0;
+    if (me == leader) {
+      base = atomicAdd(counter, static_cast<unsigned long long>(__popc(group)));
+    }
+    base = __shfl_sync(group, base, leader);
+    return nthreads + static_cast<int64_t>(base) +
+           __popc(group & ((1u << me) - 1u));
+  }
 };
 
-// Shared memory of one warp's two chunk buffers, in bytes.
-template <typename T, typename Src>
-__host__ __device__ constexpr int refill_warp_bytes() {
-  return 2 * 32 * (Src::kRaw * static_cast<int>(sizeof(T)) + 4);
-}
-
+// Solve lanes [0, n), each thread starting at its own index.
 template <typename T, bool kRefill, typename Src>
 __device__ __forceinline__ void solve_lanes(const Src& src, int64_t n,
-                                            const LaneQueue& q,
-                                            unsigned char* smem) {
+                                            const LaneQueue& q) {
   constexpr int kRaw = Src::kRaw;
   const T xacc = solver_xacc<T>();
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   Lane<T> s;
   T v[kRaw];
-  if constexpr (!kRefill) {
-    for (int64_t lane = first; lane < n; lane += q.nthreads) {
+  int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  while (lane < n) {
 #pragma unroll
-      for (int j = 0; j < kRaw; ++j) v[j] = *src.raw(j, lane);
-      const int32_t* a = src.aux(lane);
-      if (!src.begin(lane, v, a ? *a : 0, s)) continue;
+    for (int j = 0; j < kRaw; ++j) v[j] = *src.raw(j, lane);
+    const int32_t* a = src.aux(lane);
+    if (src.begin(lane, v, a ? *a : 0, s)) {
       do {
         s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
       } while (!src.finish(lane, s));
     }
-    return;
-  }
-  constexpr unsigned kAll = 0xffffffffu;
-  const int me = static_cast<int>(threadIdx.x % 32);
-  const unsigned below = (1u << me) - 1u;
-  // this warp's buffers: values [buffer][j][slot], then ints [buffer][slot]
-  T* const vals = reinterpret_cast<T*>(
-      smem + (threadIdx.x / 32) * refill_warp_bytes<T, Src>());
-  int32_t* const ints = reinterpret_cast<int32_t*>(vals + 2 * kRaw * 32);
-  // copy lane base + me's inputs into buffer b
-  auto copy = [&](int b, int64_t base) {
-    const int64_t lane = base + me;
-    if (lane < n) {
-#pragma unroll
-      for (int j = 0; j < kRaw; ++j) {
-        __pipeline_memcpy_async(vals + (b * kRaw + j) * 32 + me,
-                                src.raw(j, lane), sizeof(T));
-      }
-      if (const int32_t* a = src.aux(lane)) {
-        __pipeline_memcpy_async(ints + b * 32 + me, a, sizeof(int32_t));
-      }
-    }
-    __pipeline_commit();
-  };
-  auto claim = [&](int b) {
-    unsigned long long c = 0;
-    if (me == 0) c = atomicAdd(q.counter, 32ull);
-    const int64_t base =
-        q.nthreads + static_cast<int64_t>(__shfl_sync(kAll, c, 0));
-    copy(b, base);
-    return base;
-  };
-  // the current chunk [cur, cur + 32) in buffer ``now`` (``used`` lanes
-  // handed out) and the next one [nxt, nxt + 32) in buffer 1 - now
-  int now = 0, used = 0;
-  int64_t cur = first - me;
-  copy(now, cur);
-  int64_t nxt = claim(1 - now);
-  __pipeline_wait_prior(1);
-  __syncwarp();
-  int64_t lane = n;
-  bool busy = false, done = false;
-  for (;;) {
-    // hand out lanes to the threads without one (a lane that needs no
-    // solve leaves its thread without one again); every value that
-    // decides a branch here is the same in all threads of the warp, and
-    // a trip where every thread is busy costs one ballot
-    unsigned idle = __ballot_sync(kAll, !busy);
-    while (idle != 0 && cur < n) {
-      if (used == 32) {
-        __pipeline_wait_prior(0);
-        __syncwarp();
-        now = 1 - now;
-        cur = nxt;
-        used = 0;
-        if (cur >= n) break;
-        nxt = claim(1 - now);
-      }
-      const int rank = __popc(idle & below);
-      const int take = min(__popc(idle), 32 - used);
-      if (!busy && rank < take) {
-        const int slot = used + rank;
-        lane = cur + slot;
-        if (lane < n) {
-#pragma unroll
-          for (int j = 0; j < kRaw; ++j) {
-            v[j] = vals[(now * kRaw + j) * 32 + slot];
-          }
-          busy = src.begin(lane, v, ints[now * 32 + slot], s);
-        }
-      }
-      used += take;
-      idle = __ballot_sync(kAll, !busy);
-    }
-    if (idle == kAll) break;
-    // a converged problem waits (``done``) until a quarter of the warp's
-    // threads have one, or all busy threads do, and then they write their
-    // results together: so the speciation and the next problem's start,
-    // which diverge from the residual, are paid once per batch and not
-    // in nearly every trip
-    if (busy && !done) done = lane_step(s, xacc);
-    const unsigned fin = __ballot_sync(kAll, done);
-    if (__popc(fin) >= 8 || fin == ~idle) {
-      if (done) {
-        done = false;
-        if (src.finish(lane, s)) busy = false;
-      }
-    }
+    lane = kRefill ? q.claim() : lane + q.nthreads;
   }
 }
 
 // Blocks of ``threads`` for ``n`` lanes: with refill as many as are
-// resident on the card at once with ``smem`` bytes of shared memory each
-// (queried at the kernel's first launch in the process, so later
-// launches pay no host query), else one thread per lane.
+// resident on the card at once (queried at the kernel's first launch in
+// the process, so later launches pay no host query), else one thread per
+// lane.
 template <auto Kernel>
-inline unsigned lane_blocks(int threads, int64_t n, bool refill,
-                            int smem) {
+inline unsigned lane_blocks(int threads, int64_t n, bool refill) {
   int64_t blocks = (n + threads - 1) / threads;
   if (refill) {
-    static const int64_t resident = [threads, smem] {
+    static const int64_t resident = [threads] {
       int dev = 0, sms = 0, per_sm = 0;
       cudaGetDevice(&dev);
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-      }
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                    threads, smem);
+                                                    threads, 0);
       return static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
     }();
     if (blocks > resident) blocks = resident;

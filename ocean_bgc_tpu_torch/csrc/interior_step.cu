@@ -1090,8 +1090,7 @@ constexpr int kSolveThreads = 256;
 template <typename T, bool kRefill>
 __global__ void __launch_bounds__(kSolveThreads)
     interior_solve_kernel(InteriorLanes<T> src, int64_t n, LaneQueue q) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  solve_lanes<T, kRefill>(src, n, q, smem);
+  solve_lanes<T, kRefill>(src, n, q);
 }
 
 // ---- the biology kernel: a tile of whole columns per block ------------
@@ -1324,14 +1323,11 @@ int launch_solve(const void* const* fields, int nlev, int ncol,
   for (int j = 0; j < F_COUNT; ++j) src.f.p[j] = fields[j];
   src.ncol = ncol;
   const int64_t n = static_cast<int64_t>(nlev) * ncol;
-  const int smem =
-      kRefill ? kSolveThreads / 32 * refill_warp_bytes<T, InteriorLanes<T>>()
-              : 0;
   const unsigned blocks = lane_blocks<interior_solve_kernel<T, kRefill>>(
-      kSolveThreads, n, kRefill, smem);
+      kSolveThreads, n, kRefill);
   const LaneQueue q{static_cast<unsigned long long*>(counter),
                     static_cast<int64_t>(blocks) * kSolveThreads};
-  interior_solve_kernel<T, kRefill><<<blocks, kSolveThreads, smem, stream>>>(
+  interior_solve_kernel<T, kRefill><<<blocks, kSolveThreads, 0, stream>>>(
       src, n, q);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,10 @@
 
 K1's dual instance on the warm inputs of the flagship world (60 x 8192,
 ragged, seed 17, after one step) at f64 and f32, in three schedules:
-one lane per thread (the per-thread loop), refill on a grid of the
-blocks resident on the card, and refill on a grid of one thread per lane,
-where every warp takes only its own 32 lanes, so the state machine runs
-without refilling anything.  The last needs a build of
+one lane per thread, refill on a grid of the blocks resident on the
+card, and refill on a grid of one thread per lane, where a thread's
+first claim finds no lane left: the refill loop's cost without its
+gain.  The last needs a build of
 ``csrc/carbonate_dual.cu`` whose grid is not capped at the resident
 blocks: it is made from a copy of ``csrc`` under
 ``ocean_bgc_tpu_torch/_build``.  Each time is the median of 5 rounds of
