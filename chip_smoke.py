@@ -11,14 +11,15 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 3. the default path, at f64 and f32 — ``synthetic_world(60, 8192,
    ragged)``, ``precompute_env`` once, 10 ``step``s with diagnostics off
    — with every kernel's launches counted (the dual K1 10, its bracket-in
-   instance 10 for the surface pair, K2 0); tracers/DMS/MACROS bitwise
-   equal between ``carbonate_impl="kernel"`` and ``"torch"``, pH within
-   the solver's tolerance; K1 against its plain version on cold and warm
-   inputs (all 8 outputs bitwise equal); the bracket-in instance against
-   its plain version on the surface pair and the stand-in (bitwise);
+   instance 10 for the surface pair, K2's two kernels 0);
+   tracers/DMS/MACROS bitwise equal between ``carbonate_impl="kernel"``
+   and ``"torch"``, pH within the solver's tolerance; K1 against its
+   plain version on cold and warm inputs (all 8 outputs bitwise equal);
+   the bracket-in instance against its plain version on the surface pair
+   and the stand-in (bitwise);
 4. the fused path (``interior_impl="fused"``), at f64 and f32 on the
-   same world: 10 steps with the launches counted (K2's two kernels 20,
-   the dual K1 0, the bracket-in instance 10);
+   same world: 10 steps with the launches counted (K2's solve kernel 10
+   and its biology kernel 10, the dual K1 0, the bracket-in instance 10);
    K2 against its plain version on cold and warm inputs (pH bitwise
    equal, tendencies within 1e-10 (f64) / 3e-5 (f32) of each tracer's
    scale); 24 fused steps against 24 default steps within 30 times the
@@ -94,6 +95,8 @@ TRAJ_EPS_FLOOR = {torch.float64: (4e-16, 1e-12), torch.float32: (1.2e-7, 1e-2)}
 # K2 against its plain version: tendencies to this share of each
 # tracer's largest magnitude
 K2_TOL = {torch.float64: 1e-10, torch.float32: 3e-5}
+# a device sleep of ~10 ms at the H100's 1.98 GHz boost clock
+SLEEP_CYCLES = 20_000_000
 
 
 def log(*args):
@@ -108,15 +111,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps, warmup=2, rounds=5):
+def cuda_ms(fn, reps, warmup=2, rounds=5, device_only=False):
     """Median over ``rounds`` of the mean ms per call of ``fn`` over
-    ``reps`` calls, by CUDA events, after ``warmup`` calls."""
+    ``reps`` calls, by CUDA events, after ``warmup`` calls.
+
+    ``device_only``: each round's calls are queued behind a device sleep
+    of ~10 ms, so that the events time the device's work alone, not the
+    host's launches (for ``fn`` that makes no host synchronisation)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(rounds):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         t0.record()
         for _ in range(reps):
             fn()
@@ -131,14 +140,16 @@ def reset_counts():
     from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
     cuda_carbonate.co3_terms_dual_coeffs.launches = 0
     cuda_carbonate.solve_htotal_brackets.launches = 0
-    cuda_step.fused_interior_step.launches = 0
+    cuda_step._launch_solve.launches = 0
+    cuda_step._launch_bio.launches = 0
 
 
 def read_counts():
     from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
     return dict(k1=cuda_carbonate.co3_terms_dual_coeffs.launches,
                 brackets=cuda_carbonate.solve_htotal_brackets.launches,
-                k2=cuda_step.fused_interior_step.launches)
+                k2_solve=cuda_step._launch_solve.launches,
+                k2_bio=cuda_step._launch_bio.launches)
 
 
 def ptxas_lines(log_text):
@@ -180,7 +191,7 @@ def k1_inputs(state, grid, forcing, env):
                             env)
 
 
-def solve_ops(args, cells=None):
+def solve_ops_of(args, cells=None):
     """(operations, mean iterations per scenario) of K1's dual solve on
     these inputs, over ``cells`` (a mask; all cells if None), iteration
     counts from the plain version, which runs the same per-lane
@@ -202,21 +213,26 @@ def solve_ops(args, cells=None):
     return ops, [st["iters"].double()[cells].mean().item() for st in stats]
 
 
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of ``nbytes`` over the HBM rate
+    and ``ops`` over the peak rate of the type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def k1_bound(args, dtype):
     """(bound_ms, bound_by, bytes, operations, mean iterations, path
     bound_ms): the larger of K1's bytes over the HBM rate and of the
     operations these inputs need over the peak rate of the type.  The
     path bound counts only the outputs the step reads."""
     n = args[0].numel()
-    ops, iters_mean = solve_ops(args)
+    ops, iters_mean = solve_ops_of(args)
     nbytes = (K1_FIELDS_IN + K1_FIELDS_OUT) * args[0].element_size() * n
     path_bytes = ((K1_FIELDS_IN + K1_FIELDS_OUT_READ)
                   * args[0].element_size() * n)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    path_ms = max(path_bytes / HBM_BYTES_PER_S * 1e3, t_ops)
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops, iters_mean, path_ms)
+    path_ms = bound(path_bytes, ops, dtype)[0]
+    return (*bound(nbytes, ops, dtype), nbytes, ops, iters_mean, path_ms)
 
 
 def check_k1(dtype, world, env, warm_state):
@@ -253,16 +269,12 @@ def check_k1(dtype, world, env, warm_state):
         if not finite or err != 0.0:
             raise AssertionError(f"K1 {dtype} {label} disagrees with its "
                                  f"plain version")
-    from ocean_bgc_tpu_torch.ops.cuda_carbonate import REFILL, _launch
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import _launch
     call_ms = cuda_ms(lambda: k1(*args, impl="kernel"), reps=20)
     fields = (*args[:6], *args[6])
-    lanes_ms = {r: cuda_ms(lambda: _launch(fields, dtype, refill=r), reps=20)
-                for r in (True, False)}
-    ms = lanes_ms[REFILL[dtype]]
-    log(f"K1 {dtype} warm: {lanes_ms[True]:.4f} ms/launch with refill, "
-        f"{lanes_ms[False]:.4f} ms/launch with one lane per thread; "
-        f"{call_ms:.4f} ms per call of the wrapper (its host work "
-        f"included)")
+    ms = cuda_ms(lambda: _launch(fields, dtype), reps=20, device_only=True)
+    log(f"K1 {dtype} warm: {call_ms:.4f} ms per call of the wrapper (its "
+        f"host work included)")
     plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=1, rounds=3)
     bound_ms, bound_by, nbytes, ops, iters, path_ms = k1_bound(args, dtype)
     log(f"K1 {dtype} warm: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
@@ -322,10 +334,7 @@ def bracket_bound(args, dtype):
            + (iters * (OPS_ITER + OPS_TALK)).sum().item())
     nbytes = ((BRACKET_FIELDS_LANE * n + BRACKET_FIELDS_SHARED * ta.numel())
               * dic.element_size())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops, iters.mean().item(),
+    return (*bound(nbytes, ops, dtype), nbytes, ops, iters.mean().item(),
             iters.max().item())
 
 
@@ -340,7 +349,7 @@ def check_brackets(dtype, world, env, warm_state):
     from ocean_bgc_tpu_torch.ops.carbonate import (
         _solve_htotal_impl as plain, co2calc_surface_dual)
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
-        REFILL, _launch_brackets, solve_htotal_brackets as kb)
+        _launch_brackets, solve_htotal_brackets as kb)
     from ocean_bgc_tpu_torch.state import BGCTracers as T
     state, grid, forcing = world
     cases = {"surface pair, cold": surface_lanes(state, forcing),
@@ -364,9 +373,8 @@ def check_brackets(dtype, world, env, warm_state):
     fields = dict(dic=args[1], x1=args[5], x2=args[6], ta=args[2],
                   pt=args[3], sit=args[4], **args[0]._asdict())
     call_ms = cuda_ms(lambda: kb(*args, impl="kernel"), reps=20)
-    lanes_ms = {r: cuda_ms(lambda: _launch_brackets(fields, refill=r),
-                           reps=20) for r in (True, False)}
-    ms = lanes_ms[REFILL[dtype]]
+    ms = cuda_ms(lambda: _launch_brackets(fields), reps=20,
+                 device_only=True)
     plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=1, rounds=3)
     bound_ms, bound_by, nbytes, ops, mean_it, max_it = bracket_bound(
         args, dtype)
@@ -383,13 +391,12 @@ def check_brackets(dtype, world, env, warm_state):
     pair_plain_ms = cuda_ms(lambda: pair("torch"), reps=1, warmup=1,
                             rounds=3)
     sargs = cases["stand-in"]
-    standin_ms = cuda_ms(lambda: kb(*sargs, impl="kernel"), reps=5)
+    standin_ms = cuda_ms(lambda: kb(*sargs, impl="kernel"), reps=5,
+                         device_only=True)
     standin_plain_ms = cuda_ms(lambda: plain(*sargs), reps=1, warmup=1,
                                rounds=3)
     log(f"bracket-in K1 {dtype}, surface pair ({NCOL} columns, warm): "
-        f"{ms:.4f} ms/launch ({lanes_ms[True]:.4f} with refill, "
-        f"{lanes_ms[False]:.4f} with one lane per thread; {call_ms:.4f} per "
-        f"call of the wrapper), plain "
+        f"{ms:.4f} ms/launch ({call_ms:.4f} per call of the wrapper), plain "
         f"{plain_ms:.3f} ms; bound {bound_ms:.2e} ms by "
         f"{bound_by} ({nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} Mop, steps "
         f"mean {mean_it:.2f}, most {max_it:.0f}); co2calc_surface_dual "
@@ -503,9 +510,10 @@ def main_path(dtype, params):
     launches = counts["k1"]
     log(f"main path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
-    if counts != dict(k1=10, brackets=10, k2=0):
+    if counts != dict(k1=10, brackets=10, k2_solve=0, k2_bio=0):
         raise AssertionError(f"the default path's launches in 10 steps: "
-                             f"{counts}, expected k1 10, brackets 10, k2 0")
+                             f"{counts}, expected k1 10, brackets 10, "
+                             f"k2_solve 0, k2_bio 0")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros)):
         if not torch.isfinite(t).all():
@@ -567,70 +575,46 @@ def main_path(dtype, params):
                  step_ms=ms))
 
 
-def k2_bound(fields, outs, dtype, k1_args, active):
-    """(bound_ms, bound_by, bytes, operations) of K2 on these inputs: the
-    bytes it must move, over the HBM rate, against its operations over
-    the peak rate of the type.  Bytes: every per-cell input read once in
-    the active cells (``active``, the (nlev, ncol) mask) and the previous
-    pH fields in all cells, the per-column rows once, every output
-    written once.  Operations, over the active cells: the pH solve
-    counted as K1's on the same carbonate inputs (iteration counts from
-    the plain version) less K1's speciation, plus the rest of the
-    interior."""
-    n_act = int(active.sum())
-    ops = (solve_ops(k1_args, active)[0]
-           - 2 * n_act * (OPS_SCENARIO - OPS_K2_NO_SPECIATION)
-           + n_act * OPS_K2_CELL)
-    ncell = active.numel()
-    nbytes = 0
-    for name, t in fields.items():
-        if t is None:
-            continue
-        if name in ("ph_prev", "ph_prev_alt") or t.numel() < ncell:
-            nbytes += t.numel() * t.element_size()
-        else:
-            nbytes += t.numel() // ncell * n_act * t.element_size()
-    nbytes += sum(t.numel() * t.element_size() for t in outs)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops)
+def k2_bounds(fields, outs, dtype, k1_args, active):
+    """(bytes, operations) of each of K2's two kernels on these inputs,
+    the solve's and the biology's.  Bytes: what each kernel must read
+    (per-cell inputs in the active cells of ``active``, the (nlev, ncol)
+    mask; the previous pH fields in all cells; the per-column rows once)
+    and write (every output once).  Operations, over the active cells:
+    the solve counted as K1's dual solve on the same carbonate inputs
+    (iteration counts from the plain version) less K1's speciation; the
+    biology as OPS_K2_CELL."""
+    from ocean_bgc_tpu_torch.ops.carbonate import CarbCoeffs
+    n_act, ncell = int(active.sum()), active.numel()
 
-
-def k2_launches(dtype, fields, want, params):
-    """Each of K2's two launches timed alone: the solve with and without
-    refill, the biology kernel at several tile widths; every variant's
-    outputs must equal ``want`` bitwise.  Returns the configuration's
-    times."""
-    from ocean_bgc_tpu_torch.ops import cuda_step as cs
-    out = cs.FusedInteriorOut(*(torch.empty_like(t) for t in want))
-
-    def same():
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(out, want)):
-            raise AssertionError(f"a K2 {dtype} variant's outputs differ")
-
-    times = {}
-    for refill in (True, False):
-        t = cuda_ms(lambda: cs._launch_solve(fields, out, refill=refill),
-                    reps=10)
-        times[f"solve, refill {refill}"] = t
-    same()
-    base = cs.columns_per_block(NLEV, want.tendencies.element_size())
-    for cols in (base // 2, base, 2 * base):
-        t = cuda_ms(lambda: cs._launch_bio(fields, out, params.bgc,
-                                           cols=cols), reps=10)
-        times[f"biology, {cols} columns/block"] = t
-        same()
-    log(f"K2 {dtype} launches alone (ms): " + "; ".join(
-        f"{k} {v:.4f}" for k, v in times.items()))
-    return dict(solve=times[f"solve, refill {cs.REFILL[dtype]}"],
-                bio=times[f"biology, {base} columns/block"])
+    def moved(t, all_cells=False):
+        if all_cells or t.numel() < ncell:
+            return t.numel() * t.element_size()
+        return t.numel() // ncell * n_act * t.element_size()
+    solve_only = (*CarbCoeffs._fields, "ph_prev", "ph_prev_alt")
+    # the solve reads DIC, ALK, PO4 and SiO3 of the tracers and its
+    # constants in the active cells, kmax once, both previous pH fields
+    # everywhere, and writes both pH fields
+    solve_bytes = (4 * n_act * outs.tendencies.element_size()
+                   + sum(moved(fields[k]) for k in CarbCoeffs._fields)
+                   + moved(fields["ph_prev"], True)
+                   + moved(fields["ph_prev_alt"], True)
+                   + moved(fields["kmax"])
+                   + moved(outs.ph_prev_3d, True)
+                   + moved(outs.ph_prev_alt_3d, True))
+    bio_bytes = (sum(moved(t) for k, t in fields.items()
+                     if t is not None and k not in solve_only)
+                 + moved(outs.tendencies, True))
+    solve_ops = (solve_ops_of(k1_args, active)[0]
+                 - 2 * n_act * (OPS_SCENARIO - OPS_K2_NO_SPECIATION))
+    return dict(solve=(solve_bytes, solve_ops),
+                bio=(bio_bytes, n_act * OPS_K2_CELL))
 
 
 def check_k2(dtype, world, env, warm_state, params):
     """K2 against its plain version on cold and warm inputs; returns the
-    numbers measured on the warm (steady-state) ones.
+    numbers of its two kernels measured on the warm (steady-state) ones,
+    by the names ``solve`` and ``bio``.
 
     pH: bitwise (the same device solve as K1 on the same inputs).
     Tendencies: within K2_TOL of each tracer's largest magnitude; the
@@ -638,10 +622,12 @@ def check_k2(dtype, world, env, warm_state, params):
     the few sites where PyTorch's CUDA ops special-case an argument could
     differ.  The count of cells over the limit is printed with the
     worst error."""
-    from ocean_bgc_tpu_torch.ops.cuda_step import (
-        fused_interior_step as k2, fused_interior_step_torch as plain,
-        kernel_inputs)
+    from ocean_bgc_tpu_torch.ops import cuda_step as cs
+    from ocean_bgc_tpu_torch.ops.bgc import bgc_source_sink
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+        co3_terms_dual_coeffs_torch)
     from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES
+    k2, plain = cs.fused_interior_step, cs.fused_interior_step_torch
     state, grid, forcing = world
     for label, st in (("cold", state), ("warm", warm_state)):
         b = st.bgc
@@ -657,10 +643,10 @@ def check_k2(dtype, world, env, warm_state, params):
                       + 1e-30)
         worst = rel.max().item()
         over = rel > K2_TOL[dtype]
-        err = max(diff.max().item(),
-                  (got.ph_prev_3d - want.ph_prev_3d).abs().max().item(),
-                  (got.ph_prev_alt_3d - want.ph_prev_alt_3d).abs().max()
-                  .item())
+        tend_err = diff.max().item()
+        ph_err = max((got.ph_prev_3d - want.ph_prev_3d).abs().max().item(),
+                     (got.ph_prev_alt_3d - want.ph_prev_alt_3d).abs().max()
+                     .item())
         finite = bool(torch.isfinite(got.tendencies).all())
         log(f"K2 {dtype} {label}: pH and pH_alt bitwise equal {ph_equal}; "
             f"tendencies: worst error / tracer scale {worst:.3g} (limit "
@@ -668,7 +654,7 @@ def check_k2(dtype, world, env, warm_state, params):
             f"{BGC_TRACER_NAMES[int(rel.amax(dim=(0, 2)).argmax())]}, "
             f"{int(over.sum())} cells over the limit, bitwise equal cells "
             f"{int((diff == 0).sum())} of {diff.numel()}; max abs error "
-            f"{err:.3g}; finite {finite}")
+            f"{max(tend_err, ph_err):.3g}; finite {finite}")
         if over.any():
             k, i, col = (int(v) for v in over.nonzero()[0])
             log(f"  first cell over the limit: level {k}, "
@@ -678,23 +664,42 @@ def check_k2(dtype, world, env, warm_state, params):
             raise AssertionError(f"K2 {dtype} {label} disagrees with its "
                                  f"plain version")
     call_ms = cuda_ms(lambda: k2(*args, env=env, impl="kernel"), reps=10)
-    launch_ms = k2_launches(dtype, kernel_inputs(*args, env), got, params)
-    ms = launch_ms["solve"] + launch_ms["bio"]
-    log(f"K2 {dtype} warm: solve {launch_ms['solve']:.4f} + biology "
-        f"{launch_ms['bio']:.4f} = {ms:.4f} ms; {call_ms:.4f} ms per call of "
-        f"the wrapper (both launches and its host work)")
-    plain_ms = cuda_ms(lambda: plain(*args, env=env), reps=1, warmup=1,
-                       rounds=3)
-    bound_ms, bound_by, nbytes, ops = k2_bound(
-        kernel_inputs(*args, env), got, dtype,
-        k1_inputs(warm_state, grid, forcing, env), grid.active_mask())
-    log(f"K2 {dtype} warm: {ms:.4f} ms for both launches, plain "
-        f"{plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.3f} Gop; {int(grid.active_mask().sum())} of "
-        f"{NLEV * NCOL} cells active)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    fields = cs.kernel_inputs(*args, env)
+    out = cs.FusedInteriorOut(*(torch.empty_like(t) for t in got))
+    ms = dict(solve=cuda_ms(lambda: cs._launch_solve(fields, out), reps=10,
+                            device_only=True),
+              bio=cuda_ms(lambda: cs._launch_bio(fields, out, params.bgc),
+                          reps=10, device_only=True))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out, got)):
+        raise AssertionError(f"K2 {dtype}: the timed launches' outputs "
+                             f"differ from the wrapper's")
+    k1_args = k1_inputs(warm_state, grid, forcing, env)
+    # the plain versions: of the solve, the dual pH solve on the same
+    # cells; of the biology, the plain interior with its pH on K1's kernel
+    plain_ms = dict(
+        solve=cuda_ms(lambda: co3_terms_dual_coeffs_torch(*k1_args), reps=1,
+                      warmup=1, rounds=3),
+        bio=cuda_ms(lambda: bgc_source_sink(
+            *args, compute_diags=False, carbonate_impl="kernel", env=env),
+            reps=1, warmup=1, rounds=3))
+    work = k2_bounds(fields, got, dtype, k1_args, grid.active_mask())
+    res = {}
+    for part, err in (("solve", ph_err), ("bio", tend_err)):
+        nbytes, ops = work[part]
+        bound_ms, bound_by = bound(nbytes, ops, dtype)
+        log(f"K2 {dtype} warm, {part} kernel: {ms[part]:.4f} ms/launch, "
+            f"plain {plain_ms[part]:.3f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+        res[part] = dict(max_abs_err=err, ms=ms[part],
+                         plain_ms=plain_ms[part], bound_ms=bound_ms,
+                         bound_by=bound_by)
+    log(f"K2 {dtype} warm: solve {ms['solve']:.4f} + biology "
+        f"{ms['bio']:.4f} = {ms['solve'] + ms['bio']:.4f} ms; "
+        f"{call_ms:.4f} ms per call of the wrapper (both launches and its "
+        f"host work); {int(grid.active_mask().sum())} of {NLEV * NCOL} "
+        f"cells active")
+    return res
 
 
 def trajectory_gate(dtype, state0, grid, forcing, params, env, default):
@@ -806,13 +811,12 @@ def fused_path(dtype, params, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    launches = counts["k2"]
     log(f"fused path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
-    if counts != dict(k1=0, brackets=10, k2=20):
+    if counts != dict(k1=0, brackets=10, k2_solve=10, k2_bio=10):
         raise AssertionError(f"the fused path's launches in 10 steps: "
-                             f"{counts}, expected k1 0, brackets 10, k2 20 "
-                             f"(two kernels per step)")
+                             f"{counts}, expected k1 0, brackets 10, "
+                             f"k2_solve 10, k2_bio 10")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros),
                     ("pH", state.bgc.ph_prev_3d)):
@@ -835,7 +839,8 @@ def fused_path(dtype, params, ctx):
         f"{NCOL / (ctx['step_ms'] / 1e3):.1f} columns/s")
     log(f"breakdown of one fused {dtype} step at {NLEV}x{NCOL}:")
     fused_breakdown(dtype, cur, grid, forcing, params, env, ms)
-    return dict(launches=launches, **k2)
+    return {part: dict(launches=counts[f"k2_{part}"], **k2[part])
+            for part in ("solve", "bio")}
 
 
 def probe_phase():
@@ -854,7 +859,8 @@ def probe_phase():
         f"scale {rel:.3g} (limit {probe.RTOL:g}), max abs error {err:.3g}")
     if launches != 1 or not rel <= probe.RTOL:
         raise AssertionError("P disagrees with its plain version")
-    ms = cuda_ms(lambda: probe.probe_patterns(*args), reps=20)
+    ms = cuda_ms(lambda: probe.probe_patterns(*args), reps=20,
+                 device_only=True)
     plain_ms = cuda_ms(lambda: probe.probe_patterns_torch(*args), reps=1,
                        warmup=1, rounds=3)
     tr, temp, kmax = args
@@ -870,13 +876,11 @@ def probe_phase():
     ops = temp.numel() * OPS_P_CELL + iters * OPS_P_NEWTON
     nbytes = sum(t.numel() * t.element_size()
                  for t in (tr, temp, kmax, out, tend))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    bound_ms, bound_by = bound(nbytes, ops, torch.float32)
     log(f"P: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
-        f"{max(t_bytes, t_ops):.2e} ms ({nbytes} B, {ops} op)")
+        f"{bound_ms:.2e} ms ({nbytes} B, {ops} op)")
     return dict(launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def oracle_check(params):
@@ -999,8 +1003,10 @@ def main():
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", k1),
                 ("solve_htotal_brackets", "carbonate_dual.cu",
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", kb),
-                ("interior_step", "interior_step.cu",
-                 "ocean_bgc_tpu/ops/pallas_step.py:146", k2)):
+                ("interior_step solve", "interior_step.cu",
+                 "ocean_bgc_tpu/ops/pallas_step.py:146", k2["solve"]),
+                ("interior_step biology", "interior_step.cu",
+                 "ocean_bgc_tpu/ops/pallas_step.py:146", k2["bio"])):
             kernels.append(dict(
                 name=f"{kname} ({name})", route="cuda",
                 source=f"ocean_bgc_tpu_torch/csrc/{src}", replaces=tpu,

@@ -25,15 +25,13 @@
 // Design.  Each lane freezes on its own convergence in the reference too
 // (ocean_bgc_tpu/ops/carbonate.py:416-425), so a lane may be solved by
 // any thread.  Both instances run carbonate_solve.cuh's lanes, one per
-// thread or with refill (a thread that finishes its lane claims the next
-// unstarted one from a device counter), chosen per launch.  The TPU
-// kernel's 128-lane tiles, padding and stacked/sequential dual choice
-// have no counterpart here.  Templated on float/double with the solver
-// tolerance chosen per type as the plain version chooses it (1e-10 at
-// f64, 1e-13 at f32).  The alkalinity residual keeps the reference's
-// association order term by term; built with --fmad=false and IEEE
-// division, each lane's iterates are bitwise those of the plain PyTorch
-// version in either schedule.
+// thread.  The TPU kernel's 128-lane tiles, padding and stacked/
+// sequential dual choice have no counterpart here.  Templated on
+// float/double with the solver tolerance chosen per type as the plain
+// version chooses it (1e-10 at f64, 1e-13 at f32).  The alkalinity
+// residual keeps the reference's association order term by term; built
+// with --fmad=false and IEEE division, each lane's iterates are bitwise
+// those of the plain PyTorch version.
 //
 // Bound.  The dual instance must read 21 fields per cell (DIC, ALK, PO4,
 // SiO3, the two previous pH fields, 15 cached coefficients) and write 8:
@@ -42,10 +40,9 @@
 // converge in 2-3 steps at f64; at f32 a third of them take 14-24 (a
 // bisection tail near the f32 rounding of the residual), so with one lane
 // per thread most of a warp waits for its slowest lane, and the f32
-// launch runs at 8.6x its bound.  Refill keeps the threads busy, but on
-// the H100 it measured no faster at either type (PERF.md; nor did a lane
-// state machine refilled per residual evaluation, whose warps' lanes
-// diverged): ops/cuda_carbonate.py::REFILL keeps one lane per thread.
+// launch runs at 8.6x its bound.  Refilling finished threads with
+// unstarted lanes from a device counter measured no faster on the H100
+// at either type, per problem or per residual evaluation (PERF.md, PR 3).
 // The bracket-in instance at the surface reads 3 fields per lane and 18
 // per column and writes one per lane (~1.7 MB at f64 for 8192 columns):
 // it is bound by its launch and its slowest lanes, not by the card's
@@ -73,28 +70,16 @@ struct DualLanes {
   // ph_a, h2co3_a, hco3_a, co3_a, ph_b, h2co3_b, hco3_b, co3_b
   T* out[kNumOut];
 
-  // lane i is cell i: ambient first, then ALT_CO2 on the same constants;
-  // its inputs are dic, ta, pt, sit, ph_prev_a, ph_prev_b, 15 constants
-  static constexpr int kRaw = kNumIn;
-
-  __device__ __forceinline__ const T* raw(int j, int64_t i) const {
-    return in[j] + i;
-  }
-
-  __device__ __forceinline__ const int32_t* aux(int64_t) const {
-    return nullptr;
-  }
-
-  __device__ __forceinline__ bool begin(int64_t, const T (&v)[kRaw], int,
-                                        Lane<T>& s) const {
-    const MassUnits<T> m = to_mass_units(v[0], v[1], v[2], v[3]);
-    s.t = talk_terms(coeffs_of(v + 6), m);
+  // lane i is cell i: ambient first, then ALT_CO2 on the same constants
+  __device__ __forceinline__ bool begin(int64_t i, Lane<T>& s) const {
+    const MassUnits<T> m =
+        to_mass_units(in[0][i], in[1][i], in[2][i], in[3][i]);
+    s.t = talk_terms(coeffs_from<T>([&](int j) { return in[6 + j][i]; }),
+                     m);
     s.dic = m.dic;
-    s.ph_alt = v[5];
+    s.ph_alt = in[5][i];
     s.part = 0;
-    T x1, x2;
-    ph_bracket(v[4], x1, x2);
-    lane_begin(s, x1, x2);
+    ph_bracket(in[4][i], s.x1, s.x2);
     return true;
   }
 
@@ -112,9 +97,7 @@ struct DualLanes {
     (a ? out[3] : out[7])[i] = s.dic * k12 * denom * T(cst::MASS_TO_VOL);
     if (s.part == 1) return true;
     s.part = 1;
-    T x1, x2;
-    ph_bracket(s.ph_alt, x1, x2);
-    lane_begin(s, x1, x2);
+    ph_bracket(s.ph_alt, s.x1, s.x2);
     return false;
   }
 };
@@ -155,24 +138,16 @@ struct BracketLanes {
   T* h;
   int64_t m;   // elements of each shared field
 
-  // lane l's inputs: dic, x1, x2 of lane l, then ta, pt, sit and the 15
+  // lane l reads dic, x1, x2 of lane l, then ta, pt, sit and the 15
   // constants of shared element l % m
-  static constexpr int kRaw = B_h;
-
-  __device__ __forceinline__ const T* raw(int k, int64_t l) const {
-    return in[k] + (k < B_ta ? l : l % m);
-  }
-
-  __device__ __forceinline__ const int32_t* aux(int64_t) const {
-    return nullptr;
-  }
-
-  __device__ __forceinline__ bool begin(int64_t, const T (&v)[kRaw], int,
-                                        Lane<T>& s) const {
-    s.t = talk_terms(coeffs_of(v + B_k0),
-                     MassUnits<T>{v[B_dic], v[B_ta], v[B_pt], v[B_sit]});
+  __device__ __forceinline__ bool begin(int64_t l, Lane<T>& s) const {
+    const int64_t e = l % m;
+    s.t = talk_terms(
+        coeffs_from<T>([&](int j) { return in[B_k0 + j][e]; }),
+        MassUnits<T>{in[B_dic][l], in[B_ta][e], in[B_pt][e], in[B_sit][e]});
     s.part = 0;
-    lane_begin(s, v[B_x1], v[B_x2]);
+    s.x1 = in[B_x1][l];
+    s.x2 = in[B_x2][l];
     return true;
   }
 
@@ -182,68 +157,54 @@ struct BracketLanes {
   }
 };
 
-template <typename T, bool kRefill, typename Src>
+template <typename T, typename Src>
 __global__ void __launch_bounds__(kThreads)
-    lanes_kernel(Src src, int64_t n, LaneQueue q) {
-  solve_lanes<T, kRefill>(src, n, q);
-}
-
-template <typename T, bool kRefill, typename Src>
-int launch_lanes(const Src& src, int64_t n, void* counter,
-                 cudaStream_t stream) {
-  const unsigned blocks =
-      lane_blocks<lanes_kernel<T, kRefill, Src>>(kThreads, n, kRefill);
-  const LaneQueue q{static_cast<unsigned long long*>(counter),
-                    static_cast<int64_t>(blocks) * kThreads};
-  lanes_kernel<T, kRefill, Src><<<blocks, kThreads, 0, stream>>>(src, n, q);
-  return static_cast<int>(cudaGetLastError());
+    lanes_kernel(Src src, int64_t n) {
+  solve_lanes<T>(src, n);
 }
 
 template <typename T, typename Src>
-int launch(const Src& src, int64_t n, void* counter, int refill,
-           cudaStream_t stream) {
-  return refill ? launch_lanes<T, true>(src, n, counter, stream)
-                : launch_lanes<T, false>(src, n, counter, stream);
+int launch(const Src& src, int64_t n, cudaStream_t stream) {
+  const unsigned blocks = lane_blocks(kThreads, n);
+  lanes_kernel<T, Src><<<blocks, kThreads, 0, stream>>>(src, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dual(const void* const* ins, void* const* outs, int64_t n,
-                void* counter, int refill, cudaStream_t stream) {
+                cudaStream_t stream) {
   DualLanes<T> src;
   for (int j = 0; j < kNumIn; ++j) src.in[j] = static_cast<const T*>(ins[j]);
   for (int j = 0; j < kNumOut; ++j) src.out[j] = static_cast<T*>(outs[j]);
-  return launch<T>(src, n, counter, refill, stream);
+  return launch<T>(src, n, stream);
 }
 
 template <typename T>
 int launch_brackets(void* const* fields, int64_t n, int64_t m,
-                    void* counter, int refill, cudaStream_t stream) {
+                    cudaStream_t stream) {
   BracketLanes<T> src;
   for (int j = 0; j < B_h; ++j) src.in[j] = static_cast<const T*>(fields[j]);
   src.h = static_cast<T*>(fields[B_h]);
   src.m = m;
-  return launch<T>(src, n, counter, refill, stream);
+  return launch<T>(src, n, stream);
 }
 
 }  // namespace
 }  // namespace obgc
 
 // Plain C interface for ctypes.  All floating arrays are contiguous and of
-// one type (double if ``is_double``, else float).  ``counter`` is one
-// zeroed unsigned 64-bit integer of device memory, used when ``refill``
-// is nonzero.  Each launches on ``stream`` and returns cudaGetLastError()
-// (0 on success).
+// one type (double if ``is_double``, else float).  Each launches on
+// ``stream`` and returns cudaGetLastError() (0 on success).
 
 // The dual instance: ``ins`` holds 21 device pointers and ``outs`` 8,
 // each of ``n`` elements.
 extern "C" int obgc_carbonate_dual(int is_double, const void* const* ins,
                                    void* const* outs, long long n,
-                                   void* counter, int refill, void* stream) {
+                                   void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) return obgc::launch_dual<double>(ins, outs, n, counter,
-                                                  refill, s);
-  return obgc::launch_dual<float>(ins, outs, n, counter, refill, s);
+  if (is_double) return obgc::launch_dual<double>(ins, outs, n, s);
+  return obgc::launch_dual<float>(ins, outs, n, s);
 }
 
 // The bracket-in instance: ``fields`` holds the obgc::BracketField
@@ -251,13 +212,11 @@ extern "C" int obgc_carbonate_dual(int is_double, const void* const* ins,
 // ``m`` divides ``n``.
 extern "C" int obgc_solve_htotal_brackets(int is_double, void* const* fields,
                                           long long n, long long m,
-                                          void* counter, int refill,
                                           void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) return obgc::launch_brackets<double>(fields, n, m, counter,
-                                                      refill, s);
-  return obgc::launch_brackets<float>(fields, n, m, counter, refill, s);
+  if (is_double) return obgc::launch_brackets<double>(fields, n, m, s);
+  return obgc::launch_brackets<float>(fields, n, m, s);
 }
 
 extern "C" int obgc_brackets_num_fields() { return obgc::B_COUNT; }

@@ -6,7 +6,7 @@
 // ``_solve_htotal_impl`` for one lane (bracket growth, orientation, the
 // bracketed safe-Newton iteration that stops on |dx| < xacc or a stall),
 // with its H-independent terms formed once per problem; the driver that
-// runs lanes over a grid, one per thread or with refill;
+// runs lanes over a grid, one per thread;
 // ``_to_mass_units`` and the pH-space bracket of
 // ops/cuda_carbonate.py::_ph_brackets.  Built with
 // --fmad=false and IEEE division, each lane follows the plain version's
@@ -218,11 +218,11 @@ __device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc) {
   return soln;
 }
 
-// The 15 constants from consecutive values in CarbCoeffs order.
-template <typename T>
-__device__ __forceinline__ Coeffs<T> coeffs_of(const T* k) {
-  return {k[0], k[1], k[2],  k[3],  k[4],  k[5],  k[6], k[7],
-          k[8], k[9], k[10], k[11], k[12], k[13], k[14]};
+// The 15 constants in CarbCoeffs order, constant j read as at(j).
+template <typename T, typename At>
+__device__ __forceinline__ Coeffs<T> coeffs_from(const At& at) {
+  return {at(0), at(1), at(2),  at(3),  at(4),  at(5),  at(6), at(7),
+          at(8), at(9), at(10), at(11), at(12), at(13), at(14)};
 }
 
 // The H-space bracket of one scenario of one cell: the pH-space window
@@ -238,26 +238,19 @@ __device__ __forceinline__ void ph_bracket(T ph_prev, T& x1, T& x2) {
   x2 = m_exp(T(-cst::LN10) * phlo);
 }
 
-// ---- lanes over the threads of a grid, with or without refill
+// ---- lanes over the threads of a grid, one per thread
 //
 // A lane is one cell's problems (or one problem); each thread solves its
-// lane's problems start to end with solve_htotal.  Without refill the
-// grid has one thread per lane, so a warp waits for its slowest lane.
-// With refill the grid holds the blocks resident on the card, and a
-// thread whose lane is done takes the next unstarted lane from a counter
-// in device memory (zero at launch), one atomicAdd for the threads of a
-// warp that finish together: a warp then waits only at the end of the
-// launch.  Threads of one warp working on different lanes' iterations
-// still run the same loop, so they stay together on the residual.
+// lane's problems start to end with solve_htotal, so a warp waits for its
+// slowest lane.  (Refill, where a thread whose lane is done takes the
+// next unstarted lane from a device counter, measured no faster on the
+// H100 at either type: PERF.md, PR 3.)
 //
-// A lane source ``Src`` gives: ``kRaw``, the number of values of one
-// lane's inputs, and ``raw(j, i)``, the address of lane i's value j;
-// ``aux(i)``, the address of one int32 of lane i (or null); ``begin(i,
-// v, a, s)``, which sets up lane i's first problem in s from its values
-// v and int a and returns true, or writes a result that needs no solve
-// and returns false; and ``finish(i, s)``, which writes the root s.soln
-// of problem s.part and returns true, or sets up the lane's next problem
-// in s and returns false.
+// A lane source ``Src`` gives ``begin(i, s)``, which reads lane i's
+// inputs, sets up its first problem in s and returns true, or writes a
+// result that needs no solve and returns false; and ``finish(i, s)``,
+// which writes the root s.soln of problem s.part and returns true, or
+// sets up the lane's next problem in s and returns false.
 
 template <typename T>
 struct Lane {
@@ -268,73 +261,25 @@ struct Lane {
   T ph_alt;                       // the second scenario's previous pH
 };
 
-// Set up the problem on the bracket [x1, x2] (t set).
-template <typename T>
-__device__ __forceinline__ void lane_begin(Lane<T>& s, T x1, T x2) {
-  s.x1 = x1;
-  s.x2 = x2;
-}
-
-struct LaneQueue {
-  unsigned long long* counter;
-  int64_t nthreads;
-
-  // the next unstarted lane, for this thread and the threads of its warp
-  // that ask at the same time
-  __device__ __forceinline__ int64_t claim() const {
-    const unsigned group = __activemask();
-    const int me = static_cast<int>(threadIdx.x % 32);
-    const int leader = __ffs(group) - 1;
-    unsigned long long base = 0;
-    if (me == leader) {
-      base = atomicAdd(counter, static_cast<unsigned long long>(__popc(group)));
-    }
-    base = __shfl_sync(group, base, leader);
-    return nthreads + static_cast<int64_t>(base) +
-           __popc(group & ((1u << me) - 1u));
-  }
-};
-
-// Solve lanes [0, n), each thread starting at its own index.
-template <typename T, bool kRefill, typename Src>
-__device__ __forceinline__ void solve_lanes(const Src& src, int64_t n,
-                                            const LaneQueue& q) {
-  constexpr int kRaw = Src::kRaw;
+// Solve lanes [0, n), one per thread of the grid (strided past the grid).
+template <typename T, typename Src>
+__device__ __forceinline__ void solve_lanes(const Src& src, int64_t n) {
   const T xacc = solver_xacc<T>();
-  Lane<T> s;
-  T v[kRaw];
-  int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  while (lane < n) {
-#pragma unroll
-    for (int j = 0; j < kRaw; ++j) v[j] = *src.raw(j, lane);
-    const int32_t* a = src.aux(lane);
-    if (src.begin(lane, v, a ? *a : 0, s)) {
-      do {
-        s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
-      } while (!src.finish(lane, s));
-    }
-    lane = kRefill ? q.claim() : lane + q.nthreads;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+       lane < n; lane += stride) {
+    Lane<T> s;
+    if (!src.begin(lane, s)) continue;
+    do {
+      s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
+    } while (!src.finish(lane, s));
   }
 }
 
-// Blocks of ``threads`` for ``n`` lanes: with refill as many as are
-// resident on the card at once (queried at the kernel's first launch in
-// the process, so later launches pay no host query), else one thread per
-// lane.
-template <auto Kernel>
-inline unsigned lane_blocks(int threads, int64_t n, bool refill) {
+// Blocks of ``threads`` for ``n`` lanes, one thread per lane.
+inline unsigned lane_blocks(int threads, int64_t n) {
   int64_t blocks = (n + threads - 1) / threads;
-  if (refill) {
-    static const int64_t resident = [threads] {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                    threads, 0);
-      return static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-    }();
-    if (blocks > resident) blocks = resident;
-  }
   if (blocks > 0x7fffffff) blocks = 0x7fffffff;
   return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
 }

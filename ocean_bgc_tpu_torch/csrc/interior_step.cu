@@ -12,11 +12,11 @@
 // Design.  Two kernels per step, both cell-parallel.  With diagnostics
 // off the pH solve feeds nothing else here, so it is its own kernel: the
 // solve kernel runs the dual solve of every active cell as lanes of
-// carbonate_solve.cuh (the routine K1 runs: one lane per thread, or with
-// refill), and copies the previous pH below the bottom.  The biology
-// kernel gives each block of 128 threads all levels of a few whole
-// columns (16 at f64 and 32 at f32 for 60 levels; threads loop over the
-// tile's cells) and runs five phases separated by barriers, staging 8
+// carbonate_solve.cuh (the routine K1 runs, one lane per thread), and
+// copies the previous pH below the bottom, where it reads nothing else.
+// The biology kernel gives each block of 128 threads all levels of a few
+// whole columns (16 at f64 and 32 at f32 for 60 levels; threads loop over
+// the tile's cells) and runs five phases separated by barriers, staging 8
 // values per cell in dynamic shared memory: (1) per cell, the clipped
 // tracers' PAR attenuation; (2) per column, one thread, PAR's running
 // product of the attenuation in level order, the rounding order of the
@@ -1028,49 +1028,33 @@ __device__ __forceinline__ void assemble_tendencies(
 
 // Lane i is cell i = k * ncol + col: ambient, then ALT_CO2 on the same
 // constants; a cell below its column's bottom copies both previous pH
-// fields and needs no solve.
+// fields and reads nothing else.
 template <typename T>
 struct InteriorLanes {
   Ptrs f;
   int64_t ncol;
 
-  // DIC, ALK, PO4, SiO3 (unclipped), the two previous pH fields, the 15
-  // constants; the int is the column's kmax
-  static constexpr int kRaw = 21;
-
-  __device__ __forceinline__ const T* raw(int j, int64_t i) const {
-    if (j < 4) {
-      constexpr int kTracer[4] = {TR_DIC, TR_ALK, TR_PO4, TR_SIO3};
-      const int64_t k = i / ncol, col = i - k * ncol;
-      return in<T>(f, F_tracers) + (k * TR_CNT + kTracer[j]) * ncol + col;
-    }
-    return in<T>(f, j == 4 ? F_ph_prev
-                           : (j == 5 ? F_ph_prev_alt : F_k0 + (j - 6))) + i;
-  }
-
-  __device__ __forceinline__ const int32_t* aux(int64_t i) const {
-    return in<int32_t>(f, F_kmax) + i % ncol;
-  }
-
-  __device__ __forceinline__ bool begin(int64_t i, const T (&v)[kRaw],
-                                        int kmax, Lane<T>& s) const {
-    if (i / ncol >= kmax) {
-      out<T>(f, F_ph)[i] = v[4];
-      out<T>(f, F_ph_alt)[i] = v[5];
+  __device__ __forceinline__ bool begin(int64_t i, Lane<T>& s) const {
+    const int64_t k = i / ncol, col = i - k * ncol;
+    const T ph_prev = in<T>(f, F_ph_prev)[i];
+    const T ph_prev_alt = in<T>(f, F_ph_prev_alt)[i];
+    if (k >= in<int32_t>(f, F_kmax)[col]) {
+      out<T>(f, F_ph)[i] = ph_prev;
+      out<T>(f, F_ph_alt)[i] = ph_prev_alt;
       return false;
     }
+    const T* tr = in<T>(f, F_tracers) + k * TR_CNT * ncol + col;
     // clip the tracers (BGC_mod.F90:747-785), then ops/bgc.py::
     // carbonate_inputs' mass units
-    s.t = talk_terms(coeffs_of(v + 6),
-                     to_mass_units(clamp_min(v[0], T(0)),
-                                   clamp_min(v[1], T(0)),
-                                   clamp_min(v[2], T(0)),
-                                   clamp_min(v[3], T(0))));
-    s.ph_alt = v[5];
+    s.t = talk_terms(
+        coeffs_from<T>([&](int j) { return in<T>(f, F_k0 + j)[i]; }),
+        to_mass_units(clamp_min(tr[TR_DIC * ncol], T(0)),
+                      clamp_min(tr[TR_ALK * ncol], T(0)),
+                      clamp_min(tr[TR_PO4 * ncol], T(0)),
+                      clamp_min(tr[TR_SIO3 * ncol], T(0))));
+    s.ph_alt = ph_prev_alt;
     s.part = 0;
-    T x1, x2;
-    ph_bracket(v[4], x1, x2);
-    lane_begin(s, x1, x2);
+    ph_bracket(ph_prev, s.x1, s.x2);
     return true;
   }
 
@@ -1078,19 +1062,17 @@ struct InteriorLanes {
     out<T>(f, s.part == 0 ? F_ph : F_ph_alt)[i] = -m_log10(s.soln);
     if (s.part == 1) return true;
     s.part = 1;
-    T x1, x2;
-    ph_bracket(s.ph_alt, x1, x2);
-    lane_begin(s, x1, x2);
+    ph_bracket(s.ph_alt, s.x1, s.x2);
     return false;
   }
 };
 
 constexpr int kSolveThreads = 256;
 
-template <typename T, bool kRefill>
+template <typename T>
 __global__ void __launch_bounds__(kSolveThreads)
-    interior_solve_kernel(InteriorLanes<T> src, int64_t n, LaneQueue q) {
-  solve_lanes<T, kRefill>(src, n, q);
+    interior_solve_kernel(InteriorLanes<T> src, int64_t n) {
+  solve_lanes<T>(src, n);
 }
 
 // ---- the biology kernel: a tile of whole columns per block ------------
@@ -1316,19 +1298,15 @@ size_t bio_smem_bytes(int nlev, int cols) {
   return static_cast<size_t>(S_COUNT) * nlev * cols * sizeof(T);
 }
 
-template <typename T, bool kRefill>
+template <typename T>
 int launch_solve(const void* const* fields, int nlev, int ncol,
-                 void* counter, cudaStream_t stream) {
+                 cudaStream_t stream) {
   InteriorLanes<T> src;
   for (int j = 0; j < F_COUNT; ++j) src.f.p[j] = fields[j];
   src.ncol = ncol;
   const int64_t n = static_cast<int64_t>(nlev) * ncol;
-  const unsigned blocks = lane_blocks<interior_solve_kernel<T, kRefill>>(
-      kSolveThreads, n, kRefill);
-  const LaneQueue q{static_cast<unsigned long long*>(counter),
-                    static_cast<int64_t>(blocks) * kSolveThreads};
-  interior_solve_kernel<T, kRefill><<<blocks, kSolveThreads, 0, stream>>>(
-      src, n, q);
+  const unsigned blocks = lane_blocks(kSolveThreads, n);
+  interior_solve_kernel<T><<<blocks, kSolveThreads, 0, stream>>>(src, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1375,24 +1353,13 @@ __global__ void site_test_kernel(int site, const T* x, T* y, int64_t n) {
 // of one type (double if ``is_double``, else float), kmax is int32.  Each
 // launches on ``stream`` and returns cudaGetLastError() (0 on success).
 
-// The solve kernel: the pH fields of every cell.  ``counter`` is one
-// zeroed unsigned 64-bit integer of device memory, used when ``refill``
-// is nonzero.
+// The solve kernel: the pH fields of every cell.
 extern "C" int obgc_interior_solve(int is_double, const void* const* fields,
-                                   int nlev, int ncol, void* counter,
-                                   int refill, void* stream) {
+                                   int nlev, int ncol, void* stream) {
   if (ncol <= 0 || nlev <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) {
-    return refill ? obgc::launch_solve<double, true>(fields, nlev, ncol,
-                                                     counter, s)
-                  : obgc::launch_solve<double, false>(fields, nlev, ncol,
-                                                      counter, s);
-  }
-  return refill ? obgc::launch_solve<float, true>(fields, nlev, ncol, counter,
-                                                  s)
-                : obgc::launch_solve<float, false>(fields, nlev, ncol,
-                                                   counter, s);
+  if (is_double) return obgc::launch_solve<double>(fields, nlev, ncol, s);
+  return obgc::launch_solve<float>(fields, nlev, ncol, s);
 }
 
 // The biology kernel: the tendencies of every cell, ``cols`` columns per

@@ -19,9 +19,7 @@ Each launches ``csrc/carbonate_dual.cu`` for CUDA tensors and takes its
 plain version for CPU tensors, or wherever the caller asks for
 ``impl="torch"``.  A CUDA tensor never falls back to the plain version.
 Both instances run their lanes (``csrc/carbonate_solve.cuh``) one per
-thread or, with refill, handed out from a device counter that the
-wrapper zeroes on the stream; :data:`REFILL` picks per dtype.  Neither
-makes a host synchronisation.
+thread, and neither makes a host synchronisation.
 """
 
 from __future__ import annotations
@@ -45,10 +43,6 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
 )
 
 IMPLS = ("auto", "kernel", "torch")
-# Whether each dtype's launches refill lanes from the device counter, or
-# run one lane per thread.  The card measured one lane per thread faster
-# at both types (PERF.md, PR 3); chip_smoke.py times both in every run.
-REFILL = {torch.float64: False, torch.float32: False}
 # The bracket-in instance's pointer arguments, in the order of the enum
 # BracketField in csrc/carbonate_dual.cu (tests/test_torch_carbonate.py
 # holds the two equal): per lane, per shared element, then the output.
@@ -102,33 +96,20 @@ def _check_impl(impl):
                          f"expected one of {IMPLS}")
 
 
-def refill_counter(device):
-    """The refill counter: one zeroed 64-bit integer, set on the stream."""
-    return torch.zeros(1, dtype=torch.int64, device=device)
-
-
-def counter_ptr(counter):
-    """The counter's device pointer, or null where the launch does not
-    refill."""
-    return None if counter is None else counter.data_ptr()
-
-
-def _launch(fields, out_dtype, refill=None):
+def _launch(fields, out_dtype):
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ref = fields[0]
-    refill = REFILL[out_dtype] if refill is None else refill
     outs = [torch.empty_like(ref) for _ in range(8)]
-    counter = refill_counter(ref.device) if refill else None
     ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
     outs_p = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in outs))
     stream = torch.cuda.current_stream(ref.device).cuda_stream
     code = fn(int(out_dtype == torch.float64), ins_p, outs_p, ref.numel(),
-              counter_ptr(counter), int(refill), stream)
+              stream)
     _kernels.check(lib, code, "carbonate_dual launch")
     return outs
 
@@ -174,29 +155,25 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
 co3_terms_dual_coeffs.launches = 0
 
 
-def _launch_brackets(fields, refill=None):
+def _launch_brackets(fields):
     """Launch the bracket-in instance on ``fields`` (by
     :data:`BRACKET_FIELDS` name, inputs only); returns H per lane."""
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_solve_htotal_brackets
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     if lib.obgc_brackets_num_fields() != len(BRACKET_FIELDS):
         raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
                            "disagree on the bracket-in argument layout")
     dic = fields["dic"]
-    refill = REFILL[dic.dtype] if refill is None else refill
     h = torch.empty_like(dic)
-    counter = refill_counter(dic.device) if refill else None
     ptrs = {**fields, "h": h}
     arr = (ctypes.c_void_p * len(BRACKET_FIELDS))(
         *(ptrs[k].data_ptr() for k in BRACKET_FIELDS))
     stream = torch.cuda.current_stream(dic.device).cuda_stream
     code = fn(int(dic.dtype == torch.float64), arr, dic.numel(),
-              fields["ta"].numel(), counter_ptr(counter), int(refill),
-              stream)
+              fields["ta"].numel(), stream)
     _kernels.check(lib, code, "solve_htotal_brackets launch")
     return h
 

@@ -38,11 +38,6 @@ from ocean_bgc_tpu_torch.ops.particulates import (
     precompute_dissolution,
 )
 from ocean_bgc_tpu_torch.ops.carbonate import CarbCoeffs
-from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
-    REFILL,
-    counter_ptr,
-    refill_counter,
-)
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
 
@@ -159,22 +154,23 @@ def _library():
     return lib
 
 
-def _launch_solve(fields: dict, outs: FusedInteriorOut, refill=None):
-    """The solve kernel: both pH fields of every cell into ``outs``."""
+def _launch_solve(fields: dict, outs: FusedInteriorOut):
+    """The solve kernel: both pH fields of every cell into ``outs``.
+    Each launch adds one to ``_launch_solve.launches``."""
     lib = _library()
     fn = lib.obgc_interior_solve
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ref = fields["tracers"]
     nlev, _, ncol = ref.shape
-    refill = REFILL[ref.dtype] if refill is None else refill
-    counter = refill_counter(ref.device) if refill else None
     code = fn(int(ref.dtype == torch.float64), _pointers(fields, outs), nlev,
-              ncol, counter_ptr(counter), int(refill),
-              torch.cuda.current_stream(ref.device).cuda_stream)
+              ncol, torch.cuda.current_stream(ref.device).cuda_stream)
     _kernels.check(lib, code, "interior_step solve launch")
+    _launch_solve.launches += 1
+
+
+_launch_solve.launches = 0
 
 
 # The biology kernel's threads per block, at most (kBioThreads in
@@ -198,7 +194,8 @@ def columns_per_block(nlev: int, itemsize: int) -> int:
 def _launch_bio(fields: dict, outs: FusedInteriorOut, params: BGCParams,
                 cols=None):
     """The biology kernel: the tendencies of every cell into ``outs``,
-    ``cols`` columns per block (:func:`columns_per_block` if None)."""
+    ``cols`` columns per block (:func:`columns_per_block` if None).  Each
+    launch adds one to ``_launch_bio.launches``."""
     lib = _library()
     fn = lib.obgc_interior_bio
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
@@ -221,13 +218,17 @@ def _launch_bio(fields: dict, outs: FusedInteriorOut, params: BGCParams,
     code = fn(is_double, _pointers(fields, outs), _packed(params), nlev, ncol,
               cols, torch.cuda.current_stream(ref.device).cuda_stream)
     _kernels.check(lib, code, "interior_step biology launch")
+    _launch_bio.launches += 1
+
+
+_launch_bio.launches = 0
 
 
 def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
                         ph_prev_3d, ph_prev_alt_3d, params: BGCParams, *,
                         env: Optional[EnvCache] = None,
                         impl: str = "auto") -> FusedInteriorOut:
-    """The diagnostics-off BGC interior in one kernel launch.
+    """The diagnostics-off BGC interior in two kernel launches.
 
     Drop-in for ``bgc_source_sink(..., compute_diags=False)``: returns
     the tendencies ``(nlev, 30, ncol)`` and the updated pH warm-start
@@ -235,8 +236,8 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
     None to evaluate its tables here first.  ``impl``: "auto" launches the
     kernel on CUDA tensors and uses the plain version on CPU tensors;
     "kernel" requires CUDA tensors.  A call launches two kernels, the pH
-    solve and the biology, and each launch adds one to
-    ``fused_interior_step.launches``.
+    solve (counted in ``_launch_solve.launches``) and the biology
+    (``_launch_bio.launches``).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown interior kernel impl {impl!r}; "
@@ -258,11 +259,7 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
         torch.empty((nlev, ncol), dtype=ref.dtype, device=ref.device))
     _launch_solve(fields, out)
     _launch_bio(fields, out, params)
-    fused_interior_step.launches += 2
     return out
-
-
-fused_interior_step.launches = 0
 
 
 def site_test_hook(x: torch.Tensor, site: str) -> torch.Tensor:
