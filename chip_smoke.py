@@ -25,13 +25,26 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    scale); 24 fused steps against 24 default steps within 30 times the
    default path's distance from a run of perturbed initial tracers
    (``scripts/qualify_fused.py``'s envelope);
-5. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
+5. the JAX package's default call, ``step(state, grid, forcing, params,
+   dt)`` — diagnostics on, no env cache — at f64 and f32 on the same
+   world: 10 steps with the launches counted (K1's coefficient-and-
+   saturation instance 10, the bracket-in instance 10, the dual K1 and
+   K2 0), then 10 diags-on steps with the env cache (the dual K1 10, the
+   coefficient-and-saturation instance 0); the instance against its plain
+   version on cold and warm inputs (all 10 outputs bitwise equal);
+   tracers and every diagnostic bitwise equal between
+   ``carbonate_impl="kernel"`` and ``"torch"``, tracers bitwise equal with
+   diagnostics on and off; the diagnostics' names those of the registry
+   (``utils/diag.py``), every one finite;
+6. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
    version;
-6. one f64 step of each path at 60 x 131072 columns;
-7. numbers: columns/s of both steps, each kernel's time beside its plain
+7. one f64 step of each path at 60 x 131072 columns (diagnostics off);
+8. numbers: columns/s of every step configuration (diagnostics off with
+   each interior; diagnostics on without and with the env cache and with
+   a 10-field ``diag_filter``), each kernel's time beside its plain
    version's and its bound, each kernel's registers and spills from the
-   build log, and where each step's time goes (the default path's
-   breakdown at f64 only).
+   build log, and where each step's time goes (the default path's and
+   the diags-on step's breakdowns at f64 only).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -73,8 +86,8 @@ OPS_BRACKET_LANE = 4
 # it reads dic, x1, x2 and writes H per lane, and reads ta, pt, sit and
 # the 15 constants per shared element
 BRACKET_FIELDS_LANE, BRACKET_FIELDS_SHARED = 4, 18
-# K1 reads 21 fields per cell and writes 8; of the 8 the step reads only
-# the two pH fields (the speciation feeds diagnostics, not ported yet)
+# K1 reads 21 fields per cell and writes 8; of the 8 the production step
+# (diagnostics off) reads only the two pH fields
 K1_FIELDS_IN, K1_FIELDS_OUT, K1_FIELDS_OUT_READ = 21, 8, 2
 # K2's arithmetic besides the pH solve, counted from
 # csrc/interior_step.cu as K1's is (each group's expressions four times,
@@ -87,6 +100,19 @@ OPS_K2_NO_SPECIATION = OPS_SCENARIO - 18 + 1
 # P's arithmetic per cell besides its Newton steps (counted from
 # csrc/probe_patterns.cu), and per Newton step
 OPS_P_CELL, OPS_P_NEWTON = 27, 6
+# carbonate_coeffs and co3_sat_vals per cell, counted from
+# csrc/carbonate_coeffs.cuh as K1's arithmetic is: the 15 constants (13
+# exp, 3 log, 2 sqrt among them), and the two saturation values besides
+# the terms they share with the constants
+OPS_COEFFS, OPS_SAT = 339, 68
+# the coefficient-and-saturation instance reads depth, T, S, the four
+# tracers and the two previous pH fields per cell and writes 8 fields, 10
+# with the saturation values
+SAT_FIELDS_IN, SAT_FIELDS_OUT = 9, 10
+# the production history's 10 fields (scripts/bench_ragged_ab.py:50-52)
+PROD_FILTER = ("pco2surf", "dpco2", "NITRIF", "DENITRIF", "POC_FLUX_IN",
+               "photoC_TOT_zint", "tot_CaCO3_form_zint", "Jint_Ctot",
+               "O2_ZMIN", "Chl_TOT_zint_100m")
 # the trajectory gate (scripts/qualify_fused.py:57-76): steps, the
 # relative perturbation of the initial tracers and the floor (times each
 # tracer's scale) at each dtype
@@ -139,6 +165,7 @@ def reset_counts():
     """Set every kernel wrapper's launch count to 0."""
     from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
     cuda_carbonate.co3_terms_dual_coeffs.launches = 0
+    cuda_carbonate.co3_terms_dual_sat.launches = 0
     cuda_carbonate.solve_htotal_brackets.launches = 0
     cuda_step._launch_solve.launches = 0
     cuda_step._launch_bio.launches = 0
@@ -147,6 +174,7 @@ def reset_counts():
 def read_counts():
     from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
     return dict(k1=cuda_carbonate.co3_terms_dual_coeffs.launches,
+                k1_sat=cuda_carbonate.co3_terms_dual_sat.launches,
                 brackets=cuda_carbonate.solve_htotal_brackets.launches,
                 k2_solve=cuda_step._launch_solve.launches,
                 k2_bio=cuda_step._launch_bio.launches)
@@ -510,10 +538,10 @@ def main_path(dtype, params):
     launches = counts["k1"]
     log(f"main path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
-    if counts != dict(k1=10, brackets=10, k2_solve=0, k2_bio=0):
+    if counts != dict(k1=10, k1_sat=0, brackets=10, k2_solve=0, k2_bio=0):
         raise AssertionError(f"the default path's launches in 10 steps: "
-                             f"{counts}, expected k1 10, brackets 10, "
-                             f"k2_solve 0, k2_bio 0")
+                             f"{counts}, expected k1 10, k1_sat 0, brackets "
+                             f"10, k2_solve 0, k2_bio 0")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros)):
         if not torch.isfinite(t).all():
@@ -813,10 +841,10 @@ def fused_path(dtype, params, ctx):
     counts = read_counts()
     log(f"fused path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
-    if counts != dict(k1=0, brackets=10, k2_solve=10, k2_bio=10):
+    if counts != dict(k1=0, k1_sat=0, brackets=10, k2_solve=10, k2_bio=10):
         raise AssertionError(f"the fused path's launches in 10 steps: "
-                             f"{counts}, expected k1 0, brackets 10, "
-                             f"k2_solve 10, k2_bio 10")
+                             f"{counts}, expected k1 0, k1_sat 0, brackets "
+                             f"10, k2_solve 10, k2_bio 10")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros),
                     ("pH", state.bgc.ph_prev_3d)):
@@ -841,6 +869,251 @@ def fused_path(dtype, params, ctx):
     fused_breakdown(dtype, cur, grid, forcing, params, env, ms)
     return {part: dict(launches=counts[f"k2_{part}"], **k2[part])
             for part in ("solve", "bio")}
+
+
+def sat_bound(args, dtype, with_sat=True):
+    """(bound_ms, bound_by, bytes, operations, mean iterations) of K1's
+    coefficient-and-saturation instance on ``args`` (its inputs): its
+    fields read and written once over the HBM rate, against the
+    constants', the saturation values' and the dual solve's operations
+    (iteration counts from the plain version) over the peak rate."""
+    from ocean_bgc_tpu_torch.ops.carbonate import carbonate_coeffs
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import subsurface_of
+    depth, temp, salt, *solve_args = args
+    coeffs = carbonate_coeffs(depth, temp, salt, subsurface_of(depth))
+    ops, iters = solve_ops_of((*solve_args, coeffs))
+    n = depth.numel()
+    ops += n * (OPS_COEFFS + (OPS_SAT if with_sat else 0))
+    n_out = SAT_FIELDS_OUT if with_sat else SAT_FIELDS_OUT - 2
+    nbytes = (SAT_FIELDS_IN + n_out) * depth.element_size() * n
+    return (*bound(nbytes, ops, dtype), nbytes, ops, iters)
+
+
+def check_sat(dtype, world, warm_state):
+    """K1's coefficient-and-saturation instance against its plain version
+    (``co3_terms_dual_sat_torch``: ``carbonate_coeffs``, the dual solve,
+    ``co3_sat_vals``) on the cold and warm inputs of the step without an
+    env cache; returns the numbers measured on the warm ones.
+
+    Tolerance: none, all 10 outputs bitwise equal.  The constants repeat
+    the plain version's expressions in its order with PyTorch's CUDA
+    semantics (a tensor over a Python scalar is a product with the
+    scalar's reciprocal), --fmad=false, IEEE division and the CUDA math
+    library's exp, log and sqrt; the solve is K1's."""
+    from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs
+    from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+        _launch_sat, co3_terms_dual_sat as ks, co3_terms_dual_sat_torch as
+        plain)
+    state, grid, forcing = world
+    xacc = solver_xacc(dtype)
+    for label, st in (("cold", state), ("warm", warm_state)):
+        b = st.bgc
+        args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                b.ph_prev_alt_3d)
+        got = ks(*args, impl="kernel")
+        torch.cuda.synchronize()
+        want = plain(*args)
+        outs = [(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws)]
+        differ = sum(int((g != w).sum()) for g, w in outs)
+        err = max((g - w).abs().max().item() for g, w in outs)
+        dh = max((10.0 ** -g[0].double() - 10.0 ** -w[0].double())
+                 .abs().max().item() for g, w in zip(got[:2], want[:2]))
+        finite = all(torch.isfinite(g).all().item() for g, _ in outs)
+        log(f"K1 coefficient-and-saturation {dtype} {label}: {differ} of "
+            f"{10 * args[0].numel()} output values differ, max abs error "
+            f"over all 10 outputs {err:.3g} (limit 0, bitwise), max|dH|/xacc "
+            f"{dh / xacc:.3g}, finite {finite}")
+        if differ or not finite or len(outs) != 10:
+            raise AssertionError(f"K1's coefficient-and-saturation instance "
+                                 f"({dtype}, {label}) disagrees with its "
+                                 f"plain version")
+    res = {}
+    for with_sat in (True, False):
+        ms = cuda_ms(lambda: _launch_sat(args, with_sat), reps=20,
+                     device_only=True)
+        plain_ms = cuda_ms(lambda: plain(*args, with_sat=with_sat), reps=1,
+                           warmup=1, rounds=3)
+        bound_ms, bound_by, nbytes, ops, iters = sat_bound(args, dtype,
+                                                           with_sat)
+        log(f"K1 coefficient-and-saturation {dtype} warm, with_sat "
+            f"{with_sat}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.3f} Gop, mean iterations {iters[0]:.2f} / "
+            f"{iters[1]:.2f})")
+        if with_sat:
+            res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+    return res
+
+
+def diags_breakdown(dtype, state, grid, forcing, params, step_ms):
+    """Where one default-call step's time goes (diagnostics on, no env
+    cache): each part called alone on the step's inputs (CUDA events,
+    median of 3 single calls), and the device's busy share of a step."""
+    from ocean_bgc_tpu_torch import constants
+    from ocean_bgc_tpu_torch.models import coupled
+    from ocean_bgc_tpu_torch.ops import bgc, surface
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import co3_terms_dual_sat
+    from ocean_bgc_tpu_torch.ops.dms import dms_source_sink
+    from ocean_bgc_tpu_torch.ops.macros import macros_source_sink
+    b = state.bgc
+    args = bgc.carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                b.ph_prev_alt_3d)
+    active = grid.active_mask()
+    tr = b.tracers.clamp_min(0.0)
+    par = (forcing.shortwave_surface.clamp_min(0.0)[None, :]
+           * constants.F_QSW_PAR)
+    parts = {
+        "surface fluxes": lambda: (
+            surface.bgc_surface_fluxes(b.tracers, forcing, b.surface_ph,
+                                       b.surface_ph_alt, params.bgc),
+            surface.dms_surface_fluxes(state.dms[0, 0], forcing.sst,
+                                       forcing.sss, forcing.ice_fraction,
+                                       forcing.wind_speed_squared_10m,
+                                       forcing.surface_pressure,
+                                       params.dms)),
+        "bgc_source_sink (diagnostics on)": lambda: bgc.bgc_source_sink(
+            b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
+            params.bgc, compute_diags=True),
+        "  K1 coefficient-and-saturation": lambda: co3_terms_dual_sat(
+            *args),
+        "  ecosystem_kinetics": lambda: bgc.ecosystem_kinetics(
+            tr, forcing.potential_temperature, grid.cell_thickness,
+            grid.cell_center_depth, active, grid.latitude, par, params.bgc),
+        "dms + macros (diagnostics on)": lambda: (
+            dms_source_sink(coupled.dms_tracer_block(state),
+                            grid.cell_thickness, active, forcing.sst,
+                            forcing.shortwave_surface, params.dms),
+            macros_source_sink(coupled.macros_tracer_block(state), active,
+                               params.macros)),
+    }
+    times = {k: cuda_ms(fn, reps=1, warmup=1, rounds=3)
+             for k, fn in parts.items()}
+    for k, v in times.items():
+        log(f"  {dtype} {k}: {v:.3f} ms")
+    rest = (times["bgc_source_sink (diagnostics on)"]
+            - times["  K1 coefficient-and-saturation"]
+            - times["  ecosystem_kinetics"])
+    log(f"  {dtype}   level recurrence + assembly + diagnostics + masking "
+        f"(remainder): {rest:.3f} ms")
+    top = sum(v for k, v in times.items() if not k.startswith(" "))
+    log(f"  {dtype} the rest (tracer blocks, deposit, update, the "
+        f"diagnostics dict; step minus the parts): {step_ms - top:.3f} ms")
+    busy = device_busy_ms(lambda: coupled.step(state, grid, forcing, params,
+                                               DT))
+    if busy is None:
+        log(f"  {dtype} device busy share of a default-call step: not "
+            f"measured (the profiler reported no device time)")
+    else:
+        log(f"  {dtype} device busy share of a default-call step: "
+            f"{busy:.3f} ms of {step_ms:.3f} ms ({100 * busy / step_ms:.1f}%)")
+
+
+def default_call(dtype, params, ctx):
+    """Phase 5 at one dtype: the JAX package's default call; returns the
+    coefficient-and-saturation instance's kernel entry's numbers."""
+    from ocean_bgc_tpu_torch.models.coupled import step
+    from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
+    from ocean_bgc_tpu_torch.utils.diag import coupled_registry
+
+    world, env = ctx["world"], ctx["env"]
+    state0, grid, forcing = world
+    registry = set(coupled_registry())
+
+    # -- the default call, counted --
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, states = state0, []
+    for _ in range(10):
+        state, diags = step(state, grid, forcing, params, DT)
+        states.append(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["k1_sat"]
+    log(f"default call {dtype}: 10 steps at {NLEV}x{NCOL} (diagnostics on, "
+        f"no env cache) in {wall:.3f} s, launches {counts}")
+    if counts != dict(k1=0, k1_sat=10, brackets=10, k2_solve=0, k2_bio=0):
+        raise AssertionError(f"the default call's launches in 10 steps: "
+                             f"{counts}, expected k1 0, k1_sat 10, brackets "
+                             f"10, k2_solve 0, k2_bio 0")
+    bad = sorted(k for k, v in diags.items() if not torch.isfinite(v).all())
+    log(f"default call {dtype}: {len(diags)} diagnostics, the registry's "
+        f"{len(registry)} names {set(diags) == registry}, non-finite {bad}")
+    if set(diags) != registry or bad:
+        raise AssertionError("the default call's diagnostics are not the "
+                             "registry's, or not finite")
+    if not torch.isfinite(state.bgc.tracers).all():
+        raise AssertionError("non-finite tracers after 10 default calls")
+    del diags
+
+    # -- diagnostics on with the env cache, counted --
+    reset_counts()
+    s = state0
+    for _ in range(10):
+        s, d = step(s, grid, forcing, params, DT, env=env)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"diags on with the env cache {dtype}: launches {counts}")
+    if counts != dict(k1=10, k1_sat=0, brackets=10, k2_solve=0, k2_bio=0):
+        raise AssertionError(f"the diags-on env-on launches in 10 steps: "
+                             f"{counts}, expected k1 10, k1_sat 0, brackets "
+                             f"10, k2_solve 0, k2_bio 0")
+    if set(d) != registry or not all(torch.isfinite(v).all() for v in
+                                     d.values()):
+        raise AssertionError("diags on with the env cache: diagnostics not "
+                             "the registry's, or not finite")
+    del s, d
+
+    # -- kernel vs plain version, diags on vs off, over 2 steps --
+    a = b = c = state0
+    for _ in range(2):
+        a, da = step(a, grid, forcing, params, DT, carbonate_impl="kernel")
+        b, db = step(b, grid, forcing, params, DT, carbonate_impl="torch")
+        c, _ = step(c, grid, forcing, params, DT, compute_diags=False)
+    same_ab = all(torch.equal(x, y) for x, y in (
+        (a.bgc.tracers, b.bgc.tracers), (a.dms, b.dms), (a.macros, b.macros)))
+    same_ac = all(torch.equal(x, y) for x, y in (
+        (a.bgc.tracers, c.bgc.tracers), (a.dms, c.dms), (a.macros, c.macros)))
+    diag_differ = sorted(k for k in da if not torch.equal(da[k], db[k]))
+    xacc = solver_xacc(dtype)
+    h_diff = max((10.0 ** -x.double() - 10.0 ** -y.double()).abs().max()
+                 .item() for x, y in (
+                     (a.bgc.ph_prev_3d, b.bgc.ph_prev_3d),
+                     (a.bgc.ph_prev_alt_3d, b.bgc.ph_prev_alt_3d)))
+    log(f"default call {dtype}: kernel vs torch over 2 steps: tracers/DMS/"
+        f"MACROS bitwise equal {same_ab}, diagnostics not bitwise equal "
+        f"{diag_differ}, max|dH|/xacc {h_diff / xacc:.3g}; diags on vs off: "
+        f"tracers/DMS/MACROS bitwise equal {same_ac}")
+    if not (same_ab and same_ac) or diag_differ or not h_diff <= 2 * xacc:
+        raise AssertionError("the default call differs between the kernel "
+                             "and the plain version, or with diagnostics "
+                             "off")
+    del a, b, c, da, db
+
+    k = check_sat(dtype, world, states[0])
+
+    # -- ms/step of the diags-on configurations --
+    def timed(label, **kw):
+        cur = states[-1]
+
+        def one():
+            nonlocal cur
+            cur, _ = step(cur, grid, forcing, params, DT, **kw)
+        ms = cuda_ms(one, reps=2, warmup=1, rounds=3)
+        log(f"step {dtype} at {NLEV}x{NCOL} (ragged, {label}): {ms:.3f} "
+            f"ms/step, {NCOL / (ms / 1e3):.1f} columns/s")
+        return ms
+    ms = timed("diags on, env off: the default call")
+    timed("diags on, env on", env=env)
+    timed(f"{len(PROD_FILTER)}-field diag_filter, env on", env=env,
+          diag_filter=PROD_FILTER)
+    if dtype == torch.float64:
+        log(f"breakdown of one default-call {dtype} step at {NLEV}x{NCOL}:")
+        diags_breakdown(dtype, states[-1], grid, forcing, params, ms)
+    return dict(launches=launches, **k)
 
 
 def probe_phase():
@@ -997,12 +1270,15 @@ def main():
         name = str(dtype).split('.')[-1]
         k1, kb, ctx = main_path(dtype, params)
         k2 = fused_path(dtype, params, ctx)
+        ksat = default_call(dtype, params, ctx)
         del ctx
         for kname, src, tpu, k in (
                 ("carbonate_dual", "carbonate_dual.cu",
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", k1),
                 ("solve_htotal_brackets", "carbonate_dual.cu",
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", kb),
+                ("carbonate_dual_sat", "carbonate_dual.cu",
+                 "ocean_bgc_tpu/ops/pallas_carbonate.py:63", ksat),
                 ("interior_step solve", "interior_step.cu",
                  "ocean_bgc_tpu/ops/pallas_step.py:146", k2["solve"]),
                 ("interior_step biology", "interior_step.cu",

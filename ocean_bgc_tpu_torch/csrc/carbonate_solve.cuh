@@ -44,6 +44,15 @@ __device__ __forceinline__ double m_abs(double x) { return fabs(x); }
 template <typename T>
 __device__ __forceinline__ T clamp_min(T x, T lo) { return x < lo ? lo : x; }
 
+// x / c for a tensor x and a Python scalar c, as PyTorch's CUDA division
+// by a CPU scalar computes it: x times the reciprocal of c, formed in
+// double and rounded to the working type (at f32 a reciprocal formed in
+// float can be an ulp off: 1.80655 and ln 10 are)
+template <typename T>
+__device__ __forceinline__ T div_scalar(T x, double c) {
+  return x * T(1.0 / c);
+}
+
 // the solver tolerance in H (ops/carbonate.py::solver_xacc)
 template <typename T>
 __device__ __forceinline__ T solver_xacc();

@@ -33,8 +33,8 @@
 // ``cols``; the ragged edge is masked by col < ncol.  Each expression
 // keeps the plain version's operation order, with PyTorch's CUDA
 // semantics: a tensor divided by a Python scalar is multiplied by the
-// scalar's reciprocal in the working type (div_scalar), selects and
-// clamps keep NaN.  The equilibrium constants, the Q10 response and the
+// scalar's reciprocal formed in double and rounded to the working type
+// (div_scalar, carbonate_solve.cuh), selects and clamps keep NaN.  The equilibrium constants, the Q10 response and the
 // 8 dissolution factors are read precomputed (the env cache, or the
 // wrapper's torch evaluation of the same expressions), so the kernels
 // hold no copy of carbonate_coeffs.  Parameters arrive by value, in
@@ -243,13 +243,6 @@ __device__ __forceinline__ T t_min(T a, T b) {
 template <typename T>
 __device__ __forceinline__ T safe_div(T num, T den) {
   return den != T(0) ? num / den : T(0);
-}
-
-// x / c for a Python scalar c, as PyTorch's CUDA division by a scalar
-// computes it: x times the reciprocal of c in the working type
-template <typename T>
-__device__ __forceinline__ T div_scalar(T x, double c) {
-  return x * (T(1) / T(c));
 }
 
 // ops/numerics.py::morel_kpar: the PAR attenuation coefficient (1/cm)

@@ -11,13 +11,12 @@ forcing, params, dt, ...)``
 3. advances tracers forward-Euler, depositing surface fluxes into the top
    active cell.
 
-The port runs the production configuration: ``compute_diags=False``,
-with or without the env cache, through ``bgc_source_sink`` (the default
-interior, with K1) or, with ``interior_impl="fused"``, through K2, the
-whole-interior kernel.  Diagnostics, the health counters, the diagnostic
-filter and dtype, and ``run`` (the integration loop with time averaging)
-are not ported yet (ROADMAP queue 1 items 9-10) and raise
-``NotImplementedError``.
+The default call ``step(state, grid, forcing, params, dt)`` computes the
+diagnostics (``compute_diags=True``) without an env cache; the production
+call is ``step(..., compute_diags=False, env=precompute_env(...))``.  The
+interior is ``bgc_source_sink`` (K1 on CUDA tensors) or, with
+``interior_impl="fused"`` and diagnostics off, K2, the whole-interior
+kernel.  :func:`run` integrates with time-averaged diagnostics.
 """
 
 from __future__ import annotations
@@ -27,7 +26,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from ocean_bgc_tpu_torch.ops.bgc import EnvCache, bgc_source_sink
+from ocean_bgc_tpu_torch.ops.bgc import (
+    EnvCache,
+    bgc_source_sink,
+    precompute_env,
+)
 from ocean_bgc_tpu_torch.ops.cuda_step import fused_interior_step
 from ocean_bgc_tpu_torch.ops.dms import dms_source_sink
 from ocean_bgc_tpu_torch.ops.macros import macros_source_sink
@@ -96,6 +99,10 @@ class CoupledTendencies:
     surface_ph_alt: torch.Tensor
 
 
+# the health counters' names in the diagnostics dict, in StepHealth order
+HEALTH_NAMES = ("health_solver_nonconverged_cells", "health_poc_error_cells")
+
+
 def _resolve_interior_impl(interior_impl, compute_diags, health):
     """"auto" -> "xla" (``bgc_source_sink``, with K1 on CUDA tensors);
     "fused" takes K2 (``ops/cuda_step.py``) at f64 and f32, with
@@ -115,20 +122,6 @@ def _resolve_interior_impl(interior_impl, compute_diags, health):
     return interior_impl
 
 
-def _not_ported(compute_diags, diag_dtype, health, diag_filter):
-    if compute_diags:
-        raise NotImplementedError(
-            "compute_diags=True is not ported yet (ROADMAP queue 1 item 9);"
-            " pass compute_diags=False")
-    if health:
-        raise NotImplementedError(
-            "health=True is not ported yet (ROADMAP queue 1 item 9)")
-    if diag_filter is not None or diag_dtype is not None:
-        raise NotImplementedError(
-            "diag_filter and diag_dtype are not ported yet (ROADMAP "
-            "queue 1 item 9)")
-
-
 def evaluate_tendencies(
     state: CoupledState,
     grid: ColumnGrid,
@@ -145,13 +138,29 @@ def evaluate_tendencies(
 ) -> Tuple[CoupledTendencies, Dict[str, torch.Tensor]]:
     """The coupled model's right-hand side: surface fluxes + all three
     source-sink steps.  Returns (tendencies, diagnostics); with
-    diagnostics off the dict is empty.  ``carbonate_impl``: "auto" |
-    "kernel" | "torch" (see ``ops/cuda_carbonate.py``), for the surface
-    pair's pH solve and the default interior's.  ``interior_impl``:
-    "auto" | "xla" | "fused" (see :func:`_resolve_interior_impl`); the env
-    cache reaches either interior."""
+    diagnostics off the dict is empty (but for the health counters).
+
+    ``carbonate_impl``: "auto" | "kernel" | "torch" (see
+    ``ops/cuda_carbonate.py``), for the surface pair's pH solve and the
+    default interior's.  ``interior_impl``: "auto" | "xla" | "fused" (see
+    :func:`_resolve_interior_impl`); the env cache reaches either
+    interior.
+
+    ``diag_filter``: return exactly these diagnostic names (a KeyError
+    names any unknown one; a ValueError without ``compute_diags``).
+    ``health``: add ``health_solver_nonconverged_cells`` and
+    ``health_poc_error_cells`` (``ops/bgc.py::StepHealth``), also with
+    diagnostics off and through any filter.  ``diag_dtype``: the dtype
+    the diagnostics are cast to (their arithmetic stays in the state's).
+    """
     impl = _resolve_interior_impl(interior_impl, compute_diags, health)
-    _not_ported(compute_diags, diag_dtype, health, diag_filter)
+    if diag_filter is not None and not compute_diags:
+        # a filter with nothing to filter is a caller's mistake, not a
+        # no-op (the JAX package refuses it too)
+        raise ValueError(
+            "diag_filter requires compute_diags=True (with "
+            "compute_diags=False there are no diagnostics to select; "
+            "health counters are emitted regardless)")
 
     active = grid.active_mask()                       # (nlev, ncol)
     has_ocean = grid.kmax > 0                         # (ncol,)
@@ -177,12 +186,15 @@ def evaluate_tendencies(
         bgc_out = bgc_source_sink(
             state.bgc.tracers, grid, forcing,
             state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
-            compute_diags=False, carbonate_impl=carbonate_impl, env=env)
-    dms_tend, _ = dms_source_sink(
+            compute_diags=compute_diags, carbonate_impl=carbonate_impl,
+            env=env, health=health)
+    dms_tend, dms_diags = dms_source_sink(
         dms_tracer_block(state), grid.cell_thickness, active,
-        forcing.sst, forcing.shortwave_surface, params.dms)
-    mac_tend, _ = macros_source_sink(
-        macros_tracer_block(state), active, params.macros)
+        forcing.sst, forcing.shortwave_surface, params.dms,
+        compute_diags=compute_diags)
+    mac_tend, mac_diags = macros_source_sink(
+        macros_tracer_block(state), active, params.macros,
+        compute_diags=compute_diags)
 
     # ---- 3. deposit surface fluxes into the top active cell ----
     surf_src = torch.where(has_ocean, top_dzr, 0.0)   # (ncol,) 1/cm
@@ -202,7 +214,30 @@ def evaluate_tendencies(
         surface_ph_alt=torch.where(has_ocean, sflux.surface_ph_alt,
                                    state.bgc.surface_ph_alt),
     )
-    return tend, {}
+
+    diags: Dict[str, torch.Tensor] = {}
+    if compute_diags:
+        diags.update(bgc_out.diags)
+        diags.update({f"DMS_{k}" if not k.startswith("DMS") else k: v
+                      for k, v in dms_diags.items()})
+        diags.update({f"MACROS_{k}": v for k, v in mac_diags.items()})
+        diags.update(sflux.diags)
+        diags.update(dflux.diags)
+        diags["netFlux"] = sflux.net_flux
+        if diag_filter is not None:
+            unknown = set(diag_filter) - set(diags) - set(
+                HEALTH_NAMES if health else ())
+            if unknown:
+                raise KeyError(f"unknown diagnostics {sorted(unknown)}; "
+                               f"valid names: {sorted(diags)}")
+            keep = set(diag_filter)
+            diags = {k: v for k, v in diags.items() if k in keep}
+        if diag_dtype is not None:
+            diags = {k: v.to(diag_dtype) for k, v in diags.items()}
+    if health:
+        # monitoring, not history: two scalars that survive any filter
+        diags.update(zip(HEALTH_NAMES, bgc_out.health))
+    return tend, diags
 
 
 def apply_update(state: CoupledState, tend: CoupledTendencies,
@@ -239,11 +274,13 @@ def step(
 ) -> Tuple[CoupledState, Dict[str, torch.Tensor]]:
     """One coupled forward-Euler timestep. Returns (state', diagnostics).
 
-    The production call is ``step(..., compute_diags=False,
+    The default call computes the diagnostics without an env cache.  The
+    production call is ``step(..., compute_diags=False,
     env=precompute_env(grid, forcing, params.bgc))``; the env cache holds
     while the forcing snapshot does.  ``carbonate_impl``: "auto" |
-    "kernel" | "torch"; ``interior_impl``: "auto" | "xla" | "fused" (K2,
-    one kernel launch for the whole interior)."""
+    "kernel" | "torch"; ``interior_impl``: "auto" | "xla" | "fused" (K2);
+    ``health``, ``diag_filter``, ``diag_dtype``: see
+    :func:`evaluate_tendencies`."""
     tend, diags = evaluate_tendencies(state, grid, forcing, params,
                                       compute_diags=compute_diags,
                                       carbonate_impl=carbonate_impl,
@@ -252,3 +289,60 @@ def step(
                                       health=health,
                                       diag_filter=diag_filter)
     return apply_update(state, tend, dt), diags
+
+
+def run(
+    state: CoupledState,
+    grid: ColumnGrid,
+    forcing: BGCForcing,
+    params: ModelParams,
+    dt: float,
+    nsteps: int,
+    *,
+    compute_diags: bool = False,
+    tavg_fields=None,
+    carbonate_impl: str = "auto",
+    interior_impl: str = "auto",
+    env_cache: bool = True,
+):
+    """Integrate ``nsteps`` steps with constant forcing.
+
+    Returns ``(final state, diags)``: the diagnostics of the final step
+    (``compute_diags``), from the evaluation that made its update, else an
+    empty dict.  ``tavg_fields``: diagnostic names to sum over every step
+    (the host model's "tavg" history layer); then returns ``(final state,
+    diags, TavgState)``; the steps before the last return only those
+    fields (a diagnostics filter).  ``env_cache``: evaluate the
+    forcing-invariant tables once (:func:`precompute_env`); False
+    re-evaluates them every step.
+    """
+    from ocean_bgc_tpu_torch.utils.history import TavgState
+
+    track = tuple(tavg_fields) if tavg_fields is not None else ()
+    env = precompute_env(grid, forcing, params.bgc) if env_cache else None
+
+    def one_step(s, want_diags, diag_filter=None):
+        return step(s, grid, forcing, params, dt, compute_diags=want_diags,
+                    carbonate_impl=carbonate_impl,
+                    interior_impl=interior_impl, env=env,
+                    diag_filter=diag_filter)
+
+    # the final step's diagnostics are kept whole when asked for
+    emit_final = compute_diags and nsteps >= 1
+    final, tavg = state, None
+    diags: Dict[str, torch.Tensor] = {}
+    for i in range(nsteps):
+        last = emit_final and i == nsteps - 1
+        final, d = one_step(final, last or bool(track),
+                            None if last or not track else track)
+        if track:
+            if tavg is None:
+                tavg = TavgState.create(d, track)
+            tavg = tavg.accumulate(d)
+        if last:
+            diags = d
+    if track:
+        if tavg is None:     # no step: zero sums shaped like the fields
+            tavg = TavgState.create(one_step(state, True, track)[1], track)
+        return final, diags, tavg
+    return final, diags

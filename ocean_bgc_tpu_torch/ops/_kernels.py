@@ -59,6 +59,7 @@ def _shared_constants() -> Dict[str, float]:
     from ocean_bgc_tpu_torch.ops import carbonate, numerics, particulates
     return {
         "LN10": carbonate._LN10,
+        "LN_001": carbonate._LN_001,
         "XACC_F32": carbonate.XACC_F32,
         "BRACKET_GROW_GUARD": carbonate._BRACKET_GROW_GUARD,
         "MOREL_BREAK": numerics._MOREL_BREAK,

@@ -1,4 +1,5 @@
-"""The multispecies ecosystem source-sink step with diagnostics off.
+"""The multispecies ecosystem source-sink step, its diagnostics and health
+counters.
 
 Counterpart of ``ocean_bgc_tpu/ops/bgc.py`` (``BGC_SourceSink``,
 BGC_mod.F90:340-1998): the Moore et al. 2002 / Doney et al. 1996
@@ -10,18 +11,19 @@ nitrification/denitrification and DOM cycling.
 Layout and schedule follow the JAX package: columns on the last axis,
 all per-cell algebra batched over ``(nlev, ncol)``, PAR attenuation as a
 cumulative product over levels, the dual pH solve over every cell at
-once (the CUDA kernel K1, ``ops/cuda_carbonate.py``), and the sinking
+once (the CUDA kernel K1, ``ops/cuda_carbonate.py``: with an env cache
+its cached-constants instance, without one the instance that evaluates
+the constants and the saturation values itself), and the sinking
 recurrence — the one sequential level coupling — as a Python loop over
 levels.  Autotroph groups are a Python loop over 4 static trait sets.
-Everything is masked by the per-column active-level count.
-
-``compute_diags=True`` and ``health=True`` are not ported yet (ROADMAP
-queue 1 item 9) and raise ``NotImplementedError``.
+Everything is masked by the per-column active-level count.  The
+diagnostics (``compute_diags``) and the health counters (``health``)
+follow the JAX package's ``bgc_source_sink`` field for field.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,20 +33,29 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     _to_mass_units,
     carbonate_coeffs,
     co3_sat_vals,
+    solver_xacc,
+    talk,
 )
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     co3_terms_dual_coeffs,
+    co3_terms_dual_sat,
     solve_htotal_brackets,
+    subsurface_of,
 )
 from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, safe_div
 from ocean_bgc_tpu_torch.ops.particulates import (
+    RHO_CACO3,
+    RHO_SIO2,
     DissolutionCache,
     ParticleCarry,
+    ParticleLevelOut,
     ParticleProdOut,
     init_particle_carry,
+    particulate_diags,
     particulate_level_update,
     precompute_dissolution,
 )
+from ocean_bgc_tpu_torch.ops.schmidt import o2sat
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
 
@@ -63,12 +74,30 @@ def _minimum(a, b):
     return torch.minimum(a, b) if torch.is_tensor(b) else torch.clamp_max(a, b)
 
 
+class StepHealth(NamedTuple):
+    """Two scalar counts over active cells, cheap enough for every
+    production step:
+
+    * ``solver_nonconverged_cells``: cells whose next Newton correction at
+      the returned pH still exceeds twice the solver tolerance (the silent
+      fall-through of co2calc.F90:993-995 made observable);
+    * ``poc_error_cells``: cells violating the QA-ballast production bound
+      (the reference's write-only ``poc_error`` flag, BGC_mod.F90:2296-2297,
+      2373-2383).
+    """
+
+    solver_nonconverged_cells: torch.Tensor   # scalar, state dtype
+    poc_error_cells: torch.Tensor             # scalar, state dtype
+
+
 class BGCSourceSinkOut(NamedTuple):
-    """Results of one source-sink evaluation (diagnostics off)."""
+    """Results of one source-sink evaluation."""
 
     tendencies: torch.Tensor       # (nlev, 30, ncol)
     ph_prev_3d: torch.Tensor       # (nlev, ncol) updated warm-start state
     ph_prev_alt_3d: torch.Tensor   # (nlev, ncol)
+    diags: Dict[str, torch.Tensor]
+    health: Optional[StepHealth] = None
 
 
 def _par_field(par_surf_row, total_chl, dz, active):
@@ -91,6 +120,41 @@ def _par_field(par_surf_row, total_chl, dz, active):
     par_out = par_in * att
     par_avg = par_in * (1.0 - att) / kpar_dz
     return par_in, par_out, par_avg, kpar_dz
+
+
+def _zsat_search(anom, center, prev_center, bottom, active, kmax):
+    """Saturation depth per column (BGC_mod.F90:1003-1032) from the CO3
+    anomaly of every cell: the reference's downward state machine as a
+    first-crossing search over levels.  A column supersaturated at its
+    surface records the interpolated depth of its first deeper active
+    cell with anom <= 0, or its bottom depth if none (-1 for a
+    single-level column, whose surface initialisation comes after the
+    bottom-fill check in the reference); an undersaturated surface gives
+    0, and so does land."""
+    nlev, ncol = anom.shape
+    anom_km1 = torch.cat([anom[:1], anom[:-1]], dim=0)
+    k_idx = torch.arange(nlev, device=anom.device)[:, None]
+    cand = active & (k_idx >= 1) & (anom <= 0.0)
+    # argmax takes no bool; on ties it returns the first index
+    first_k = torch.argmax(cand.to(torch.int32), dim=0)
+    has_cross = cand.any(dim=0)
+
+    # the reference's work4 = depth(k-1) + (depth(k) - depth(k-1))
+    interp_depth = prev_center + (center - prev_center)
+    den = anom_km1 - anom
+    interp_all = interp_depth * anom_km1 / torch.where(den != 0.0, den, 1.0)
+    col = torch.arange(ncol, device=anom.device)
+    interp_at = interp_all[first_k, col]
+
+    kb = torch.clamp_min(kmax - 1, 0)
+    bottom_depth = bottom[kb, col]
+
+    zs = torch.where(
+        anom[0] > 0.0,
+        torch.where(has_cross, interp_at,
+                    torch.where(kmax == 1, -1.0, bottom_depth)),
+        0.0)
+    return torch.where(kmax > 0, zs, 0.0)
 
 
 class EnvCache(NamedTuple):
@@ -124,14 +188,10 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
     stand-in solve is K1's bracket-in instance on CUDA tensors and its
     plain version on CPU tensors
     (``ops/cuda_carbonate.py::solve_htotal_brackets``)."""
-    nlev = grid.nlev
-    active = grid.active_mask()
     temp = forcing.potential_temperature
-    salt = forcing.salinity
     depth_m = grid.cell_center_depth * 0.01
-    subsurface = (torch.arange(nlev, device=temp.device) > 0)[:, None]
-    temp_s = torch.where(active, temp, 10.0)
-    salt_s = torch.where(active, salt, 35.0)
+    subsurface = subsurface_of(depth_m)
+    temp_s, salt_s = _standin_ts(grid, forcing)
     coeffs = carbonate_coeffs(depth_m, temp_s, salt_s, subsurface,
                               k1_k2_ph_tot=True)
     sat_calc, sat_arag = co3_sat_vals(depth_m, temp_s, salt_s, subsurface)
@@ -838,22 +898,28 @@ def interior_coeffs(grid: ColumnGrid, forcing: BGCForcing) -> CarbCoeffs:
     """The interior solve's equilibrium constants evaluated in-step (no
     env cache): inactive cells at the stand-in T 10, S 35, pressure
     corrections below the surface level."""
+    depth_m = grid.cell_center_depth * 0.01
+    temp_s, salt_s = _standin_ts(grid, forcing)
+    return carbonate_coeffs(depth_m, temp_s, salt_s, subsurface_of(depth_m),
+                            k1_k2_ph_tot=True)
+
+
+def _standin_ts(grid: ColumnGrid, forcing: BGCForcing):
+    """T and S with the stand-ins (T 10, S 35) below the ocean floor."""
     active = grid.active_mask()
-    subsurface = (torch.arange(grid.nlev, device=active.device) > 0)[:, None]
-    return carbonate_coeffs(
-        grid.cell_center_depth * 0.01,
-        torch.where(active, forcing.potential_temperature, 10.0),
-        torch.where(active, forcing.salinity, 35.0),
-        subsurface, k1_k2_ph_tot=True)
+    return (torch.where(active, forcing.potential_temperature, 10.0),
+            torch.where(active, forcing.salinity, 35.0))
 
 
 def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
                      ph_prev_3d, ph_prev_alt_3d,
                      env: Optional[EnvCache] = None) -> tuple:
-    """The arguments of the interior dual pH solve
-    (:func:`co3_terms_dual_coeffs`) as :func:`bgc_source_sink` gives them,
-    all contiguous: DIC, ALK, PO4, SiO3 of the clipped ``tracers``, the
-    two pH seeds and the equilibrium constants.
+    """The arguments of the interior dual pH solve as
+    :func:`bgc_source_sink` gives them, all contiguous.  With an env cache,
+    those of :func:`co3_terms_dual_coeffs`: DIC, ALK, PO4, SiO3 of the
+    clipped ``tracers``, the two pH seeds and the cached constants.
+    Without one, those of :func:`co3_terms_dual_sat`: depth (m), T and S,
+    the same four tracers and the two previous pH fields.
 
     Inactive cells get the benign stand-in problem the env cache solved
     (DIC 2000, ALK 2300, PO4 = SiO3 = 0 at T 10, S 35) and, with an env
@@ -865,16 +931,38 @@ def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
         return torch.where(active, torch.clamp_min(tracers[:, idx], 0.0),
                            standin).contiguous()
 
-    if env is not None:
-        coeffs = env.coeffs
-        ph_seed = torch.where(active, ph_prev_3d, env.standin_ph)
-        ph_seed_alt = torch.where(active, ph_prev_alt_3d, env.standin_ph)
-    else:
-        coeffs = interior_coeffs(grid, forcing)
-        ph_seed, ph_seed_alt = ph_prev_3d, ph_prev_alt_3d
-    return (field(T.DIC, 2000.0), field(T.ALK, 2300.0), field(T.PO4, 0.0),
-            field(T.SIO3, 0.0), ph_seed.contiguous(), ph_seed_alt.contiguous(),
-            CarbCoeffs(*(k.contiguous() for k in coeffs)))
+    tr = (field(T.DIC, 2000.0), field(T.ALK, 2300.0), field(T.PO4, 0.0),
+          field(T.SIO3, 0.0))
+    if env is None:
+        temp_s, salt_s = _standin_ts(grid, forcing)
+        return ((grid.cell_center_depth * 0.01).contiguous(),
+                temp_s.contiguous(), salt_s.contiguous(), *tr,
+                ph_prev_3d.contiguous(), ph_prev_alt_3d.contiguous())
+    ph_seed = torch.where(active, ph_prev_3d, env.standin_ph)
+    ph_seed_alt = torch.where(active, ph_prev_alt_3d, env.standin_ph)
+    return (*tr, ph_seed.contiguous(), ph_seed_alt.contiguous(),
+            CarbCoeffs(*(k.contiguous() for k in env.coeffs)))
+
+
+def _health(tr, ph_3d, coeffs: CarbCoeffs, kin: EcosystemKinetics,
+            active) -> StepHealth:
+    """The health counters (JAX ops/bgc.py:1284-1304) from the clipped
+    tracers ``tr``: one alkalinity residual per cell at the returned pH,
+    against the solver's own stopping rule, and the QA-ballast bound."""
+    dic_m, ta_m, pt_m, sit_m = _to_mass_units(
+        torch.where(active, tr[:, T.DIC], 2000.0),
+        torch.where(active, tr[:, T.ALK], 2300.0), tr[:, T.PO4],
+        tr[:, T.SIO3])
+    h_fin = 10.0 ** (-ph_3d)
+    fn_h, df_h = talk(coeffs, dic_m, ta_m, pt_m, sit_m, h_fin)
+    nonconv = active & (torch.abs(fn_h / df_h)
+                        > 2.0 * solver_xacc(ph_3d.dtype))
+    avail = (kin.poc_prod - RHO_CACO3 * kin.caco3_prod
+             - RHO_SIO2 * kin.sio2_prod)
+    dtype = tr.dtype
+    return StepHealth(
+        solver_nonconverged_cells=nonconv.sum().to(dtype),
+        poc_error_cells=(active & (avail < 0.0)).sum().to(dtype))
 
 
 def bgc_source_sink(
@@ -890,28 +978,22 @@ def bgc_source_sink(
     env: Optional[EnvCache] = None,
     health: bool = False,
 ) -> BGCSourceSinkOut:
-    """Tendencies (1/s units of each tracer) + updated pH state.
+    """Tendencies (1/s units of each tracer), updated pH state, and the
+    diagnostics (an empty dict with ``compute_diags=False``).
 
     ``env``: precomputed forcing-invariant tables (:func:`precompute_env`),
-    valid while (T, S, grid) are those the cache was built from.
+    valid while (T, S, grid) are those the cache was built from.  Without
+    one, the pH solve evaluates the equilibrium constants per cell (and,
+    with diagnostics, the saturation values) itself.
 
     ``carbonate_impl``: "auto" (the CUDA kernel on CUDA tensors, its plain
     version on CPU tensors), "kernel" (CUDA tensors only) or "torch" (the
     plain version anywhere); see ``ops/cuda_carbonate.py``.
 
-    ``compute_diags=True`` and ``health=True`` raise
-    ``NotImplementedError`` until the diagnostics slice (ROADMAP queue 1
-    item 9).
+    ``health``: also return :class:`StepHealth`, at the cost of one
+    alkalinity residual per cell (and, without an env cache, the
+    equilibrium constants in torch).
     """
-    if compute_diags:
-        raise NotImplementedError(
-            "bgc_source_sink(compute_diags=True) is not ported yet "
-            "(ROADMAP queue 1 item 9); pass compute_diags=False")
-    if health:
-        raise NotImplementedError(
-            "bgc_source_sink(health=True) is not ported yet (ROADMAP "
-            "queue 1 item 9)")
-
     nlev = tracers.shape[0]
     active = grid.active_mask()                          # (nlev, ncol)
     lat = grid.latitude                                  # (ncol,)
@@ -935,12 +1017,19 @@ def bgc_source_sink(
     fe = tr[:, T.FE]
     o2 = tr[:, T.O2]
 
-    # Carbonate chemistry for all cells at once (K1).  CO3 and the other
-    # speciation outputs feed only diagnostics.
-    ((ph_3d, _, _, _), (ph_3d_alt, _, _, _)) = co3_terms_dual_coeffs(
-        *carbonate_inputs(tracers, grid, forcing, ph_prev_3d,
-                          ph_prev_alt_3d, env),
-        impl=carbonate_impl)
+    # Carbonate chemistry for all cells at once (K1).  The speciation and
+    # the saturation values feed only diagnostics.
+    args = carbonate_inputs(tracers, grid, forcing, ph_prev_3d,
+                            ph_prev_alt_3d, env)
+    if env is not None:
+        ((ph_3d, h2co3, hco3, co3),
+         (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt)) = co3_terms_dual_coeffs(
+            *args, impl=carbonate_impl)
+        sat = (env.co3_sat_calc, env.co3_sat_arag)
+    else:
+        ((ph_3d, h2co3, hco3, co3),
+         (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt), sat) = co3_terms_dual_sat(
+            *args, with_sat=compute_diags, impl=carbonate_impl)
 
     ph_new = torch.where(active, ph_3d, ph_prev_3d)
     ph_alt_new = torch.where(active, ph_3d_alt, ph_prev_alt_3d)
@@ -950,12 +1039,21 @@ def bgc_source_sink(
                              par_surf[None, :], params,
                              tfunc=env.tfunc if env is not None else None)
 
+    health_out = None
+    if health:
+        health_out = _health(
+            tr, ph_3d,
+            env.coeffs if env is not None else interior_coeffs(grid, forcing),
+            kin, active)
+
     # ------------------------------------------------------------------
     # Sinking-particle recurrence over levels — the only sequential level
-    # coupling (its clamped QA-ballast carry is nonlinear).
+    # coupling (its clamped QA-ballast carry is nonlinear).  Diagnostics
+    # read each level's full output, the incoming carry and the
+    # scavenging rate; the tendency assembly only ParticleProdOut.
     # ------------------------------------------------------------------
     carry: ParticleCarry = init_particle_carry(dust_flux_in)
-    levels, fe_scavenge_levels = [], []
+    levels, fe_scavenge_levels, rate_levels, carry_levels = [], [], [], []
     for k in range(nlev):
         # iron scavenging scales with the sinking mass flux entering
         # this level, i.e. the carry (BGC_mod.F90:1510-1522)
@@ -975,6 +1073,9 @@ def bgc_source_sink(
 
         diss_k = (DissolutionCache(*(v[k] for v in env.diss))
                   if env is not None else None)
+        if compute_diags:
+            carry_levels.append(carry)
+            rate_levels.append(fe_scavenge_rate)
         carry, pt_k = particulate_level_update(
             carry, kin.poc_prod[k], kin.caco3_prod[k], kin.sio2_prod[k],
             fe_prod, temp[k], o2[k], no3[k], dz[k], bottom[k],
@@ -982,18 +1083,196 @@ def bgc_source_sink(
             diss=diss_k)
         levels.append(pt_k)
         fe_scavenge_levels.append(fe_scavenge)
-    # stack only what the tendency assembly reads, as (nlev, ncol)
-    pt = ParticleProdOut(*(torch.stack([getattr(p, f) for p in levels])
-                           for f in ParticleProdOut._fields))
+
+    def stacked(cls, per_level):
+        """``cls`` of (nlev, ncol) stacks of the per-level fields."""
+        return cls(*(torch.stack([getattr(p, f) for p in per_level])
+                     for f in cls._fields))
+
+    # with diagnostics off, stack only what the tendency assembly reads
+    pt = stacked(ParticleLevelOut if compute_diags else ParticleProdOut,
+                 levels)
     fe_scavenge = torch.stack(fe_scavenge_levels)
 
     # ---- tendency assembly (BGC_mod.F90:1545-1790) ----
     restore_no3, restore_sio3, restore_po4 = compute_restoring(
         forcing, tr, params)
-    tend, _ = assemble_tendencies(kin, pt, fe_scavenge, tr, restore_no3,
-                                  restore_sio3, restore_po4, params)
+    tend, ex = assemble_tendencies(kin, pt, fe_scavenge, tr, restore_no3,
+                                   restore_sio3, restore_po4, params)
 
     # mask all tendencies to active cells; tracer axis in the middle
     tend_arr = torch.where(active[:, None, :], torch.stack(tend, dim=1), 0.0)
+    diags: Dict[str, torch.Tensor] = {}
+    if compute_diags:
+        diags = _bgc_diags(
+            tr, grid, forcing, params, kin, pt, ex, tend_arr, fe_scavenge,
+            torch.stack(rate_levels), stacked(ParticleCarry, carry_levels),
+            (restore_no3, restore_sio3, restore_po4),
+            (ph_3d, h2co3, hco3, co3), (ph_3d_alt, h2co3_alt, hco3_alt,
+                                        co3_alt), sat)
     return BGCSourceSinkOut(tendencies=tend_arr, ph_prev_3d=ph_new,
-                            ph_prev_alt_3d=ph_alt_new)
+                            ph_prev_alt_3d=ph_alt_new, diags=diags,
+                            health=health_out)
+
+
+def _bgc_diags(tr, grid: ColumnGrid, forcing: BGCForcing,
+               params: BGCParams, kin: EcosystemKinetics, pt, ex, tend_arr,
+               fe_scavenge, fe_scavenge_rate, particles_in, restoring,
+               carb, carb_alt, sat) -> Dict[str, torch.Tensor]:
+    """The BGC diagnostics and conservation integrals
+    (BGC_mod.F90:1794-1968; JAX ops/bgc.py:1385-1530, field for field):
+    ``tr`` the clipped tracers, ``tend_arr`` the masked tendencies, ``pt``
+    the stacked ParticleLevelOut, ``particles_in`` the stacked incoming
+    carry."""
+    autos = params.autotrophs
+    nauto = len(autos)
+    active = grid.active_mask()
+    dz = grid.cell_thickness
+    center = grid.cell_center_depth
+    bottom = grid.cell_bottom_depth
+    temp = forcing.potential_temperature
+    ncol = dz.shape[1]
+    tend = tend_arr.unbind(dim=1)
+    (ph_3d, h2co3, hco3, co3), (ph_3d_alt, h2co3_alt, hco3_alt,
+                                co3_alt) = carb, carb_alt
+    co3_sat_calc, co3_sat_arag = sat
+    restore_no3, restore_sio3, restore_po4 = restoring
+
+    def _m(v):
+        return torch.where(active, v, 0.0)
+
+    zrow = torch.zeros_like(center[:1])
+    prev_center = torch.cat([zrow, center[:-1]], dim=0)
+    ztop = torch.cat([zrow, bottom[:-1]], dim=0)
+    w2 = torch.minimum(100.0e2 - ztop, dz)
+    partial_100m = torch.where(w2 > 0.0, w2, 0.0)
+
+    # ---- saturation-depth search (BGC_mod.F90:1003-1032) ----
+    zsatcalc = _zsat_search(co3 - co3_sat_calc, center, prev_center, bottom,
+                            active, grid.kmax)
+    zsatarag = _zsat_search(co3 - co3_sat_arag, center, prev_center, bottom,
+                            active, grid.kmax)
+
+    diags = {
+        "CO3": _m(co3), "HCO3": _m(hco3), "H2CO3": _m(h2co3),
+        "pH_3D": _m(ph_3d),
+        "CO3_ALT_CO2": _m(co3_alt), "HCO3_ALT_CO2": _m(hco3_alt),
+        "H2CO3_ALT_CO2": _m(h2co3_alt),
+        "pH_3D_ALT_CO2": _m(ph_3d_alt),
+        "co3_sat_calc": _m(co3_sat_calc),
+        "co3_sat_arag": _m(co3_sat_arag),
+        "NO3_RESTORE": _m(restore_no3),
+        "SiO3_RESTORE": _m(restore_sio3),
+        "PO4_RESTORE": _m(restore_po4),
+        "NITRIF": _m(ex.nitrif), "DENITRIF": _m(ex.denitrif),
+        "O2_PRODUCTION": _m(ex.o2_production),
+        "O2_CONSUMPTION": _m(ex.o2_consumption),
+        "AOU": _m(o2sat(temp, forcing.salinity) - tr[:, T.O2]),
+        "PAR_avg": _m(kin.par_avg),
+        "zoo_loss": _m(kin.zoo_loss),
+        "auto_graze_TOT": _m(sum(kin.auto_graze)),
+        "photoC_TOT": _m(sum(kin.photoC)),
+        "DOC_prod": _m(kin.doc_prod), "DOC_remin": _m(kin.doc_remin),
+        "DON_prod": _m(kin.don_prod), "DON_remin": _m(kin.don_remin),
+        "DOP_prod": _m(kin.dop_prod), "DOP_remin": _m(kin.dop_remin),
+        "DOFe_prod": _m(kin.dofe_prod),
+        "DOFe_remin": _m(kin.dofe_remin),
+        "DONr_remin": _m(kin.donr_remin),
+        "DOPr_remin": _m(kin.dopr_remin),
+        "Fe_scavenge": _m(fe_scavenge),
+        "Fe_scavenge_rate": _m(fe_scavenge_rate),
+        "tot_CaCO3_form": _m(sum(
+            cp for cp in kin.caco3_prod_g if cp is not None)),
+        "tot_Nfix": _m(sum(nf for nf in kin.nfix if nf is not None)),
+    }
+    diags.update(particulate_diags(
+        particles_in, pt, kin.poc_prod, kin.caco3_prod, kin.sio2_prod,
+        kin.fe_prod_base + fe_scavenge, dz, active))
+
+    # per-autotroph 3D diagnostics, stacked (nlev, nauto, ncol)
+    def _stack(vals):
+        return torch.stack([_m(v) if v is not None else torch.zeros_like(dz)
+                            for v in vals], dim=1)
+
+    diags["N_lim"] = _stack(kin.d_n_lim)
+    diags["Fe_lim"] = _stack(kin.d_fe_lim)
+    diags["P_lim"] = _stack(kin.d_p_lim)
+    diags["SiO3_lim"] = _stack(kin.d_si_lim)
+    diags["light_lim"] = _stack(kin.d_light)
+    diags["photoC"] = _stack(kin.photoC)
+    diags["photoFe"] = _stack(kin.photoFe)
+    diags["photoNO3"] = _stack(kin.no3_v)
+    diags["photoNH4"] = _stack(kin.nh4_v)
+    diags["PO4_uptake"] = _stack(kin.po4_v)
+    diags["DOP_uptake"] = _stack(kin.dop_v)
+    diags["auto_graze"] = _stack(kin.auto_graze)
+    diags["auto_loss"] = _stack(kin.auto_loss)
+    diags["auto_agg"] = _stack(kin.auto_agg)
+    diags["bSi_form"] = _stack(kin.photoSi)
+    diags["CaCO3_form"] = _stack(kin.caco3_prod_g)
+    diags["Nfix"] = _stack(kin.nfix)
+    photoc_no3 = [torch.where(kin.vntot[g] > 0.0,
+                              safe_div(kin.vno3[g], kin.vntot[g])
+                              * kin.photoC[g], 0.0) for g in range(nauto)]
+    diags["photoC_NO3"] = _stack(photoc_no3)
+    diags["photoC_NO3_TOT"] = _m(sum(photoc_no3))
+
+    # conservation integrals (BGC_mod.F90:1870-1945)
+    ctot = (tend[T.DIC] + tend[T.DOC] + tend[T.ZOOC]
+            + sum(tend[T.C_IND[g]] for g in range(nauto))
+            + sum(tend[T.CACO3_IND[g]] for g in range(nauto)
+                  if T.CACO3_IND[g] is not None))
+    ntot = (tend[T.NO3] + tend[T.NH4] + tend[T.DON] + tend[T.DONR]
+            + c.Q * tend[T.ZOOC]
+            + c.Q * sum(tend[T.C_IND[g]] for g in range(nauto))
+            + ex.denitrif + pt.sed_denitrif
+            - sum(kin.nfix[g] for g, au in enumerate(autos) if au.nfixer))
+    ptot = (tend[T.PO4] + tend[T.DOP] + tend[T.DOPR]
+            + c.QP_ZOO_POM * tend[T.ZOOC]
+            + sum(au.Qp * tend[T.C_IND[g]] for g, au in enumerate(autos)))
+    sitot = (tend[T.SIO3]
+             + sum(tend[T.SI_IND[g]] for g in range(nauto)
+                   if T.SI_IND[g] is not None))
+    in100 = bottom <= 100.0e2
+    sed_c = pt.poc_sed_loss + pt.caco3_sed_loss
+
+    def _zint(per_level):                  # sum over the level axis
+        return per_level.sum(dim=0)
+
+    diags["Jint_Ctot"] = _zint(_m(ctot * dz + sed_c))
+    diags["Jint_100m_Ctot"] = _zint(_m(
+        ctot * partial_100m + torch.where(in100, sed_c, 0.0)))
+    diags["Jint_Ntot"] = _zint(_m(ntot * dz + pt.poc_sed_loss * c.Q))
+    diags["Jint_100m_Ntot"] = _zint(_m(
+        ntot * partial_100m
+        + torch.where(in100, pt.poc_sed_loss * c.Q, 0.0)))
+    diags["Jint_Ptot"] = _zint(_m(ptot * dz
+                                  + pt.poc_sed_loss * c.QP_ZOO_POM))
+    diags["Jint_100m_Ptot"] = _zint(_m(
+        ptot * partial_100m
+        + torch.where(in100, pt.poc_sed_loss * c.QP_ZOO_POM, 0.0)))
+    diags["Jint_Sitot"] = _zint(_m(sitot * dz + pt.sio2_sed_loss))
+    diags["Jint_100m_Sitot"] = _zint(_m(
+        sitot * partial_100m + torch.where(in100, pt.sio2_sed_loss, 0.0)))
+    diags["Chl_TOT_zint_100m"] = _zint(_m(sum(kin.a_chl) * partial_100m))
+    diags["tot_bSi_form"] = _zint(_m(sum(ps for ps in kin.photoSi
+                                         if ps is not None)))
+    diags["photoC_zint"] = _zint(_stack([pc * dz for pc in kin.photoC]))
+    diags["photoC_NO3_zint"] = _zint(_stack([pn * dz for pn in photoc_no3]))
+    diags["CaCO3_form_zint"] = _zint(_stack(
+        [cp * dz if cp is not None else None for cp in kin.caco3_prod_g]))
+    diags["photoC_TOT_zint"] = diags["photoC_zint"].sum(dim=0)
+    diags["photoC_NO3_TOT_zint"] = diags["photoC_NO3_zint"].sum(dim=0)
+    diags["tot_CaCO3_form_zint"] = diags["CaCO3_form_zint"].sum(dim=0)
+    diags["zsatcalc"] = zsatcalc
+    diags["zsatarag"] = zsatarag
+
+    # O2 minimum search (BGC_mod.F90:1954-1968): on ties argmin returns
+    # the first index, the first minimum as in the reference
+    o2_masked = torch.where(active, tr[:, T.O2], torch.inf)
+    kmin = torch.argmin(o2_masked, dim=0)
+    col = torch.arange(ncol, device=dz.device)
+    has_ocean = grid.kmax > 0
+    diags["O2_ZMIN"] = torch.where(has_ocean, o2_masked[kmin, col], 0.0)
+    diags["O2_ZMIN_DEPTH"] = torch.where(has_ocean, center[kmin, col], 0.0)
+    return diags

@@ -1,14 +1,19 @@
 """K1, the pH solve: the CUDA kernel's wrappers and their plain PyTorch
-versions, in two instances.
+versions, in three instances.
 
 Counterpart of ``ocean_bgc_tpu/ops/pallas_carbonate.py``.
 
-- :func:`co3_terms_dual_coeffs`, the dual interior instance the default
-  step launches (equilibrium constants read from the env cache, no
-  saturation outputs).  Per cell, for the ambient and the ALT_CO2
+- :func:`co3_terms_dual_coeffs`, the dual interior instance the step
+  with an env cache launches (equilibrium constants read from the cache,
+  no saturation outputs).  Per cell, for the ambient and the ALT_CO2
   scenario: the pH bracket from the previous pH (+/- DEL_PH, or the cold
   [6, 9] window where it is the 0 sentinel), the bracketed safe-Newton
   root of the alkalinity residual, and the speciation.
+- :func:`co3_terms_dual_sat`, the coefficient-and-saturation instance the
+  step without an env cache launches: the same dual solve, with the 15
+  constants evaluated per cell from depth, T and S, and optionally the
+  calcite and aragonite saturation values (the TPU kernel's
+  ``coeffs_in=False, with_sat=True``).
 - :func:`solve_htotal_brackets`, the bracket-in instance: H of every lane
   from H-space brackets given as input, the function of
   ``ops/carbonate.py::_solve_htotal_impl``.  It solves the surface pair
@@ -40,6 +45,8 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     CarbCoeffs,
     _solve_htotal_impl,
     _to_mass_units,
+    carbonate_coeffs,
+    co3_sat_vals,
 )
 
 IMPLS = ("auto", "kernel", "torch")
@@ -48,6 +55,11 @@ IMPLS = ("auto", "kernel", "torch")
 # holds the two equal): per lane, per shared element, then the output.
 BRACKET_FIELDS = ("dic", "x1", "x2", "ta", "pt", "sit", *CarbCoeffs._fields,
                   "h")
+# The coefficient-and-saturation instance's inputs, in the order of the
+# enum SatField in csrc/carbonate_dual.cu (tests/test_torch_carbonate.py
+# holds the two equal).
+SAT_FIELDS = ("depth", "temp", "salt", "dic", "ta", "pt", "sit", "ph_prev_a",
+              "ph_prev_b")
 
 
 def _speciate(h, dic, coeffs):
@@ -96,6 +108,27 @@ def _check_impl(impl):
                          f"expected one of {IMPLS}")
 
 
+def _check_kernel_inputs(kernel, ref, fields):
+    """Raise unless ``ref`` is a float32 or float64 CUDA tensor and every
+    ``name: (tensor, shape)`` of ``fields`` a contiguous tensor of its
+    device and type with that shape: what ``kernel`` reads through raw
+    pointers."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got "
+                         f"{ref.device}")
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kernel} takes float32 or float64, got "
+                        f"{ref.dtype}")
+    for name, (t, shape) in fields.items():
+        if (t.device != ref.device or t.dtype != ref.dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {ref.dtype} tensor "
+                f"of shape {tuple(shape)} on {ref.device}; got {t.dtype}, "
+                f"{tuple(t.shape)} on {t.device}, "
+                f"contiguous={t.is_contiguous()}")
+
+
 def _launch(fields, out_dtype):
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual
@@ -132,27 +165,101 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
         return co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
                                            ph_prev_b, coeffs)
-    fields = (dic, ta, pt, sit, ph_prev_a, ph_prev_b, *coeffs)
-    if dic.device.type != "cuda":
-        raise ValueError(f"the carbonate_dual kernel needs CUDA tensors, "
-                         f"got {dic.device}")
-    if dic.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"carbonate_dual takes float32 or float64, "
-                        f"got {dic.dtype}")
-    for t in fields:
-        if (t.device != dic.device or t.dtype != dic.dtype
-                or t.shape != dic.shape or not t.is_contiguous()):
-            raise ValueError(
-                "carbonate_dual needs contiguous inputs of one device, "
-                f"dtype and shape ({dic.device}, {dic.dtype}, "
-                f"{tuple(dic.shape)}); got {t.device}, {t.dtype}, "
-                f"{tuple(t.shape)}, contiguous={t.is_contiguous()}")
-    outs = _launch(fields, dic.dtype)
+    fields = dict(dic=dic, ta=ta, pt=pt, sit=sit, ph_prev_a=ph_prev_a,
+                  ph_prev_b=ph_prev_b, **coeffs._asdict())
+    _check_kernel_inputs("carbonate_dual", dic,
+                         {k: (t, dic.shape) for k, t in fields.items()})
+    outs = _launch(tuple(fields.values()), dic.dtype)
     co3_terms_dual_coeffs.launches += 1
     return tuple(outs[:4]), tuple(outs[4:])
 
 
 co3_terms_dual_coeffs.launches = 0
+
+
+def subsurface_of(depth_m):
+    """The (nlev, 1) pressure gate of an (nlev, ncol) field: the
+    reference's ``k > 1``, every level below the first."""
+    return (torch.arange(depth_m.shape[0], device=depth_m.device) > 0)[:, None]
+
+
+def co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
+                             ph_prev_a, ph_prev_b, *, with_sat=True):
+    """The plain PyTorch version of the coefficient-and-saturation
+    instance (same arguments and results as :func:`co3_terms_dual_sat`):
+    ``carbonate_coeffs``, the dual solve of
+    :func:`co3_terms_dual_coeffs_torch` and ``co3_sat_vals``, in the
+    kernel's order."""
+    subsurface = subsurface_of(depth_m)
+    coeffs = carbonate_coeffs(depth_m, temp, salt, subsurface,
+                              k1_k2_ph_tot=True)
+    a, b = co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
+                                       ph_prev_b, coeffs)
+    sat = (co3_sat_vals(depth_m, temp, salt, subsurface) if with_sat
+           else None)
+    return a, b, sat
+
+
+def _launch_sat(fields, with_sat):
+    """Launch the coefficient-and-saturation instance on ``fields`` (the
+    :data:`SAT_FIELDS` tensors, in order); returns its 8 or 10 outputs."""
+    lib = _kernels.load("carbonate_dual")
+    fn = lib.obgc_carbonate_dual_sat
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if lib.obgc_sat_num_fields() != len(SAT_FIELDS):
+        raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
+                           "disagree on the coefficient-and-saturation "
+                           "argument layout")
+    ref = fields[0]
+    outs = [torch.empty_like(ref) for _ in range(10 if with_sat else 8)]
+    ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
+    outs_p = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    code = fn(int(ref.dtype == torch.float64), ins_p, outs_p, ref.numel(),
+              ref.shape[1], int(with_sat), stream)
+    _kernels.check(lib, code, "carbonate_dual_sat launch")
+    return outs
+
+
+def co3_terms_dual_sat(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
+                       ph_prev_b, *, with_sat=True, impl="auto"):
+    """Dual pH solve of every cell with the equilibrium constants
+    evaluated per cell, and the saturation values.
+
+    Inputs are (nlev, ncol) tensors: depth (m), temperature and salinity
+    (stand-ins applied where the caller wants them), DIC, ALK, PO4, SiO3
+    in mmol/m^3 and the previous pH of each scenario (0 = no previous
+    solution); the constants take pressure corrections below the first
+    level.  ``with_sat=False`` skips the saturation values.  ``impl``:
+    "auto" launches the kernel on CUDA tensors and uses the plain version
+    on CPU tensors; "kernel" requires CUDA tensors; "torch" takes the
+    plain version on any device.
+
+    Returns ``((ph, h2co3, hco3, co3) ambient, (...) ALT_CO2,
+    (co3_sat_calc, co3_sat_arag) or None)``, concentrations in mmol/m^3.
+    Each kernel launch adds one to ``co3_terms_dual_sat.launches``.
+    """
+    _check_impl(impl)
+    if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
+        return co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
+                                        ph_prev_a, ph_prev_b,
+                                        with_sat=with_sat)
+    fields = (depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a, ph_prev_b)
+    if dic.dim() != 2:
+        raise ValueError(f"carbonate_dual_sat takes (nlev, ncol) fields, got "
+                         f"shape {tuple(dic.shape)}")
+    _check_kernel_inputs("carbonate_dual_sat", dic, {
+        k: (t, dic.shape) for k, t in zip(SAT_FIELDS, fields)})
+    outs = _launch_sat(fields, with_sat)
+    co3_terms_dual_sat.launches += 1
+    return (tuple(outs[:4]), tuple(outs[4:8]),
+            tuple(outs[8:]) if with_sat else None)
+
+
+co3_terms_dual_sat.launches = 0
 
 
 def _launch_brackets(fields):
@@ -197,12 +304,6 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
         return _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2)
-    if dic.device.type != "cuda":
-        raise ValueError(f"the solve_htotal_brackets kernel needs CUDA "
-                         f"tensors, got {dic.device}")
-    if dic.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"solve_htotal_brackets takes float32 or float64, "
-                        f"got {dic.dtype}")
     lanes, shared = tuple(dic.shape), tuple(ta.shape)
     if len(shared) > len(lanes) or lanes[len(lanes) - len(shared):] != shared:
         raise ValueError(f"solve_htotal_brackets: the shared fields' shape "
@@ -210,15 +311,9 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
                          f"shape {lanes}")
     fields = dict(dic=dic, x1=x1, x2=x2, ta=ta, pt=pt, sit=sit,
                   **coeffs._asdict())
-    for name, t in fields.items():
-        shape = lanes if name in ("dic", "x1", "x2") else shared
-        if (t.device != dic.device or t.dtype != dic.dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"solve_htotal_brackets: {name} must be a contiguous "
-                f"{dic.dtype} tensor of shape {shape} on {dic.device}; got "
-                f"{t.dtype}, {tuple(t.shape)} on {t.device}, "
-                f"contiguous={t.is_contiguous()}")
+    _check_kernel_inputs("solve_htotal_brackets", dic, {
+        k: (t, lanes if k in ("dic", "x1", "x2") else shared)
+        for k, t in fields.items()})
     h = _launch_brackets(fields)
     solve_htotal_brackets.launches += 1
     return h

@@ -68,7 +68,8 @@ def fused_interior_step_torch(tracers, grid: ColumnGrid, forcing: BGCForcing,
     out = bgc_source_sink(tracers, grid, forcing, ph_prev_3d,
                           ph_prev_alt_3d, params, compute_diags=False,
                           carbonate_impl="torch", env=env)
-    return FusedInteriorOut(*out)
+    return FusedInteriorOut(out.tendencies, out.ph_prev_3d,
+                            out.ph_prev_alt_3d)
 
 
 def kernel_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,

@@ -6,8 +6,9 @@ into coccolithophore / cyanobacteria / eukaryote fractions, nitrogen and
 sulfur currency conversions, diagnosed bacteria, and first/second-order
 DMS and DMSP kinetics.  The PAR attenuation (DMS_mod.F90:531-551) is the
 closed-form exclusive cumulative product over levels, so the step is
-batched over (nlev, ncol) cells.  The 27 diagnostics and the opt-in UV
-field arrive with the diagnostics slice; ``diags`` is empty here.
+batched over (nlev, ncol) cells.  It returns the 27 diagnostics
+(DMS_parms.F90:125-154) and, on request, the UV field that the reference
+computes but never consumes (DMS_mod.F90:509-510, 531-536).
 """
 
 from __future__ import annotations
@@ -21,6 +22,16 @@ from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, safe_div
 from ocean_bgc_tpu_torch.params import DMSParams
 from ocean_bgc_tpu_torch.state import DMSTracers as DT
 
+DMS_DIAG_NAMES = (
+    "DMS_S_DMSP", "DMS_S_TOTAL",
+    "DMS_R_B", "DMS_R_PHOT", "DMS_R_BKGND", "DMS_R_TOTAL",
+    "DMSP_S_PHAEO", "DMSP_S_NONPHAEO", "DMSP_S_ZOO", "DMSP_S_TOTAL",
+    "DMSP_R_B", "DMSP_R_BKGND", "DMSP_R_TOTAL",
+    "Cyano_frac", "Cocco_frac", "Eukar_frac",
+    "diatS", "diatN", "phytoN", "coccoS", "cyanoS", "eukarS", "diazS",
+    "phaeoS", "zooS", "zooCC", "RSNzoo",
+)
+
 
 def dms_source_sink(
     tracers: torch.Tensor,         # (nlev, DT.CNT, ncol)
@@ -29,9 +40,18 @@ def dms_source_sink(
     sst: torch.Tensor,             # (ncol,)
     shortwave_surface: torch.Tensor,  # (ncol,) W/m^2
     params: DMSParams,
+    *,
+    compute_uv: bool = False,
+    compute_diags: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Tendencies (nlev, DT.CNT, ncol); only DMS and DMSP are nonzero,
-    and inactive cells produce zeros."""
+    """Tendencies (nlev, DT.CNT, ncol), of which only DMS and DMSP are
+    nonzero, and the 27 diagnostics (:data:`DMS_DIAG_NAMES`), each an
+    (nlev, ncol) field; inactive cells produce zeros.
+
+    ``compute_uv``: also the DOC-attenuated UV field as ``UV_in``,
+    ``UV_out`` and ``UV_avg``.  ``compute_diags=False`` returns an empty
+    dict and skips the diagnostics' masking (eager PyTorch evaluates what
+    XLA's dead-code elimination drops in the JAX package)."""
 
     p = params
 
@@ -39,6 +59,7 @@ def dms_source_sink(
 
     dms = clip[:, DT.DMS]
     dmsp = clip[:, DT.DMSP]
+    doc = clip[:, DT.DOC]
     zooC = clip[:, DT.ZOOC]
     spC = clip[:, DT.SPC]
     spCaCO3 = clip[:, DT.SPCACO3]
@@ -138,15 +159,53 @@ def dms_source_sink(
 
     # kinetic terms (DMS_mod.F90:701-716)
     dms_s = yield_ * p.k_conv * dmsp
-    dms_r = (p.k_S_B * b_diagnosed * dms + j_dms * dms
-             + p.k_bkgnd * dms)
+    dms_r_B = p.k_S_B * b_diagnosed * dms
+    dms_r_phot = j_dms * dms
+    dms_r_bkgnd = p.k_bkgnd * dms
+    dms_r = dms_r_B + dms_r_phot + dms_r_bkgnd
 
-    dmsp_s = (p.inject_scale * p.k_S_p_base * phaeoS
-              + p.inject_scale * k_S_p * phytoS
-              + p.inject_scale * p.k_S_z * zooS)
-    dmsp_r = p.k_conv * dmsp + p.k_bkgnd * dmsp
+    dmsp_s_phaeo = p.inject_scale * p.k_S_p_base * phaeoS
+    dmsp_s_nonphaeo = p.inject_scale * k_S_p * phytoS
+    dmsp_s_zoo = p.inject_scale * p.k_S_z * zooS
+    dmsp_s = dmsp_s_phaeo + dmsp_s_nonphaeo + dmsp_s_zoo
+    dmsp_r_B = p.k_conv * dmsp
+    dmsp_r_bkgnd = p.k_bkgnd * dmsp
+    dmsp_r = dmsp_r_B + dmsp_r_bkgnd
 
     tend = torch.zeros_like(tracers)
     tend[:, DT.DMS] = torch.where(active, dms_s - dms_r, 0.0)
     tend[:, DT.DMSP] = torch.where(active, dmsp_s - dmsp_r, 0.0)
-    return tend, {}
+    if not compute_diags:
+        return tend, {}
+
+    shape = dms.shape
+    diags = {
+        "DMS_S_DMSP": dms_s, "DMS_S_TOTAL": dms_s,
+        "DMS_R_B": dms_r_B, "DMS_R_PHOT": dms_r_phot,
+        "DMS_R_BKGND": dms_r_bkgnd, "DMS_R_TOTAL": dms_r,
+        "DMSP_S_PHAEO": dmsp_s_phaeo,
+        "DMSP_S_NONPHAEO": dmsp_s_nonphaeo,
+        "DMSP_S_ZOO": dmsp_s_zoo, "DMSP_S_TOTAL": dmsp_s,
+        "DMSP_R_B": dmsp_r_B, "DMSP_R_BKGND": dmsp_r_bkgnd,
+        "DMSP_R_TOTAL": dmsp_r,
+        "Cyano_frac": cyano_frac.expand(shape),
+        "Cocco_frac": cocco_frac,
+        "Eukar_frac": eukar_frac.expand(shape),
+        "diatS": diatS, "diatN": diatN, "phytoN": phytoN,
+        "coccoS": coccoS, "cyanoS": cyanoS, "eukarS": eukarS,
+        "diazS": diazS, "phaeoS": phaeoS, "zooS": zooS,
+        "zooCC": zooC, "RSNzoo": rs2n_zoo,
+    }
+    if compute_uv:
+        # UV: 1% of surface PAR, attenuated by DOC (DMS_mod.F90:509-510,
+        # 531-536), the same exclusive cumulative product as PAR's
+        kuv_dz = (0.01e-2 * doc + 0.04e-4) * dz
+        att_uv = torch.exp(-kuv_dz)
+        cum_uv = torch.cumprod(att_uv, dim=0)
+        uv_in = ((par_surf * 0.01)[None, :]
+                 * torch.cat([torch.ones_like(cum_uv[:1]), cum_uv[:-1]],
+                             dim=0))
+        diags["UV_in"] = uv_in
+        diags["UV_out"] = uv_in * att_uv
+        diags["UV_avg"] = uv_in * (1.0 - att_uv) / kuv_dz
+    return tend, {k: torch.where(active, v, 0.0) for k, v in diags.items()}

@@ -3,8 +3,7 @@
 Counterpart of ``ocean_bgc_tpu/ops/macros.py`` (MACROS_SourceSink,
 MACROS_mod.F90:137-411): three first-order production/removal pairs
 driven by total phytoplankton carbon and a zooplankton-modulated
-disruption rate, pure per-cell algebra over (nlev, ncol).  The six
-diagnostics arrive with the diagnostics slice; ``diags`` is empty here.
+disruption rate, pure per-cell algebra over (nlev, ncol).
 """
 
 from __future__ import annotations
@@ -21,8 +20,12 @@ def macros_source_sink(
     tracers: torch.Tensor,          # (nlev, MT.CNT, ncol)
     active_mask: torch.Tensor,      # (nlev, ncol) bool
     params: MACROSParams,
+    *,
+    compute_diags: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Tendencies (nlev, MT.CNT, ncol); inactive cells produce zeros."""
+    """Tendencies (nlev, MT.CNT, ncol) and the 6 diagnostics
+    (MACROS_parms.F90:105-113); inactive cells produce zeros.
+    ``compute_diags=False`` returns an empty dict."""
 
     def clip(i):
         return torch.clamp_min(tracers[:, i], 0.0)
@@ -46,4 +49,12 @@ def macros_source_sink(
     tend[:, MT.PROT] = torch.where(active_mask, prot_s - prot_r, 0.0)
     tend[:, MT.POLY] = torch.where(active_mask, poly_s - poly_r, 0.0)
     tend[:, MT.LIP] = torch.where(active_mask, lip_s - lip_r, 0.0)
-    return tend, {}
+    if not compute_diags:
+        return tend, {}
+    diags = {
+        "PROT_S_TOTAL": prot_s, "POLY_S_TOTAL": poly_s,
+        "LIP_S_TOTAL": lip_s, "PROT_R_TOTAL": prot_r,
+        "POLY_R_TOTAL": poly_r, "LIP_R_TOTAL": lip_r,
+    }
+    return tend, {k: torch.where(active_mask, v, 0.0)
+                  for k, v in diags.items()}

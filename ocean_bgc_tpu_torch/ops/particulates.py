@@ -11,13 +11,13 @@ sedimentary denitrification and non-oxic remineralization, with the
 The downward coupling is a Python loop over levels in
 ``ops/bgc.py::bgc_source_sink``, threading a :class:`ParticleCarry` of
 ``(ncol,)`` tensors through :func:`particulate_level_update`; the
-bottom-cell branch is a per-lane ``is_bottom`` mask.  The per-level
-diagnostics (``particulate_diags``) arrive with the diagnostics slice.
+bottom-cell branch is a per-lane ``is_bottom`` mask.
+:func:`particulate_diags` gives the per-level diagnostics.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +38,8 @@ from ocean_bgc_tpu_torch.constants import (
     P_SIO2_MASS,
     PARM_RED_FE_C,
     POC_MASS,
+    Q,
+    QP_ZOO_POM,
     SPD,
     TFUNCS_Q10,
     TREF,
@@ -379,3 +381,42 @@ def particulate_level_update(
         sed_denitrif=_m(sed_denitrif), other_remin=_m(other_remin),
     )
     return new_carry, out
+
+
+def particulate_diags(carry_in: ParticleCarry, out: ParticleLevelOut,
+                      poc_prod, caco3_prod, sio2_prod, fe_prod,
+                      cell_thickness, active) -> Dict[str, torch.Tensor]:
+    """The per-level particulate diagnostics (BGC_mod.F90:2637-2694) from
+    the stacked per-level outputs: FLUX_IN reports the incoming fluxes,
+    the carry entering each level."""
+    def _m(x):
+        return torch.where(active, x, 0.0)
+
+    return {
+        "POC_FLUX_IN": _m(carry_in.poc_s + carry_in.poc_h),
+        "POC_PROD": _m(poc_prod),
+        "POC_REMIN": out.poc_remin,
+        # declared but never assigned in the reference (BGC_parms.F90:206),
+        # so the host always reads zeros
+        "POC_ACCUM": torch.zeros_like(out.poc_remin),
+        "CaCO3_FLUX_IN": _m(carry_in.caco3_s + carry_in.caco3_h),
+        "CaCO3_PROD": _m(caco3_prod),
+        "CaCO3_REMIN": out.caco3_remin,
+        "SiO2_FLUX_IN": _m(carry_in.sio2_s + carry_in.sio2_h),
+        "SiO2_PROD": _m(sio2_prod),
+        "SiO2_REMIN": out.sio2_remin,
+        "dust_FLUX_IN": _m(carry_in.dust_s + carry_in.dust_h),
+        "dust_REMIN": out.dust_remin,
+        "P_iron_FLUX_IN": _m(carry_in.fe_s + carry_in.fe_h),
+        "P_iron_PROD": _m(fe_prod),
+        "P_iron_REMIN": out.fe_remin,
+        "calcToSed": out.caco3_sed_loss,
+        "bsiToSed": out.sio2_sed_loss,
+        "pocToSed": out.poc_sed_loss,
+        "SedDenitrif": out.sed_denitrif * cell_thickness,
+        "OtherRemin": out.other_remin * cell_thickness,
+        "ponToSed": out.poc_sed_loss * Q,
+        "popToSed": out.poc_sed_loss * QP_ZOO_POM,
+        "dustToSed": out.dust_sed_loss,
+        "pfeToSed": out.fe_sed_loss,
+    }

@@ -4,8 +4,8 @@ Counterpart of ``ocean_bgc_tpu/ops/surface.py`` (``BGC_SurfaceFluxes``,
 BGC_mod.F90:2706-2957; ``DMS_SurfaceFluxes``, DMS_mod.F90:778-908), one
 lane per column.  Gas flux = piston velocity (cm/s) * concentration
 difference (mmol/m^3), positive into the ocean; the coupled step divides
-by the top-cell thickness.  The flux diagnostics arrive with the
-diagnostics slice; ``diags`` is empty here.
+by the top-cell thickness.  Each returns its flux diagnostics (14 BGC, 8
+DMS) beside the fluxes.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ class BGCSurfaceOut(NamedTuple):
     net_flux: torch.Tensor          # (30, ncol) total surface flux per tracer
     surface_ph: torch.Tensor        # (ncol,) updated warm-start state
     surface_ph_alt: torch.Tensor    # (ncol,)
-    diags: Dict[str, torch.Tensor]
+    diags: Dict[str, torch.Tensor]  # the 14 flux diagnostics
 
 
 def bgc_surface_fluxes(
@@ -87,6 +87,12 @@ def bgc_surface_fluxes(
         pv_o2 = xkw_ice * torch.sqrt(660.0 / sc_o2)
         o2sat_loc = forcing.surface_pressure * o2sat_1atm
         gas[T.O2] = pv_o2 * (o2sat_loc - o2)
+        diags = {"pistonVel_O2": pv_o2, "SCHMIDT_O2": sc_o2,
+                 "O2SAT": o2sat_loc, "xkw": xkw_ice}
+    else:
+        zero = torch.zeros_like(xkw_ice)
+        diags = {"pistonVel_O2": zero, "SCHMIDT_O2": zero, "O2SAT": zero,
+                 "xkw": zero}
 
     # ---- CO2, ambient + alternative scenario (BGC_mod.F90:2866-2923) ----
     if params.lcalc_CO2_gas_flux:
@@ -96,8 +102,9 @@ def bgc_surface_fluxes(
                              DEL_PH)
         br_alt = warm_brackets_h(surface_ph_alt, PHLO_SURF_INIT,
                                  PHHI_SURF_INIT, DEL_PH)
-        ((ph_new, _, dco2star, _, _),
-         (ph_alt_new, _, dco2star_alt, _, _)) = co2calc_surface_dual(
+        ((ph_new, co2star, dco2star, pco2surf, dpco2),
+         (ph_alt_new, co2star_alt, dco2star_alt, pco2surf_alt,
+          dpco2_alt)) = co2calc_surface_dual(
             forcing.surface_depth, forcing.sst, forcing.sss,
             dic, dic_alt, alk, po4, sio3, None, None, None, None,
             forcing.atm_co2, forcing.atm_co2_alt, forcing.surface_pressure,
@@ -105,8 +112,22 @@ def bgc_surface_fluxes(
             brackets_a=br, brackets_b=br_alt, impl=carbonate_impl)
         gas[T.DIC] = pv_co2 * dco2star
         gas[T.DIC_ALT_CO2] = pv_co2 * dco2star_alt
+        diags.update({
+            "co2star": co2star, "dco2star": dco2star,
+            "pco2surf": pco2surf, "dpco2": dpco2,
+            "pistonVel_CO2": pv_co2, "SCHMIDT_CO2": sc_co2,
+            "co2star_alt_co2": co2star_alt,
+            "dco2star_alt_co2": dco2star_alt,
+            "pco2surf_alt_co2": pco2surf_alt,
+            "dpco2_alt_co2": dpco2_alt,
+        })
     else:
         ph_new, ph_alt_new = surface_ph, surface_ph_alt
+        zero = torch.zeros_like(xkw_ice)
+        diags.update({name: zero for name in (
+            "co2star", "dco2star", "pco2surf", "dpco2", "pistonVel_CO2",
+            "SCHMIDT_CO2", "co2star_alt_co2", "dco2star_alt_co2",
+            "pco2surf_alt_co2", "dpco2_alt_co2")})
 
     # ---- net flux roll-up + alkalinity adjustment
     # (BGC_mod.F90:2929-2942) ----
@@ -114,7 +135,7 @@ def bgc_surface_fluxes(
     net[T.ALK] += net[T.NH4] - net[T.NO3]
 
     return BGCSurfaceOut(net_flux=net, surface_ph=ph_new,
-                         surface_ph_alt=ph_alt_new, diags={})
+                         surface_ph_alt=ph_alt_new, diags=diags)
 
 
 class DMSSurfaceOut(NamedTuple):
@@ -158,5 +179,11 @@ def dms_surface_fluxes(
         flux = pv * (sat - dms_surf)
     else:
         flux = torch.zeros_like(pv)
+    diags = {
+        "DMS_IFRAC": ice, "DMS_XKW": xkw_ice,
+        "DMS_ATM_PRESS": surface_pressure, "DMS_PV": pv,
+        "DMS_SCHMIDT": sc, "DMS_SAT": sat, "DMS_SURF": dms_surf,
+        "DMS_WS": wind,
+    }
     return DMSSurfaceOut(dms_flux=flux, dmsp_flux=torch.zeros_like(flux),
-                         diags={})
+                         diags=diags)

@@ -17,11 +17,13 @@ import jax.numpy as jnp
 from ocean_bgc_tpu import constants as jconst
 from ocean_bgc_tpu import state as jstate
 from ocean_bgc_tpu.params import ModelParams as JaxModelParams
+from ocean_bgc_tpu.utils import diag as jdiag
 from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
 from ocean_bgc_tpu_torch import constants as tconst
 from ocean_bgc_tpu_torch import state as tstate
 from ocean_bgc_tpu_torch.params import ModelParams
+from ocean_bgc_tpu_torch.utils import diag as tdiag
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, resolve_device
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
@@ -55,6 +57,20 @@ def test_tracer_indices_and_names_have_not_drifted():
               "MACROS_TRACER_NAMES", "MACROS_TRACER_LONG_NAMES"):
         assert getattr(tstate, n) == getattr(jstate, n), n
     assert tstate.bgc_tracer_units() == jstate.bgc_tracer_units()
+
+
+def test_diagnostics_registry_copy_has_not_drifted():
+    """utils/diag.py is a copy: every table, entry and the coupled
+    registry's names, kinds, units and descriptions equal the JAX
+    package's."""
+    for table in ("BGC_DIAGS", "BGC_FLUX_DIAGS", "DMS_DIAGS",
+                  "DMS_FLUX_DIAGS", "MACROS_DIAGS"):
+        a, b = getattr(jdiag, table), getattr(tdiag, table)
+        assert list(b) == list(a), table
+        assert all(tuple(b[k]) == tuple(a[k]) for k in a), table
+    a, b = jdiag.coupled_registry(), tdiag.coupled_registry()
+    assert list(b) == list(a) and len(b) == 155
+    assert all(tuple(b[k]) == tuple(a[k]) for k in a)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -110,6 +126,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # chip_smoke.py's check against the scalar oracle imports these
     files += sorted((REPO / "tests" / "oracle").glob("*.py"))
     assert len(files) > 15
+    assert {"diag.py", "history.py", "cuda_carbonate.py"} <= {
+        f.name for f in files}
     offenders = {str(f.relative_to(REPO)): _forbidden_imports(f)
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}

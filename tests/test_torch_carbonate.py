@@ -19,9 +19,10 @@ from ocean_bgc_tpu.ops.pallas_carbonate import co3_terms_dual_sat_pallas
 from ocean_bgc_tpu_torch.constants import DEL_PH, XACC
 from ocean_bgc_tpu_torch.ops import carbonate as tcarb
 from ocean_bgc_tpu_torch import constants
-from ocean_bgc_tpu_torch.ops.bgc import precompute_env
+from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs, precompute_env
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     BRACKET_FIELDS,
+    SAT_FIELDS,
     co3_terms_dual_coeffs,
     co3_terms_dual_coeffs_torch,
     solve_htotal_brackets,
@@ -345,3 +346,23 @@ def test_bracket_instance_argument_layout_matches_the_source():
     assert BRACKET_FIELDS[:3] == ("dic", "x1", "x2")
     assert BRACKET_FIELDS[-1] == "h"
     assert constants.XACC == tcarb.solver_xacc(torch.float64)
+
+
+def test_sat_instance_argument_layout_matches_the_source():
+    """The same for the coefficient-and-saturation instance: SAT_FIELDS
+    against the kernel's SatField enum, and the order in which
+    ops/bgc.py::carbonate_inputs gives the fields without an env cache."""
+    src = (Path(__file__).resolve().parent.parent / "ocean_bgc_tpu_torch"
+           / "csrc" / "carbonate_dual.cu").read_text()
+    body = re.search(r"enum SatField : int \{(.*?)\};", src, re.S)[1]
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names == ["S_" + f for f in SAT_FIELDS] + ["S_COUNT"]
+    state, grid, forcing = synthetic_world(nlev=3, ncol=5, seed=2,
+                                           device="cpu")
+    b = state.bgc
+    args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                            b.ph_prev_alt_3d)
+    assert len(args) == len(SAT_FIELDS)
+    assert torch.equal(args[0], grid.cell_center_depth * 0.01)
+    assert torch.equal(args[SAT_FIELDS.index("ph_prev_b")],
+                       b.ph_prev_alt_3d)

@@ -1,6 +1,7 @@
 """The kernels on the card against their plain versions: K1 (the dual pH
-solve, and its bracket-in instance for the surface pair and the stand-in)
-and the production step with it, K2 (the whole interior) and the fused
+solve, its coefficient-and-saturation instance for the step without an
+env cache, and its bracket-in instance for the surface pair and the
+stand-in) and the production and default steps with it, K2 (the whole interior) and the fused
 step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -21,6 +22,8 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     _ph_brackets,
     co3_terms_dual_coeffs,
     co3_terms_dual_coeffs_torch,
+    co3_terms_dual_sat,
+    co3_terms_dual_sat_torch,
     solve_htotal_brackets,
 )
 from ocean_bgc_tpu_torch.ops.cuda_step import (
@@ -31,6 +34,7 @@ from ocean_bgc_tpu_torch.ops.cuda_step import (
 from ocean_bgc_tpu_torch.ops.numerics import morel_kpar
 from ocean_bgc_tpu_torch.ops.surface import bgc_surface_fluxes
 from ocean_bgc_tpu_torch.params import ModelParams
+from ocean_bgc_tpu_torch.utils.diag import coupled_registry
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
 pytestmark = pytest.mark.cuda
@@ -96,6 +100,80 @@ def test_kernel_step_equals_plain_step(cuda):
     xacc = solver_xacc(state.bgc.tracers.dtype)
     assert _h_diff(a.bgc.ph_prev_3d, b.bgc.ph_prev_3d) <= 2 * xacc
     assert _h_diff(a.bgc.ph_prev_alt_3d, b.bgc.ph_prev_alt_3d) <= 2 * xacc
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sat_instance_matches_plain_version(cuda, dtype):
+    """K1's coefficient-and-saturation instance against its plain version
+    (``carbonate_coeffs``, the dual solve and ``co3_sat_vals`` in torch)
+    on cold and warm inputs as the step without an env cache gives them:
+    all 10 outputs bitwise equal.  The constants repeat the plain
+    version's expressions in its order with PyTorch's CUDA semantics (a
+    tensor over a scalar is a product with the scalar's reciprocal),
+    --fmad=false, IEEE division and the CUDA math library's exp, log and
+    sqrt.  ``with_sat=False`` gives the same 8 outputs and no saturation
+    values; one launch counted per call."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False)
+    for st in (state, warm):
+        args = carbonate_inputs(st.bgc.tracers, grid, forcing,
+                                st.bgc.ph_prev_3d, st.bgc.ph_prev_alt_3d)
+        before = co3_terms_dual_sat.launches
+        got = co3_terms_dual_sat(*args, impl="kernel")
+        nosat = co3_terms_dual_sat(*args, with_sat=False, impl="kernel")
+        torch.cuda.synchronize()
+        assert co3_terms_dual_sat.launches == before + 2
+        want = co3_terms_dual_sat_torch(*args)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert torch.isfinite(x).all()
+                assert torch.equal(x, y)
+        assert nosat[2] is None
+        for x, y in zip(nosat[0] + nosat[1], got[0] + got[1]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_default_call_on_the_card(cuda, dtype):
+    """The default call (diagnostics on, no env cache) launches the
+    coefficient-and-saturation instance and the surface pair's bracket-in
+    instance once a step, never the cached-constants instance or K2; with
+    an env cache the cached-constants instance takes its place.  Tracers
+    are bitwise equal between ``carbonate_impl="kernel"`` and ``"torch"``
+    and between diagnostics on and off; the diagnostics are the
+    registry's and finite."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    counts = (co3_terms_dual_sat.launches, co3_terms_dual_coeffs.launches,
+              solve_htotal_brackets.launches, _k2_counts())
+    a = b = c = state
+    for _ in range(2):
+        a, d = step(a, grid, forcing, params, 3600.0)
+        b, _ = step(b, grid, forcing, params, 3600.0, carbonate_impl="torch")
+        c, _ = step(c, grid, forcing, params, 3600.0, compute_diags=False)
+    torch.cuda.synchronize()
+    # a and c on the kernels, b on the plain versions
+    assert (co3_terms_dual_sat.launches, co3_terms_dual_coeffs.launches,
+            solve_htotal_brackets.launches, _k2_counts()) == (
+        counts[0] + 4, counts[1], counts[2] + 4, counts[3])
+    for x, y in ((a, b), (a, c)):
+        assert torch.equal(x.bgc.tracers, y.bgc.tracers)
+        assert torch.equal(x.dms, y.dms)
+        assert torch.equal(x.macros, y.macros)
+    assert set(d) == set(coupled_registry())
+    assert all(torch.isfinite(v).all() for v in d.values())
+    before = (co3_terms_dual_sat.launches, co3_terms_dual_coeffs.launches)
+    _, de = step(state, grid, forcing, params, 3600.0, env=env)
+    assert (co3_terms_dual_sat.launches,
+            co3_terms_dual_coeffs.launches) == (before[0], before[1] + 1)
+    assert set(de) == set(d)
 
 
 def _k2_counts():
