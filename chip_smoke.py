@@ -36,10 +36,32 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    ``carbonate_impl="kernel"`` and ``"torch"``, tracers bitwise equal with
    diagnostics on and off; the diagnostics' names those of the registry
    (``utils/diag.py``), every one finite;
-6. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
+6. the production driver and K1's seeded variants (``OBGC_X0_SEED=1``), at
+   f64 and f32 on the same world: each seeded variant of K1's three
+   instances against its seeded plain version on cold, warm and
+   off-window inputs (every output bitwise equal), its time, bound and
+   iterations per warm problem beside the unseeded ones; then
+   ``python -m ocean_bgc_tpu_torch.run_model`` through ``run_model.main``
+   on the world written as a NetCDF world file and a 3-record forcing
+   series (T +0, +0.5, -0.5 C, 8 h apart): 24 held-record steps with the
+   seed, the 10-field history every 12 steps, checkpoints and health,
+   with every launch counted (the seeded cached-constants instance 24,
+   the seeded bracket-in instance 25, the seeded coefficient-and-
+   saturation instance 1, the unseeded bracket-in instance 3, the rest
+   0), and a resume from the step-12 checkpoint bitwise equal to it; at
+   f64 also linear interpolation, RK2, RK4 and no env cache with their
+   launches counted, the driver's columns/s under constant, held and
+   interpolated forcing with and without the seed, ``run_forced`` with
+   the env tables blended and held, and 24 seeded steps against 24
+   unseeded ones inside tests/test_x0_seed_trajectory.py's envelope;
+7. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
    version;
-7. one f64 step of each path at 60 x 131072 columns (diagnostics off);
-8. numbers: columns/s of every step configuration (diagnostics off with
+8. one f64 step of each path at 60 x 131072 columns (diagnostics off),
+   and one step of that world streamed through the card in chunks of
+   32768 columns (``models/chunked.py::step_chunked``) against the
+   unchunked step (values differing: 0 required), with wall times and
+   peak device memory;
+9. numbers: columns/s of every step configuration (diagnostics off with
    each interior; diagnostics on without and with the env cache and with
    a 10-field ``diag_filter``), each kernel's time beside its plain
    version's and its bound, each kernel's registers and spills from the
@@ -59,6 +81,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -67,6 +90,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 NLEV, NCOL, NCOL_BIG, DT = 60, 8192, 131072, 3600.0
+# the column chunk of the chunked step of the big world
+CHUNK = 32768
 SEED = 17
 # H100 SXM: HBM3 bandwidth and peak non-tensor-core rates (NVIDIA data
 # sheet)
@@ -83,6 +108,11 @@ OPS_CELL, OPS_SCENARIO = 8, 7 + 4 + 18
 # the bracket-in instance's work per lane besides its residuals and
 # steps: the orientation and the iteration's start
 OPS_BRACKET_LANE = 4
+# the seeded variants' work besides the unseeded one's: per interior
+# scenario the seed from the pH window (carbonate_solve.cuh::ph_seed: two
+# adds, a multiply, a compare, the exp argument and the exp), per problem
+# the seed's test and its clamp into the bracket (four compares)
+OPS_SEED_WINDOW, OPS_SEED_CLAMP = 6, 5
 # it reads dic, x1, x2 and writes H per lane, and reads ta, pt, sit and
 # the 15 constants per shared element
 BRACKET_FIELDS_LANE, BRACKET_FIELDS_SHARED = 4, 18
@@ -161,23 +191,34 @@ def cuda_ms(fn, reps, warmup=2, rounds=5, device_only=False):
     return statistics.median(times)
 
 
+def _counters():
+    """{name: (wrapper, attribute)} of every kernel launch count: K1's
+    three instances unseeded and seeded, K2's two kernels."""
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc, cuda_step
+    return dict(
+        k1=(cc.co3_terms_dual_coeffs, "launches"),
+        k1_sat=(cc.co3_terms_dual_sat, "launches"),
+        brackets=(cc.solve_htotal_brackets, "launches"),
+        k1_seeded=(cc.co3_terms_dual_coeffs, "seeded_launches"),
+        k1_sat_seeded=(cc.co3_terms_dual_sat, "seeded_launches"),
+        brackets_seeded=(cc.solve_htotal_brackets, "seeded_launches"),
+        k2_solve=(cuda_step._launch_solve, "launches"),
+        k2_bio=(cuda_step._launch_bio, "launches"))
+
+
 def reset_counts():
     """Set every kernel wrapper's launch count to 0."""
-    from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
-    cuda_carbonate.co3_terms_dual_coeffs.launches = 0
-    cuda_carbonate.co3_terms_dual_sat.launches = 0
-    cuda_carbonate.solve_htotal_brackets.launches = 0
-    cuda_step._launch_solve.launches = 0
-    cuda_step._launch_bio.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    from ocean_bgc_tpu_torch.ops import cuda_carbonate, cuda_step
-    return dict(k1=cuda_carbonate.co3_terms_dual_coeffs.launches,
-                k1_sat=cuda_carbonate.co3_terms_dual_sat.launches,
-                brackets=cuda_carbonate.solve_htotal_brackets.launches,
-                k2_solve=cuda_step._launch_solve.launches,
-                k2_bio=cuda_step._launch_bio.launches)
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def expected(**nonzero):
+    """The launch counts of a run in which only ``nonzero`` launched."""
+    return {k: nonzero.get(k, 0) for k in _counters()}
 
 
 def ptxas_lines(log_text):
@@ -219,22 +260,25 @@ def k1_inputs(state, grid, forcing, env):
                             env)
 
 
-def solve_ops_of(args, cells=None):
+def solve_ops_of(args, cells=None, seed=False):
     """(operations, mean iterations per scenario) of K1's dual solve on
     these inputs, over ``cells`` (a mask; all cells if None), iteration
     counts from the plain version, which runs the same per-lane
-    iteration."""
+    iteration; ``seed``: of the seeded variant."""
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
         co3_terms_dual_coeffs_torch)
-    *_, stats = co3_terms_dual_coeffs_torch(*args, with_stats=True)
+    *_, stats = co3_terms_dual_coeffs_torch(*args, with_stats=True,
+                                            seed=seed)
     if cells is None:
         cells = torch.ones_like(args[0], dtype=torch.bool)
     n = int(cells.sum())
     ops = OPS_CELL * n
+    per_scenario = OPS_SCENARIO + (OPS_SEED_WINDOW + OPS_SEED_CLAMP
+                                   if seed else 0)
     for st in stats:
         iters = st["iters"].double()[cells]
         grows = st["grows"].double()[cells]
-        ops += (n * (OPS_SCENARIO + 2 * OPS_TALK_FN + OPS_TALK)
+        ops += (n * (per_scenario + 2 * OPS_TALK_FN + OPS_TALK)
                 + (grows * (OPS_GROW + 2 * OPS_TALK_FN)).sum().item()
                 + (iters * OPS_ITER).sum().item()
                 + ((iters - 1).clamp_min(0) * OPS_TALK).sum().item())
@@ -249,13 +293,13 @@ def bound(nbytes, ops, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k1_bound(args, dtype):
+def k1_bound(args, dtype, seed=False):
     """(bound_ms, bound_by, bytes, operations, mean iterations, path
     bound_ms): the larger of K1's bytes over the HBM rate and of the
     operations these inputs need over the peak rate of the type.  The
     path bound counts only the outputs the step reads."""
     n = args[0].numel()
-    ops, iters_mean = solve_ops_of(args)
+    ops, iters_mean = solve_ops_of(args, seed=seed)
     nbytes = (K1_FIELDS_IN + K1_FIELDS_OUT) * args[0].element_size() * n
     path_bytes = ((K1_FIELDS_IN + K1_FIELDS_OUT_READ)
                   * args[0].element_size() * n)
@@ -314,9 +358,10 @@ def check_k1(dtype, world, env, warm_state):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def surface_lanes(state, forcing):
+def surface_lanes(state, forcing, seed=False):
     """The surface pair's solver arguments as co2calc_surface_dual builds
-    them in a step from ``state``: lanes (2, ncol), the rest (ncol,)."""
+    them in a step from ``state``: lanes (2, ncol), the rest (ncol,);
+    ``seed``: and the lanes' iteration seeds."""
     from ocean_bgc_tpu_torch import constants as c
     from ocean_bgc_tpu_torch.ops import carbonate as tc
     from ocean_bgc_tpu_torch.state import BGCTracers as T
@@ -328,11 +373,10 @@ def surface_lanes(state, forcing):
     db = tc._to_mass_units(surf[T.DIC_ALT_CO2], surf[T.ALK], surf[T.PO4],
                            surf[T.SIO3])[0]
     br = [tc.warm_brackets_h(ph, c.PHLO_SURF_INIT, c.PHHI_SURF_INIT,
-                             c.DEL_PH)
+                             c.DEL_PH, with_seed=seed)
           for ph in (state.bgc.surface_ph, state.bgc.surface_ph_alt)]
     return (coeffs, torch.stack([da, db]), ta, pt, sit,
-            torch.stack([br[0][0], br[1][0]]),
-            torch.stack([br[0][1], br[1][1]]))
+            *(torch.stack([br[0][j], br[1][j]]) for j in range(len(br[0]))))
 
 
 def standin_lanes(env):
@@ -348,20 +392,24 @@ def standin_lanes(env):
 
 def bracket_bound(args, dtype):
     """(bound_ms, bound_by, bytes, operations, mean and most steps) of the
-    bracket-in instance on these lanes: each lane's and each shared
-    element's fields once over the HBM rate, against the operations the
-    plain version's per-lane counts need over the peak rate of the
-    type."""
+    bracket-in instance on these lanes (with an eighth argument, the
+    seeds, of its seeded variant): each lane's and each shared element's
+    fields once over the HBM rate, against the operations the plain
+    version's per-lane counts need over the peak rate of the type."""
     from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
     coeffs, dic, ta = args[0], args[1], args[2]
-    _, st = _solve_htotal_impl(*args, with_stats=True)
+    seed = len(args) > 7
+    _, st = _solve_htotal_impl(*args[:7], x0=args[7] if seed else None,
+                               with_stats=True)
     iters, grows = st["iters"].double(), st["grows"].double()
     n = dic.numel()
-    ops = (n * (2 * OPS_TALK_FN + OPS_BRACKET_LANE)
+    ops = (n * (2 * OPS_TALK_FN + OPS_BRACKET_LANE
+                + (OPS_SEED_CLAMP if seed else 0))
            + (grows * (OPS_GROW + 2 * OPS_TALK_FN)).sum().item()
            + (iters * (OPS_ITER + OPS_TALK)).sum().item())
-    nbytes = ((BRACKET_FIELDS_LANE * n + BRACKET_FIELDS_SHARED * ta.numel())
-              * dic.element_size())
+    # the seeded variant reads one field more per lane, its seed
+    nbytes = (((BRACKET_FIELDS_LANE + seed) * n
+               + BRACKET_FIELDS_SHARED * ta.numel()) * dic.element_size())
     return (*bound(nbytes, ops, dtype), nbytes, ops, iters.mean().item(),
             iters.max().item())
 
@@ -538,7 +586,7 @@ def main_path(dtype, params):
     launches = counts["k1"]
     log(f"main path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
-    if counts != dict(k1=10, k1_sat=0, brackets=10, k2_solve=0, k2_bio=0):
+    if counts != expected(k1=10, brackets=10):
         raise AssertionError(f"the default path's launches in 10 steps: "
                              f"{counts}, expected k1 10, k1_sat 0, brackets "
                              f"10, k2_solve 0, k2_bio 0")
@@ -841,7 +889,7 @@ def fused_path(dtype, params, ctx):
     counts = read_counts()
     log(f"fused path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
-    if counts != dict(k1=0, k1_sat=0, brackets=10, k2_solve=10, k2_bio=10):
+    if counts != expected(brackets=10, k2_solve=10, k2_bio=10):
         raise AssertionError(f"the fused path's launches in 10 steps: "
                              f"{counts}, expected k1 0, k1_sat 0, brackets "
                              f"10, k2_solve 10, k2_bio 10")
@@ -871,17 +919,18 @@ def fused_path(dtype, params, ctx):
             for part in ("solve", "bio")}
 
 
-def sat_bound(args, dtype, with_sat=True):
+def sat_bound(args, dtype, with_sat=True, seed=False):
     """(bound_ms, bound_by, bytes, operations, mean iterations) of K1's
     coefficient-and-saturation instance on ``args`` (its inputs): its
     fields read and written once over the HBM rate, against the
     constants', the saturation values' and the dual solve's operations
-    (iteration counts from the plain version) over the peak rate."""
+    (iteration counts from the plain version) over the peak rate;
+    ``seed``: of its seeded variant."""
     from ocean_bgc_tpu_torch.ops.carbonate import carbonate_coeffs
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import subsurface_of
     depth, temp, salt, *solve_args = args
     coeffs = carbonate_coeffs(depth, temp, salt, subsurface_of(depth))
-    ops, iters = solve_ops_of((*solve_args, coeffs))
+    ops, iters = solve_ops_of((*solve_args, coeffs), seed=seed)
     n = depth.numel()
     ops += n * (OPS_COEFFS + (OPS_SAT if with_sat else 0))
     n_out = SAT_FIELDS_OUT if with_sat else SAT_FIELDS_OUT - 2
@@ -1035,7 +1084,7 @@ def default_call(dtype, params, ctx):
     launches = counts["k1_sat"]
     log(f"default call {dtype}: 10 steps at {NLEV}x{NCOL} (diagnostics on, "
         f"no env cache) in {wall:.3f} s, launches {counts}")
-    if counts != dict(k1=0, k1_sat=10, brackets=10, k2_solve=0, k2_bio=0):
+    if counts != expected(k1_sat=10, brackets=10):
         raise AssertionError(f"the default call's launches in 10 steps: "
                              f"{counts}, expected k1 0, k1_sat 10, brackets "
                              f"10, k2_solve 0, k2_bio 0")
@@ -1057,7 +1106,7 @@ def default_call(dtype, params, ctx):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"diags on with the env cache {dtype}: launches {counts}")
-    if counts != dict(k1=10, k1_sat=0, brackets=10, k2_solve=0, k2_bio=0):
+    if counts != expected(k1=10, brackets=10):
         raise AssertionError(f"the diags-on env-on launches in 10 steps: "
                              f"{counts}, expected k1 10, k1_sat 0, brackets "
                              f"10, k2_solve 0, k2_bio 0")
@@ -1212,6 +1261,360 @@ def oracle_check(params):
         raise AssertionError("the step disagrees with the scalar oracle")
 
 
+def off_window(ph):
+    """``ph`` moved off its warm window, by +0.5 and -0.5 (more than
+    DEL_PH) on alternate cells, so that the seeded solve first grows its
+    bracket; 0 (no previous solution) kept."""
+    idx = torch.arange(ph.numel(), device=ph.device).view(ph.shape)
+    step = torch.where(idx % 2 == 0, 0.5, -0.5).to(ph.dtype)
+    return torch.where(ph != 0.0, ph + step, ph).contiguous()
+
+
+def iteration_stats(stats, warm):
+    """(mean, 99th percentile) of the per-problem iteration counts of
+    ``stats`` (one per scenario) over its problems where ``warm``."""
+    it = torch.cat([st["iters"][w].double() for st, w in zip(stats, warm)])
+    return it.mean().item(), torch.quantile(it, 0.99).item()
+
+
+def compare(label, got, want):
+    """Raise unless ``got`` and ``want`` (sequences of tensors) are
+    bitwise equal and finite; returns the max abs error (0)."""
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    n = sum(g.numel() for g in got)
+    log(f"{label}: {differ} of {n} output values differ from the seeded "
+        f"plain version (limit 0, bitwise), max abs error {err:.3g}, "
+        f"finite {finite}")
+    if differ or not finite or len(got) != len(want):
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def check_seeded(dtype, world, env, warm_state):
+    """Driver phase, part 1: K1's three seeded variants against their
+    seeded plain versions on cold, warm and off-window inputs (bitwise,
+    every output), then each one's time per launch on the warm inputs
+    (queued behind a device sleep), its plain version's time, its bound
+    (operations from the seeded plain version's iteration counts), and
+    the iterations per warm problem, seeded against unseeded.  Returns
+    {"dual", "sat", "brackets": the kernel entry's numbers}."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
+    from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs
+    from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
+    state, grid, forcing = world
+    name = str(dtype).split(".")[-1]
+    off = dataclasses.replace(warm_state, bgc=dataclasses.replace(
+        warm_state.bgc, surface_ph=off_window(warm_state.bgc.surface_ph),
+        surface_ph_alt=off_window(warm_state.bgc.surface_ph_alt),
+        ph_prev_3d=off_window(warm_state.bgc.ph_prev_3d),
+        ph_prev_alt_3d=off_window(warm_state.bgc.ph_prev_alt_3d)))
+    cases = (("cold", state), ("warm", warm_state), ("off-window", off))
+    res = {}
+
+    def report(key, label, ms, plain_ms, bnd, seeded_it, plain_it, err):
+        bound_ms, bound_by, nbytes, ops = bnd[:4]
+        log(f"{label} {name} warm: {ms:.4f} ms/launch, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.4f} Gop); iterations per "
+            f"warm problem: seeded mean {seeded_it[0]:.3f}, p99 "
+            f"{seeded_it[1]:.0f}; unseeded mean {plain_it[0]:.3f}, p99 "
+            f"{plain_it[1]:.0f}")
+        res[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+
+    # the cached-constants (dual) instance
+    for label, st in cases:
+        args = k1_inputs(st, grid, forcing, env)
+        got = cc.co3_terms_dual_coeffs(*args, seed=True, impl="kernel")
+        torch.cuda.synchronize()
+        want = cc.co3_terms_dual_coeffs_torch(*args, seed=True)
+        err = compare(f"K1 seeded {name} {label}", (*got[0], *got[1]),
+                      (*want[0], *want[1]))
+    args = k1_inputs(warm_state, grid, forcing, env)
+    fields = (*args[:6], *args[6])
+    ms = cuda_ms(lambda: cc._launch(fields, dtype, True), reps=20,
+                 device_only=True)
+    plain_ms = cuda_ms(lambda: cc.co3_terms_dual_coeffs_torch(
+        *args, seed=True), reps=1, warmup=1, rounds=3)
+    warm = (args[4] != 0.0, args[5] != 0.0)
+    its = [iteration_stats(cc.co3_terms_dual_coeffs_torch(
+        *args, with_stats=True, seed=sd)[2], warm) for sd in (True, False)]
+    report("dual", "K1 seeded", ms, plain_ms, k1_bound(args, dtype, True),
+           *its, err)
+
+    # the coefficient-and-saturation instance
+    for label, st in cases:
+        b = st.bgc
+        sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                 b.ph_prev_alt_3d)
+        got = cc.co3_terms_dual_sat(*sargs, seed=True, impl="kernel")
+        torch.cuda.synchronize()
+        want = cc.co3_terms_dual_sat_torch(*sargs, seed=True)
+        err = compare(f"K1 coefficient-and-saturation seeded {name} {label}",
+                      [x for part in got for x in part],
+                      [x for part in want for x in part])
+    b = warm_state.bgc
+    sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                             b.ph_prev_alt_3d)
+    ms = cuda_ms(lambda: cc._launch_sat(sargs, True, True), reps=20,
+                 device_only=True)
+    plain_ms = cuda_ms(lambda: cc.co3_terms_dual_sat_torch(
+        *sargs, seed=True), reps=1, warmup=1, rounds=3)
+    warm = (sargs[7] != 0.0, sargs[8] != 0.0)
+    its = [iteration_stats(cc.co3_terms_dual_sat_torch(
+        *sargs, seed=sd, with_stats=True)[3], warm) for sd in (True, False)]
+    report("sat", "K1 coefficient-and-saturation seeded", ms, plain_ms,
+           sat_bound(sargs, dtype, True, seed=True), *its, err)
+
+    # the bracket-in instance, on the surface pair
+    for label, st in cases:
+        largs = surface_lanes(st, forcing, seed=True)
+        got = cc.solve_htotal_brackets(*largs[:7], seed=largs[7],
+                                       impl="kernel")
+        torch.cuda.synchronize()
+        want = _solve_htotal_impl(*largs[:7], x0=largs[7])
+        err = compare(f"bracket-in K1 seeded {name} surface pair {label}",
+                      (got,), (want,))
+    largs = surface_lanes(warm_state, forcing, seed=True)
+    fields = dict(dic=largs[1], x1=largs[5], x2=largs[6], x0=largs[7],
+                  ta=largs[2], pt=largs[3], sit=largs[4],
+                  **largs[0]._asdict())
+    ms = cuda_ms(lambda: cc._launch_brackets(fields), reps=20,
+                 device_only=True)
+    plain_ms = cuda_ms(lambda: _solve_htotal_impl(*largs[:7], x0=largs[7]),
+                       reps=1, warmup=1, rounds=3)
+    warm = largs[7] > 0.0
+    its = [iteration_stats((_solve_htotal_impl(
+        *largs[:7], x0=largs[7] if sd else None, with_stats=True)[1],),
+        (warm,)) for sd in (True, False)]
+    report("brackets", "bracket-in K1 seeded (surface pair)", ms, plain_ms,
+           bracket_bound(largs, dtype), *its, err)
+    return res
+
+
+# the keys of the JAX driver's summary line (ocean_bgc_tpu/run_model.py:
+# 249-257; tests/test_torch_driver.py holds the port's to them)
+SUMMARY_KEYS = {"steps", "columns", "columns_per_s", "elapsed_s",
+                "final_checkpoint", "max_abs_Jint_Ctot", "finite"}
+HEALTH_TOTALS = {"health_solver_nonconverged_cells_total",
+                 "health_poc_error_cells_total"}
+# the forcing series' record spacing: 24 one-hour steps cross 3 records
+RECORD_DT = 8 * 3600.0
+
+
+def write_driver_files(tmp, world):
+    """The world file and a 3-record forcing series for the driver: the
+    world's forcing with T (and SST) shifted by 0, +0.5 and -0.5 C."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.io.model_io import save_world
+    from ocean_bgc_tpu_torch.models.forcing_series import (
+        save_forcing_series, stack_forcings)
+    state, grid, forcing = world
+    paths = (os.path.join(tmp, "world.nc"), os.path.join(tmp, "series.nc"))
+    save_world(paths[0], state, grid, forcing)
+    series = stack_forcings([dataclasses.replace(
+        forcing, potential_temperature=forcing.potential_temperature + dt,
+        sst=forcing.sst + dt) for dt in (0.0, 0.5, -0.5)])
+    save_forcing_series(paths[1], series, record_dt=RECORD_DT)
+    return paths
+
+
+def run_driver(label, argv, want_counts=None):
+    """``run_model.main(argv)`` with every launch counted; returns its
+    summary (its last line of output)."""
+    import contextlib
+    import io
+
+    from ocean_bgc_tpu_torch import run_model
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run_model.main([*argv, "--quiet"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"driver, {label}: rc {rc}, {wall:.1f} s; summary {summary}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    if rc != 0 or not summary["finite"] or not SUMMARY_KEYS <= set(summary):
+        raise AssertionError(f"driver run {label} failed: rc {rc}, "
+                             f"{summary}")
+    if want_counts is not None and counts != expected(**want_counts):
+        raise AssertionError(f"driver run {label}: launches {counts}, "
+                             f"expected {expected(**want_counts)}")
+    return summary
+
+
+def driver_phase(dtype, tmp, files, f64_only):
+    """Driver phase, part 2: ``python -m ocean_bgc_tpu_torch.run_model``
+    through ``run_model.main`` on the world file and the forcing series:
+    24 held-record steps with the solver seed, history of the 10-field
+    filter every 12 steps, checkpoints every 12 and health, its launches
+    counted; a resume from the step-12 checkpoint (bitwise the 24-step
+    run's final state); then (``f64_only``) linear interpolation, RK2, RK4,
+    no env cache, and each forcing's columns/s seeded and unseeded.
+    Returns the main run's launch counts."""
+    from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
+    from ocean_bgc_tpu_torch.utils.history import read_history
+    name = str(dtype).split(".")[-1]
+    world, series = files
+    fp = ["--fp32"] if dtype == torch.float32 else []
+    base = ["--world", world, *fp]
+    forced = [*base, "--forcing-series", series]
+    out_a, out_b = (os.path.join(tmp, f"{name}_{x}") for x in "ab")
+    hist = ["--history-every", "12", "--history-fields", ",".join(PROD_FILTER),
+            "--checkpoint-every", "12", "--health", "--solver-seed"]
+    # 24 steps cross 3 records: the env cache rebuilt 3 times (the stand-in
+    # solve on the unseeded bracket-in instance); each step's interior on
+    # the seeded cached-constants instance and its surface pair on the
+    # seeded bracket-in instance; the summary's closing step (no env
+    # cache, Jint_Ctot) one seeded coefficient-and-saturation launch and
+    # one seeded surface pair
+    main_counts = dict(k1_seeded=24, brackets_seeded=25, k1_sat_seeded=1,
+                       brackets=3)
+    a = run_driver(f"{name}, hold, seeded, 24 steps", [
+        *forced, "--interp", "hold", *hist, "--steps", "24", "--out", out_a,
+        "--save-world", os.path.join(out_a, "final.nc")], main_counts)
+    if not HEALTH_TOTALS <= set(a):
+        raise AssertionError("the driver's summary has no health totals")
+    for step_no in (12, 24):
+        means, count, _ = read_history(
+            os.path.join(out_a, f"hist_{step_no:06d}.npz"))
+        missing = set(PROD_FILTER) - set(means)
+        bad = [k for k, v in means.items() if not torch.isfinite(
+            torch.as_tensor(v)).all()]
+        log(f"driver, {name}: history at step {step_no}: {count} steps, "
+            f"fields {sorted(means)}, missing {sorted(missing)}, "
+            f"non-finite {bad}")
+        if count != 12 or missing or bad:
+            raise AssertionError("the driver's history is incomplete")
+    b = run_driver(f"{name}, resumed at step 12, 12 steps", [
+        *forced, "--interp", "hold", *hist, "--netcdf-history",
+        "--restore", os.path.join(out_a, "ck_000012"), "--steps", "12",
+        "--out", out_b])
+    if not os.path.exists(os.path.join(out_b, "hist_000024.nc")):
+        raise AssertionError("the resumed run wrote no NetCDF history")
+    sa, na = ckpt.restore(a["final_checkpoint"])
+    sb, nb = ckpt.restore(b["final_checkpoint"])
+    fields = ("tracers", "ph_prev_3d", "ph_prev_alt_3d", "surface_ph",
+              "surface_ph_alt")
+    differ = sum(int((getattr(sa.bgc, f) != getattr(sb.bgc, f)).sum())
+                 for f in fields)
+    differ += int((sa.dms != sb.dms).sum()) + int((sa.macros != sb.macros)
+                                                  .sum())
+    log(f"driver, {name}: 24 straight steps against 12 + restore + 12: "
+        f"{differ} values differ (limit 0, bitwise), steps {na} / {nb}")
+    if differ or na != 24 or nb != 24:
+        raise AssertionError("the resumed run differs from the straight one")
+    if not f64_only:
+        return main_counts
+    run_driver(f"{name}, linear, seeded, 6 steps", [
+        *forced, "--interp", "linear", "--solver-seed", "--steps", "6",
+        "--out", os.path.join(tmp, "linear")],
+        dict(k1_sat_seeded=7, brackets_seeded=7))
+    run_driver(f"{name}, rk2, seeded, 2 steps", [
+        *base, "--integrator", "rk2", "--solver-seed", "--steps", "2",
+        "--out", os.path.join(tmp, "rk2")],
+        dict(k1_seeded=4, brackets=1, brackets_seeded=5, k1_sat_seeded=1))
+    run_driver(f"{name}, rk4, seeded, 2 steps", [
+        *base, "--integrator", "rk4", "--solver-seed", "--steps", "2",
+        "--out", os.path.join(tmp, "rk4")],
+        dict(k1_seeded=8, brackets=1, brackets_seeded=9, k1_sat_seeded=1))
+    run_driver(f"{name}, no env cache, 2 steps", [
+        *base, "--no-env-cache", "--steps", "2", "--out",
+        os.path.join(tmp, "noenv")], dict(k1_sat=3, brackets=3))
+    for label, extra in (("constant forcing", base),
+                         ("hold", [*forced, "--interp", "hold"]),
+                         ("linear", [*forced, "--interp", "linear"])):
+        for seed in ([], ["--solver-seed"]):
+            run_driver(f"{name}, {label}, {'seeded' if seed else 'unseeded'}"
+                       f", 8 steps (columns/s)", [
+                           *extra, *seed, "--steps", "8", "--out",
+                           os.path.join(tmp, "rate")])
+    return main_counts
+
+
+def forced_runs(params, world, series_path):
+    """``run_forced`` under the forcing series with the env tables blended
+    between records (``env_mode="interp"``) and held per record
+    (``"hold"``), 6 steps each crossing a record: finite states."""
+    from ocean_bgc_tpu_torch.models.forcing_series import (
+        load_forcing_series, run_forced)
+    state, grid, _ = world
+    series, _ = load_forcing_series(series_path)
+    for interp, env_mode in (("linear", "interp"), ("hold", "hold")):
+        t0 = time.perf_counter()
+        final, _ = run_forced(state, grid, series, params, DT, 6, 3 * DT,
+                              interp=interp, env_mode=env_mode)
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(t).all()) for t in (
+            final.bgc.tracers, final.dms, final.macros))
+        log(f"run_forced (interp {interp!r}, env_mode {env_mode!r}), 6 f64 "
+            f"steps at {NLEV}x{NCOL}: {time.perf_counter() - t0:.2f} s, "
+            f"finite {ok}")
+        if not ok:
+            raise AssertionError(f"run_forced ({env_mode}) is not finite")
+
+
+def seed_qualification(params, ctx):
+    """Driver phase, part 3: TRAJ_STEPS seeded f64 steps against as many
+    unseeded ones from the same state (env cache, diagnostics off), inside
+    tests/test_x0_seed_trajectory.py's envelope: per tracer, 30 times the
+    response to a 1e-11 relative kick of the initial tracers plus 1e-3 of
+    the tracer's scale.  The unseeded run continues the main path's first
+    steps.  The seed must change the result."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.models.coupled import step
+    from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES
+    state0, grid, forcing = ctx["world"]
+    env, default = ctx["env"], ctx["after"]
+
+    def run(s, steps=TRAJ_STEPS):
+        for _ in range(steps):
+            s, _ = step(s, grid, forcing, params, DT, compute_diags=False,
+                        env=env)
+        return s.bgc.tracers
+
+    t0 = time.perf_counter()
+    os.environ["OBGC_X0_SEED"] = "1"
+    try:
+        reset_counts()
+        seeded = run(state0)
+        counts = read_counts()
+    finally:
+        del os.environ["OBGC_X0_SEED"]
+    if counts != expected(k1_seeded=TRAJ_STEPS, brackets_seeded=TRAJ_STEPS):
+        raise AssertionError(f"seeded steps' launches {counts}")
+    ref = run(default[-1], TRAJ_STEPS - len(default))
+    pert = dataclasses.replace(state0, bgc=dataclasses.replace(
+        state0.bgc, tracers=state0.bgc.tracers * (1.0 + 1e-11)))
+    yard = (run(pert) - ref).abs()
+    worst, fails = 0.0, []
+    for idx in range(len(BGC_TRACER_NAMES)):
+        mismatch = (seeded[:, idx] - ref[:, idx]).abs().max().item()
+        scale = ref[:, idx].abs().max().item() + 1e-30
+        limit = 30.0 * yard[:, idx].max().item() + 1e-3 * scale + 1e-12
+        worst = max(worst, mismatch / limit)
+        if not mismatch <= limit:
+            fails.append(f"{BGC_TRACER_NAMES[idx]} {mismatch:.3e} > "
+                         f"{limit:.3e}")
+    changed = not torch.equal(seeded, ref)
+    log(f"seed qualification f64: {TRAJ_STEPS} seeded vs unseeded steps at "
+        f"{NLEV}x{NCOL}: worst mismatch / envelope {worst:.3g} (limit 1), "
+        f"the seed changed the tracers {changed}, finite "
+        f"{bool(torch.isfinite(seeded).all())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if fails or not changed or not torch.isfinite(seeded).all():
+        raise AssertionError(f"seeded trajectory outside the envelope, or "
+                             f"the seed had no effect: {fails}")
+
+
 def big_step(params):
     """Phase 6: one f64 step of each interior at 60 x NCOL_BIG columns,
     timed on its first call, with its peak device memory."""
@@ -1241,6 +1644,57 @@ def big_step(params):
             raise AssertionError(f"non-finite state after the big f64 "
                                  f"step ({impl})")
         del out
+    del env
+    chunked_step(params, state, grid, forcing)
+
+
+def chunked_step(params, state, grid, forcing):
+    """Driver phase, part 4: one step of the big world streamed through
+    the card in column chunks of CHUNK from pinned host memory
+    (``step_chunked``) against the unchunked step (both without an env
+    cache, diagnostics off, as the JAX package's chunked driver steps):
+    the count of differing values (columns never interact, so 0 is
+    expected and required), the wall times and the peak device memory."""
+    from ocean_bgc_tpu_torch.models.chunked import host_world_like, step_chunked
+    from ocean_bgc_tpu_torch.models.coupled import step
+    def peak_above(base):
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    want, _ = step(state, grid, forcing, params, DT, compute_diags=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = peak_above(base)
+    host = host_world_like(state, grid, forcing)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = step_chunked(*host, params, DT, chunk=CHUNK)
+    wall_chunked = time.perf_counter() - t0
+    peak_chunked = peak_above(base)
+    differ, total, where = 0, 0, []
+    pairs = [(f, getattr(got.bgc, f), getattr(want.bgc, f)) for f in (
+        "tracers", "ph_prev_3d", "ph_prev_alt_3d", "surface_ph",
+        "surface_ph_alt")] + [("dms", got.dms, want.dms),
+                              ("macros", got.macros, want.macros)]
+    for f, g, w in pairs:
+        n = int((g != w.cpu()).sum())
+        differ, total = differ + n, total + g.numel()
+        if n:
+            where.append(f"{f} {n}")
+    log(f"chunked f64 step at {NLEV}x{NCOL_BIG}, chunks of {CHUNK} columns "
+        f"from pinned host memory: {differ} of {total} values differ from "
+        f"the unchunked step ({where or 'none'}; limit 0), "
+        f"{wall_chunked:.3f} s with a peak of {peak_chunked:.2f} GB of device "
+        f"memory above what was resident, unchunked {wall:.3f} s (first "
+        f"call) with {peak:.2f} GB above the resident world")
+    if differ:
+        raise AssertionError("the chunked step differs from the unchunked "
+                             "one")
 
 
 def main():
@@ -1266,12 +1720,35 @@ def main():
     params = ModelParams()
     oracle_check(params)
     kernels = []
+    tmp = tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR)
+    files = None
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split('.')[-1]
         k1, kb, ctx = main_path(dtype, params)
         k2 = fused_path(dtype, params, ctx)
         ksat = default_call(dtype, params, ctx)
+        t0 = time.perf_counter()
+        seeded = check_seeded(dtype, ctx["world"], ctx["env"], ctx["warm"])
+        if files is None:     # the f64 world, loaded at f32 with --fp32
+            files = write_driver_files(tmp.name, ctx["world"])
+        f64 = dtype == torch.float64
+        counts = driver_phase(dtype, tmp.name, files, f64_only=f64)
+        if f64:
+            forced_runs(params, ctx["world"], files[1])
+            seed_qualification(params, ctx)
+        log(f"driver phase {name}: {time.perf_counter() - t0:.1f} s")
         del ctx
+        for kname, key, k in (
+                ("carbonate_dual seeded", "k1_seeded", seeded["dual"]),
+                ("solve_htotal_brackets seeded", "brackets_seeded",
+                 seeded["brackets"]),
+                ("carbonate_dual_sat seeded", "k1_sat_seeded",
+                 seeded["sat"])):
+            kernels.append(dict(
+                name=f"{kname} ({name})", route="cuda",
+                source="ocean_bgc_tpu_torch/csrc/carbonate_dual.cu",
+                replaces="ocean_bgc_tpu/ops/pallas_carbonate.py:63",
+                launches=counts.get(key, 0), library_ms=None, **k))
         for kname, src, tpu, k in (
                 ("carbonate_dual", "carbonate_dual.cu",
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", k1),
@@ -1295,6 +1772,7 @@ def main():
         source="ocean_bgc_tpu_torch/csrc/probe_patterns.cu",
         replaces="scripts/probe_mosaic.py:35", library_ms=None, **p))
     big_step(params)
+    tmp.cleanup()
 
     log(card)
     log(json.dumps({"kernels": kernels}))

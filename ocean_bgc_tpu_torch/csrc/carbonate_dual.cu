@@ -1,4 +1,5 @@
-// K1: the pH solve, CUDA C++ for Hopper (sm_90a), in three instances.
+// K1: the pH solve, CUDA C++ for Hopper (sm_90a), in three instances, each
+// with an unseeded and a seeded variant.
 //
 // Replaces the Pallas TPU kernel
 //   ocean_bgc_tpu/ops/pallas_carbonate.py::_carbonate_kernel (:63).
@@ -62,6 +63,21 @@
 // per column and writes one per lane (~1.7 MB at f64 for 8192 columns):
 // it is bound by its launch and its slowest lanes, not by the card's
 // rates.
+//
+// Seeded variants.  The TPU kernel's static x0_seed variant (launched
+// under OBGC_X0_SEED=1) starts each problem's iteration at the previous
+// root, clamped into the problem's bracket after bracket growth, instead
+// of at the bracket midpoint: most warm problems then converge in one
+// step instead of two or three.  Each instance here has that variant as
+// a template argument of its lane source, so the unseeded variants
+// compile to the code they had before.  The interior instances recover
+// the seed from the pH-space window as the TPU kernel does (x0_of,
+// carbonate_solve.cuh::ph_seed): H at the window's midpoint where the
+// window is warm (narrower than 1), else none; the bracket-in instance
+// reads it as one more per-lane field (the surface pair's previous root,
+// ops/carbonate.py::warm_brackets_h(with_seed=True)).  The seed costs one
+// exp per problem and one per-lane field read, and saves residual
+// evaluations, so the bounds above still hold for it.
 
 #include <cuda_runtime.h>
 
@@ -81,7 +97,7 @@ constexpr int kThreads = 256;
 // Write the speciation of problem s.part of lane i (the ambient scenario
 // into out[0..3], ALT_CO2 into out[4..7]) and, after the ambient one, set
 // up the ALT_CO2 problem; true once both are written.
-template <typename T>
+template <bool Seed, typename T>
 __device__ __forceinline__ bool finish_dual(T* const* out, int64_t i,
                                             Lane<T>& s) {
   const T h = s.soln;
@@ -98,11 +114,13 @@ __device__ __forceinline__ bool finish_dual(T* const* out, int64_t i,
   if (s.part == 1) return true;
   s.part = 1;
   ph_bracket(s.ph_alt, s.x1, s.x2);
+  if constexpr (Seed) s.x0 = ph_seed(s.ph_alt);
   return false;
 }
 
-template <typename T>
+template <typename T, bool Seed>
 struct DualLanes {
+  static constexpr bool kSeed = Seed;
   // dic, ta, pt, sit (mmol/m^3), ph_prev_a, ph_prev_b, then the 15
   // coefficients in CarbCoeffs order
   const T* in[kNumIn];
@@ -118,12 +136,14 @@ struct DualLanes {
     s.dic = m.dic;
     s.ph_alt = in[5][i];
     s.part = 0;
-    ph_bracket(in[4][i], s.x1, s.x2);
+    const T ph_prev = in[4][i];
+    ph_bracket(ph_prev, s.x1, s.x2);
+    if constexpr (Seed) s.x0 = ph_seed(ph_prev);
     return true;
   }
 
   __device__ __forceinline__ bool finish(int64_t i, Lane<T>& s) const {
-    return finish_dual(out, i, s);
+    return finish_dual<Seed>(out, i, s);
   }
 };
 
@@ -144,8 +164,9 @@ enum SatField : int {
 };
 constexpr int kNumSatOut = kNumOut + 2;
 
-template <typename T>
+template <typename T, bool Seed>
 struct DualSatLanes {
+  static constexpr bool kSeed = Seed;
   const T* in[S_COUNT];
   // DualLanes' 8 outputs, then co3_sat_calc, co3_sat_arag
   T* out[kNumSatOut];
@@ -166,12 +187,14 @@ struct DualSatLanes {
     s.dic = m.dic;
     s.ph_alt = in[S_ph_prev_b][i];
     s.part = 0;
-    ph_bracket(in[S_ph_prev_a][i], s.x1, s.x2);
+    const T ph_prev = in[S_ph_prev_a][i];
+    ph_bracket(ph_prev, s.x1, s.x2);
+    if constexpr (Seed) s.x0 = ph_seed(ph_prev);
     return true;
   }
 
   __device__ __forceinline__ bool finish(int64_t i, Lane<T>& s) const {
-    if (!finish_dual(out, i, s)) return false;
+    if (!finish_dual<Seed>(out, i, s)) return false;
     if (with_sat) {
       co3_sat_vals(in[S_depth][i], in[S_temp][i], in[S_salt][i],
                    pressure(i), out[8][i], out[9][i]);
@@ -182,12 +205,14 @@ struct DualSatLanes {
 
 // The bracket-in instance's pointers, in the order of
 // ops/cuda_carbonate.py::BRACKET_FIELDS (tests/test_torch_carbonate.py
-// holds the two equal): per lane dic, x1, x2; per shared element ta, pt,
-// sit and the 15 constants; the output H per lane.
+// holds the two equal): per lane dic, x1, x2 and the seed x0 (read by the
+// seeded variant only); per shared element ta, pt, sit and the 15
+// constants; the output H per lane.
 enum BracketField : int {
   B_dic,
   B_x1,
   B_x2,
+  B_x0,
   B_ta,
   B_pt,
   B_sit,
@@ -210,8 +235,9 @@ enum BracketField : int {
   B_COUNT
 };
 
-template <typename T>
+template <typename T, bool Seed>
 struct BracketLanes {
+  static constexpr bool kSeed = Seed;
   const T* in[B_h];
   T* h;
   int64_t m;   // elements of each shared field
@@ -226,6 +252,7 @@ struct BracketLanes {
     s.part = 0;
     s.x1 = in[B_x1][l];
     s.x2 = in[B_x2][l];
+    if constexpr (Seed) s.x0 = in[B_x0][l];
     return true;
   }
 
@@ -238,7 +265,7 @@ struct BracketLanes {
 template <typename T, typename Src>
 __global__ void __launch_bounds__(kThreads)
     lanes_kernel(Src src, int64_t n) {
-  solve_lanes<T>(src, n);
+  solve_lanes<T, Src::kSeed>(src, n);
 }
 
 template <typename T, typename Src>
@@ -248,19 +275,19 @@ int launch(const Src& src, int64_t n, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool Seed>
 int launch_dual(const void* const* ins, void* const* outs, int64_t n,
                 cudaStream_t stream) {
-  DualLanes<T> src;
+  DualLanes<T, Seed> src;
   for (int j = 0; j < kNumIn; ++j) src.in[j] = static_cast<const T*>(ins[j]);
   for (int j = 0; j < kNumOut; ++j) src.out[j] = static_cast<T*>(outs[j]);
   return launch<T>(src, n, stream);
 }
 
-template <typename T>
+template <typename T, bool Seed>
 int launch_dual_sat(const void* const* ins, void* const* outs, int64_t n,
                     int64_t ncol, bool with_sat, cudaStream_t stream) {
-  DualSatLanes<T> src;
+  DualSatLanes<T, Seed> src;
   for (int j = 0; j < S_COUNT; ++j) src.in[j] = static_cast<const T*>(ins[j]);
   for (int j = 0; j < kNumSatOut; ++j) {
     src.out[j] = j < kNumOut || with_sat ? static_cast<T*>(outs[j]) : nullptr;
@@ -270,10 +297,10 @@ int launch_dual_sat(const void* const* ins, void* const* outs, int64_t n,
   return launch<T>(src, n, stream);
 }
 
-template <typename T>
+template <typename T, bool Seed>
 int launch_brackets(void* const* fields, int64_t n, int64_t m,
                     cudaStream_t stream) {
-  BracketLanes<T> src;
+  BracketLanes<T, Seed> src;
   for (int j = 0; j < B_h; ++j) src.in[j] = static_cast<const T*>(fields[j]);
   src.h = static_cast<T*>(fields[B_h]);
   src.m = m;
@@ -284,48 +311,61 @@ int launch_brackets(void* const* fields, int64_t n, int64_t m,
 }  // namespace obgc
 
 // Plain C interface for ctypes.  All floating arrays are contiguous and of
-// one type (double if ``is_double``, else float).  Each launches on
-// ``stream`` and returns cudaGetLastError() (0 on success).
+// one type (double if ``is_double``, else float).  ``seed`` picks the
+// seeded variant.  Each launches on ``stream`` and returns
+// cudaGetLastError() (0 on success).
 
 // The dual instance: ``ins`` holds 21 device pointers and ``outs`` 8,
 // each of ``n`` elements.
-extern "C" int obgc_carbonate_dual(int is_double, const void* const* ins,
-                                   void* const* outs, long long n,
-                                   void* stream) {
+extern "C" int obgc_carbonate_dual(int is_double, int seed,
+                                   const void* const* ins, void* const* outs,
+                                   long long n, void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) return obgc::launch_dual<double>(ins, outs, n, s);
-  return obgc::launch_dual<float>(ins, outs, n, s);
+  if (is_double) {
+    return seed ? obgc::launch_dual<double, true>(ins, outs, n, s)
+                : obgc::launch_dual<double, false>(ins, outs, n, s);
+  }
+  return seed ? obgc::launch_dual<float, true>(ins, outs, n, s)
+              : obgc::launch_dual<float, false>(ins, outs, n, s);
 }
 
 // The coefficient-and-saturation instance: ``ins`` holds the
 // obgc::SatField pointers and ``outs`` 10 (8 if not ``with_sat``), each of
 // ``n`` elements laid out (levels, ``ncol``).
-extern "C" int obgc_carbonate_dual_sat(int is_double, const void* const* ins,
+extern "C" int obgc_carbonate_dual_sat(int is_double, int seed,
+                                       const void* const* ins,
                                        void* const* outs, long long n,
                                        long long ncol, int with_sat,
                                        void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  const bool w = with_sat != 0;
   if (is_double) {
-    return obgc::launch_dual_sat<double>(ins, outs, n, ncol, with_sat != 0,
-                                         s);
+    return seed ? obgc::launch_dual_sat<double, true>(ins, outs, n, ncol, w, s)
+                : obgc::launch_dual_sat<double, false>(ins, outs, n, ncol, w,
+                                                       s);
   }
-  return obgc::launch_dual_sat<float>(ins, outs, n, ncol, with_sat != 0, s);
+  return seed ? obgc::launch_dual_sat<float, true>(ins, outs, n, ncol, w, s)
+              : obgc::launch_dual_sat<float, false>(ins, outs, n, ncol, w, s);
 }
 
 extern "C" int obgc_sat_num_fields() { return obgc::S_COUNT; }
 
 // The bracket-in instance: ``fields`` holds the obgc::BracketField
-// pointers; per-lane fields have ``n`` elements, shared ones ``m``, and
-// ``m`` divides ``n``.
-extern "C" int obgc_solve_htotal_brackets(int is_double, void* const* fields,
-                                          long long n, long long m,
-                                          void* stream) {
+// pointers (x0 may be null unless ``seed``); per-lane fields have ``n``
+// elements, shared ones ``m``, and ``m`` divides ``n``.
+extern "C" int obgc_solve_htotal_brackets(int is_double, int seed,
+                                          void* const* fields, long long n,
+                                          long long m, void* stream) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) return obgc::launch_brackets<double>(fields, n, m, s);
-  return obgc::launch_brackets<float>(fields, n, m, s);
+  if (is_double) {
+    return seed ? obgc::launch_brackets<double, true>(fields, n, m, s)
+                : obgc::launch_brackets<double, false>(fields, n, m, s);
+  }
+  return seed ? obgc::launch_brackets<float, true>(fields, n, m, s)
+              : obgc::launch_brackets<float, false>(fields, n, m, s);
 }
 
 extern "C" int obgc_brackets_num_fields() { return obgc::B_COUNT; }

@@ -180,9 +180,13 @@ __device__ __forceinline__ bool not_bracketed(T flo, T fhi) {
 }
 
 // One problem of ops/carbonate.py::_solve_htotal_impl, start to end in
-// one thread.
-template <typename T>
-__device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc) {
+// one thread.  ``Seed``: the opt-in iteration seed (x0_seed_enabled) —
+// a problem with x0 > 0 starts at x0 clamped into its oriented bracket
+// instead of the midpoint; without it x0 is not read and the routine is
+// the unseeded one.
+template <typename T, bool Seed = false>
+__device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc,
+                          T x0 = T(0)) {
   T flo, fhi, unused;
   talk(t, x1, flo, unused);
   talk(t, x2, fhi, unused);
@@ -199,6 +203,14 @@ __device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc) {
   T xhi = neg_at_x1 ? x2 : x1;
 
   T soln = T(0.5) * (xlo + xhi);
+  if constexpr (Seed) {
+    if (x0 > T(0)) {
+      // torch.clamp(x0, torch.minimum(xlo, xhi), torch.maximum(xlo, xhi))
+      const T lo = xlo < xhi ? xlo : xhi;
+      const T hi = xlo < xhi ? xhi : xlo;
+      soln = x0 < lo ? lo : (x0 > hi ? hi : x0);
+    }
+  }
   T dxold = m_abs(xlo - xhi);
   T dx = dxold;
   T f, df;
@@ -247,6 +259,20 @@ __device__ __forceinline__ void ph_bracket(T ph_prev, T& x1, T& x2) {
   x2 = m_exp(T(-cst::LN10) * phlo);
 }
 
+// The iteration seed of that bracket, as the TPU kernel recovers it
+// (ocean_bgc_tpu/ops/pallas_carbonate.py::x0_of, :87-97): H at the
+// pH-space window's midpoint where the window is narrower than 1 (a warm
+// window, whose midpoint is the previous pH), else the 0 sentinel
+// (ops/cuda_carbonate.py::_ph_brackets).
+template <typename T>
+__device__ __forceinline__ T ph_seed(T ph_prev) {
+  const bool warm = ph_prev != T(0);
+  const T phlo = warm ? ph_prev - T(cst::DEL_PH) : T(cst::PHLO_3D_INIT);
+  const T phhi = warm ? ph_prev + T(cst::DEL_PH) : T(cst::PHHI_3D_INIT);
+  const T mid = T(0.5) * (phlo + phhi);
+  return (phhi - phlo) < T(1) ? m_exp(T(-cst::LN10) * mid) : T(0);
+}
+
 // ---- lanes over the threads of a grid, one per thread
 //
 // A lane is one cell's problems (or one problem); each thread solves its
@@ -266,12 +292,15 @@ struct Lane {
   TalkTerms<T> t;
   T dic;                          // mol/kg, for the speciation
   T x1, x2, soln;                 // the problem's bracket and root
+  T x0;                           // its iteration seed (seeded sources)
   int part;                       // which of a lane's problems (scenario)
   T ph_alt;                       // the second scenario's previous pH
 };
 
 // Solve lanes [0, n), one per thread of the grid (strided past the grid).
-template <typename T, typename Src>
+// ``Seed``: each problem starts from its seed s.x0, which the source sets
+// (solve_htotal); unseeded sources leave it unset and unread.
+template <typename T, bool Seed = false, typename Src>
 __device__ __forceinline__ void solve_lanes(const Src& src, int64_t n) {
   const T xacc = solver_xacc<T>();
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -281,7 +310,11 @@ __device__ __forceinline__ void solve_lanes(const Src& src, int64_t n) {
     Lane<T> s;
     if (!src.begin(lane, s)) continue;
     do {
-      s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
+      if constexpr (Seed) {
+        s.soln = solve_htotal<T, true>(s.t, s.x1, s.x2, xacc, s.x0);
+      } else {
+        s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
+      }
     } while (!src.finish(lane, s));
   }
 }

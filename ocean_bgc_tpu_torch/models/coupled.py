@@ -240,20 +240,25 @@ def evaluate_tendencies(
     return tend, diags
 
 
-def apply_update(state: CoupledState, tend: CoupledTendencies,
-                 dt) -> CoupledState:
-    """state + dt * tendency (forward Euler), carrying the pH warm-start
-    fields from the given tendency evaluation."""
+def apply_update(state: CoupledState, tend: CoupledTendencies, dt, *,
+                 bgc_incr=None, dms_incr=None,
+                 macros_incr=None) -> CoupledState:
+    """state + dt * increment, carrying the pH warm-start fields from the
+    given tendency evaluation.  The increments default to the tendency
+    fields (forward Euler); the integrators (``models/integrators.py``)
+    pass combined stage sums."""
     return CoupledState(
         bgc=BGCState(
-            tracers=state.bgc.tracers + dt * tend.bgc,
+            tracers=state.bgc.tracers
+            + dt * (tend.bgc if bgc_incr is None else bgc_incr),
             ph_prev_3d=tend.ph_prev_3d,
             ph_prev_alt_3d=tend.ph_prev_alt_3d,
             surface_ph=tend.surface_ph,
             surface_ph_alt=tend.surface_ph_alt,
         ),
-        dms=state.dms + dt * tend.dms,
-        macros=state.macros + dt * tend.macros,
+        dms=state.dms + dt * (tend.dms if dms_incr is None else dms_incr),
+        macros=state.macros
+        + dt * (tend.macros if macros_incr is None else macros_incr),
     )
 
 

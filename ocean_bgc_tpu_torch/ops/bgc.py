@@ -35,6 +35,7 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     co3_sat_vals,
     solver_xacc,
     talk,
+    x0_seed_enabled,
 )
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     co3_terms_dual_coeffs,
@@ -977,6 +978,7 @@ def bgc_source_sink(
     carbonate_impl: str = "auto",
     env: Optional[EnvCache] = None,
     health: bool = False,
+    x0_seed: Optional[bool] = None,
 ) -> BGCSourceSinkOut:
     """Tendencies (1/s units of each tracer), updated pH state, and the
     diagnostics (an empty dict with ``compute_diags=False``).
@@ -993,6 +995,12 @@ def bgc_source_sink(
     ``health``: also return :class:`StepHealth`, at the cost of one
     alkalinity residual per cell (and, without an env cache, the
     equilibrium constants in torch).
+
+    ``x0_seed``: seed the pH solve at the previous root (K1's seeded
+    variant); None reads ``OBGC_X0_SEED`` (``ops/carbonate.py::
+    x0_seed_enabled``).  Inactive cells are seeded from the stand-in root
+    their window is centred on (``env.standin_ph``), as the JAX package
+    seeds them (bgc.py:1180-1183, :1242-1247).
     """
     nlev = tracers.shape[0]
     active = grid.active_mask()                          # (nlev, ncol)
@@ -1021,15 +1029,16 @@ def bgc_source_sink(
     # the saturation values feed only diagnostics.
     args = carbonate_inputs(tracers, grid, forcing, ph_prev_3d,
                             ph_prev_alt_3d, env)
+    seed = x0_seed_enabled() if x0_seed is None else x0_seed
     if env is not None:
         ((ph_3d, h2co3, hco3, co3),
          (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt)) = co3_terms_dual_coeffs(
-            *args, impl=carbonate_impl)
+            *args, seed=seed, impl=carbonate_impl)
         sat = (env.co3_sat_calc, env.co3_sat_arag)
     else:
         ((ph_3d, h2co3, hco3, co3),
          (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt), sat) = co3_terms_dual_sat(
-            *args, with_sat=compute_diags, impl=carbonate_impl)
+            *args, with_sat=compute_diags, seed=seed, impl=carbonate_impl)
 
     ph_new = torch.where(active, ph_3d, ph_prev_3d)
     ph_alt_new = torch.where(active, ph_3d_alt, ph_prev_alt_3d)

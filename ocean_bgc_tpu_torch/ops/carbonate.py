@@ -16,6 +16,7 @@ docstring of :func:`talk` says why.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -59,6 +60,17 @@ class CarbCoeffs(NamedTuple):
     bt: torch.Tensor      # total borate
     st: torch.Tensor      # total sulfate
     ft: torch.Tensor      # total fluoride
+
+
+def x0_seed_enabled() -> bool:
+    """``OBGC_X0_SEED=1`` opts into seeding the solver iteration at the
+    previous step's root instead of the reference's bracket midpoint
+    (ocean_bgc_tpu/ops/carbonate.py::x0_seed_enabled): ~1 warm iteration
+    instead of 2-3, the same root to solver tolerance but not the
+    reference's iterate sequence, so not the bitwise contract path.  Read
+    at every call (the port runs eagerly; the JAX package reads it when
+    it traces)."""
+    return os.environ.get("OBGC_X0_SEED", "0") == "1"
 
 
 def solver_xacc(dtype: torch.dtype) -> float:
@@ -291,7 +303,7 @@ def talk(coeffs: CarbCoeffs, dic, ta, pt, sit, x):
 
 
 def _solve_htotal_impl(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
-                       with_stats=False):
+                       with_stats=False, x0=None):
     """Lane-parallel bracketed safe-Newton root-find for htotal
     (drtsafe_row, co2calc.F90:872-997), with per-lane freezing.
 
@@ -306,6 +318,12 @@ def _solve_htotal_impl(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
     ``with_stats``: also return per-lane counts, as a dict with
     ``iters`` (Newton/bisection steps), ``grows`` (bracket growth steps)
     and ``converged`` (bool) — for measuring work and monitoring.
+
+    ``x0``: the opt-in iteration seed (:func:`x0_seed_enabled`), the
+    previous root per lane (0 = none): a lane with ``x0 > 0`` starts at
+    ``x0`` clamped into its oriented (possibly grown) bracket instead of
+    the bracket midpoint (JAX carbonate.py:531-547); the bracket phase
+    and ``dxold`` are those of the unseeded solve.
     """
     shape = torch.broadcast_shapes(x1.shape, x2.shape)
     x1 = x1.expand(shape)
@@ -338,6 +356,11 @@ def _solve_htotal_impl(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
     xhi = torch.where(neg_at_x1, x2, x1)
 
     soln = 0.5 * (xlo + xhi)
+    if x0 is not None:
+        x0 = x0.expand(shape)
+        soln = torch.where(x0 > 0.0, torch.clamp(x0, torch.minimum(xlo, xhi),
+                                                 torch.maximum(xlo, xhi)),
+                           soln)
     dxold = torch.abs(xlo - xhi)
     dx = dxold
     f, df = f_of(soln)
@@ -389,14 +412,18 @@ def _to_mass_units(dic_in, ta_in, pt_in, sit_in):
     return dic, ta, pt, sit
 
 
-def warm_brackets_h(ph_prev, lo_init, hi_init, del_ph):
+def warm_brackets_h(ph_prev, lo_init, hi_init, del_ph, with_seed=False):
     """H-space solver brackets: ph_prev -/+ del_ph where ph_prev != 0
     (BGC_mod.F90:943-956), with one pow per cell; lanes with the 0
-    sentinel take the wide bracket [10**-hi_init, 10**-lo_init]."""
+    sentinel take the wide bracket [10**-hi_init, 10**-lo_init].
+    ``with_seed``: also return the previous root itself, the iteration
+    seed (0 on cold lanes), as a third element."""
     warm = ph_prev != 0.0
     h_prev = torch.pow(10.0, -torch.where(warm, ph_prev, 8.0))
     x1 = torch.where(warm, h_prev * (10.0 ** -del_ph), 10.0 ** -hi_init)
     x2 = torch.where(warm, h_prev * (10.0 ** del_ph), 10.0 ** -lo_init)
+    if with_seed:
+        return x1, x2, torch.where(warm, h_prev, 0.0)
     return x1, x2
 
 
@@ -409,7 +436,8 @@ def co2calc_surface_dual(depth_m, temp, salt, dic_a, dic_b, ta_in, pt_in,
     coefficients, DIC/xCO2/bracket differing per scenario, one stacked
     solve.  ``brackets_a``/``brackets_b`` give H-space ``(x1, x2)``
     directly (:func:`warm_brackets_h`), and the phlo/phhi arguments are
-    then ignored.  ``impl`` picks the solve as
+    then ignored; ``(x1, x2, x0)`` (``with_seed=True``) also seeds the
+    iteration at ``x0`` (:func:`x0_seed_enabled`).  ``impl`` picks the solve as
     ``ops/cuda_carbonate.py::solve_htotal_brackets`` does: its kernel on
     CUDA tensors ("auto", "kernel") or :func:`_solve_htotal_impl`
     ("torch", or CPU tensors); the two scenarios' lanes read the shared
@@ -430,8 +458,12 @@ def co2calc_surface_dual(depth_m, temp, salt, dic_a, dic_b, ta_in, pt_in,
         brackets_b = (torch.pow(10.0, -phhi_b), torch.pow(10.0, -phlo_b))
     x1 = torch.stack([brackets_a[0].expand(shp), brackets_b[0].expand(shp)])
     x2 = torch.stack([brackets_a[1].expand(shp), brackets_b[1].expand(shp)])
+    seed = None
+    if len(brackets_a) == 3:
+        seed = torch.stack([brackets_a[2].expand(shp),
+                            brackets_b[2].expand(shp)])
     htotal = solve_htotal_brackets(coeffs, dic, ta, pt, sit, x1, x2,
-                                   impl=impl)
+                                   seed=seed, impl=impl)
 
     xco2 = torch.stack([xco2_a.expand(shp), xco2_b.expand(shp)]) * 1e-6
     htotal2 = htotal * htotal

@@ -23,8 +23,16 @@ Counterpart of ``ocean_bgc_tpu/ops/pallas_carbonate.py``.
 Each launches ``csrc/carbonate_dual.cu`` for CUDA tensors and takes its
 plain version for CPU tensors, or wherever the caller asks for
 ``impl="torch"``.  A CUDA tensor never falls back to the plain version.
-Both instances run their lanes (``csrc/carbonate_solve.cuh``) one per
-thread, and neither makes a host synchronisation.
+Every instance runs its lanes (``csrc/carbonate_solve.cuh``) one per
+thread, and none makes a host synchronisation.
+
+Each instance also has the TPU kernel's seeded variant (``x0_seed``,
+``OBGC_X0_SEED=1``; ``ops/carbonate.py::x0_seed_enabled``), selected by
+its ``seed`` argument: every problem's iteration starts at the previous
+root, clamped into its bracket, instead of the bracket midpoint.  The
+interior instances recover the seed from the pH window
+(:func:`_ph_brackets`), the bracket-in instance takes it per lane.  A
+wrapper counts its seeded launches apart, in ``.seeded_launches``.
 """
 
 from __future__ import annotations
@@ -53,8 +61,8 @@ IMPLS = ("auto", "kernel", "torch")
 # The bracket-in instance's pointer arguments, in the order of the enum
 # BracketField in csrc/carbonate_dual.cu (tests/test_torch_carbonate.py
 # holds the two equal): per lane, per shared element, then the output.
-BRACKET_FIELDS = ("dic", "x1", "x2", "ta", "pt", "sit", *CarbCoeffs._fields,
-                  "h")
+BRACKET_FIELDS = ("dic", "x1", "x2", "x0", "ta", "pt", "sit",
+                  *CarbCoeffs._fields, "h")
 # The coefficient-and-saturation instance's inputs, in the order of the
 # enum SatField in csrc/carbonate_dual.cu (tests/test_torch_carbonate.py
 # holds the two equal).
@@ -72,27 +80,37 @@ def _speciate(h, dic, coeffs):
             dic * k12 * denom * MASS_TO_VOL)
 
 
-def _ph_brackets(ph_prev):
+def _ph_brackets(ph_prev, seed=False):
     """H-space bracket (x1, x2) of one scenario, as the kernel builds it:
     pH-space ph_prev -/+ DEL_PH (the cold [6, 9] window at the 0
-    sentinel), each end converted with one exp."""
+    sentinel), each end converted with one exp.  ``seed``: also the
+    iteration seed as the TPU kernel recovers it (``x0_of``,
+    pallas_carbonate.py:87-97): H at the window's pH midpoint where the
+    window is narrower than 1 (warm), else 0."""
     warm = ph_prev != 0.0
     phlo = torch.where(warm, ph_prev - DEL_PH, PHLO_3D_INIT)
     phhi = torch.where(warm, ph_prev + DEL_PH, PHHI_3D_INIT)
-    return torch.exp(-_LN10 * phhi), torch.exp(-_LN10 * phlo)
+    x1, x2 = torch.exp(-_LN10 * phhi), torch.exp(-_LN10 * phlo)
+    if not seed:
+        return x1, x2
+    mid = 0.5 * (phlo + phhi)
+    return x1, x2, torch.where((phhi - phlo) < 1.0, torch.exp(-_LN10 * mid),
+                               0.0)
 
 
 def co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
-                                coeffs: CarbCoeffs, *, with_stats=False):
+                                coeffs: CarbCoeffs, *, with_stats=False,
+                                seed=False):
     """The plain PyTorch version of K1 (same arguments and results as
     :func:`co3_terms_dual_coeffs`).  ``with_stats`` adds the solver's
     per-lane counts of each scenario (``_solve_htotal_impl``)."""
     dic_m, ta_m, pt_m, sit_m = _to_mass_units(dic, ta, pt, sit)
     results, stats = [], []
     for ph_prev in (ph_prev_a, ph_prev_b):
-        x1, x2 = _ph_brackets(ph_prev)
+        x1, x2, *x0 = _ph_brackets(ph_prev, seed)
         h = _solve_htotal_impl(coeffs, dic_m, ta_m, pt_m, sit_m, x1, x2,
-                               with_stats=with_stats)
+                               with_stats=with_stats,
+                               x0=x0[0] if seed else None)
         if with_stats:
             h, st = h
             stats.append(st)
@@ -129,10 +147,11 @@ def _check_kernel_inputs(kernel, ref, fields):
                 f"contiguous={t.is_contiguous()}")
 
 
-def _launch(fields, out_dtype):
+def _launch(fields, out_dtype, seed=False):
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -141,40 +160,51 @@ def _launch(fields, out_dtype):
     ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
     outs_p = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in outs))
     stream = torch.cuda.current_stream(ref.device).cuda_stream
-    code = fn(int(out_dtype == torch.float64), ins_p, outs_p, ref.numel(),
-              stream)
+    code = fn(int(out_dtype == torch.float64), int(seed), ins_p, outs_p,
+              ref.numel(), stream)
     _kernels.check(lib, code, "carbonate_dual launch")
     return outs
 
 
 def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
-                          coeffs: CarbCoeffs, *, impl="auto"):
+                          coeffs: CarbCoeffs, *, seed=False, impl="auto"):
     """Dual pH solve of every cell from cached equilibrium constants.
 
     Inputs are same-shape tensors: DIC, ALK, PO4, SiO3 in mmol/m^3, the
     previous pH of each scenario (0 = no previous solution) and the 15
     coefficients.  ``impl``: "auto" launches the kernel on CUDA tensors
     and uses the plain version on CPU tensors; "kernel" requires CUDA
-    tensors; "torch" takes the plain version on any device.
+    tensors; "torch" takes the plain version on any device.  ``seed``:
+    the seeded variant (see the module's docstring).
 
     Returns ``((ph, h2co3, hco3, co3) ambient, (...) ALT_CO2)``, the
     concentrations in mmol/m^3.  Each kernel launch adds one to
-    ``co3_terms_dual_coeffs.launches``.
+    ``co3_terms_dual_coeffs.launches``, or with ``seed`` to
+    ``co3_terms_dual_coeffs.seeded_launches``.
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
         return co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
-                                           ph_prev_b, coeffs)
+                                           ph_prev_b, coeffs, seed=seed)
     fields = dict(dic=dic, ta=ta, pt=pt, sit=sit, ph_prev_a=ph_prev_a,
                   ph_prev_b=ph_prev_b, **coeffs._asdict())
     _check_kernel_inputs("carbonate_dual", dic,
                          {k: (t, dic.shape) for k, t in fields.items()})
-    outs = _launch(tuple(fields.values()), dic.dtype)
-    co3_terms_dual_coeffs.launches += 1
+    outs = _launch(tuple(fields.values()), dic.dtype, seed)
+    _count(co3_terms_dual_coeffs, seed)
     return tuple(outs[:4]), tuple(outs[4:])
 
 
+def _count(wrapper, seed):
+    """One launch more on ``wrapper``'s count of its variant."""
+    if seed:
+        wrapper.seeded_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 co3_terms_dual_coeffs.launches = 0
+co3_terms_dual_coeffs.seeded_launches = 0
 
 
 def subsurface_of(depth_m):
@@ -184,28 +214,32 @@ def subsurface_of(depth_m):
 
 
 def co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
-                             ph_prev_a, ph_prev_b, *, with_sat=True):
+                             ph_prev_a, ph_prev_b, *, with_sat=True,
+                             seed=False, with_stats=False):
     """The plain PyTorch version of the coefficient-and-saturation
     instance (same arguments and results as :func:`co3_terms_dual_sat`):
     ``carbonate_coeffs``, the dual solve of
     :func:`co3_terms_dual_coeffs_torch` and ``co3_sat_vals``, in the
-    kernel's order."""
+    kernel's order.  ``with_stats`` adds the solver's per-lane counts of
+    each scenario as a fourth element."""
     subsurface = subsurface_of(depth_m)
     coeffs = carbonate_coeffs(depth_m, temp, salt, subsurface,
                               k1_k2_ph_tot=True)
-    a, b = co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
-                                       ph_prev_b, coeffs)
+    a, b, *stats = co3_terms_dual_coeffs_torch(
+        dic, ta, pt, sit, ph_prev_a, ph_prev_b, coeffs, seed=seed,
+        with_stats=with_stats)
     sat = (co3_sat_vals(depth_m, temp, salt, subsurface) if with_sat
            else None)
-    return a, b, sat
+    return (a, b, sat, *stats)
 
 
-def _launch_sat(fields, with_sat):
+def _launch_sat(fields, with_sat, seed=False):
     """Launch the coefficient-and-saturation instance on ``fields`` (the
     :data:`SAT_FIELDS` tensors, in order); returns its 8 or 10 outputs."""
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual_sat
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -218,14 +252,14 @@ def _launch_sat(fields, with_sat):
     ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
     outs_p = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
     stream = torch.cuda.current_stream(ref.device).cuda_stream
-    code = fn(int(ref.dtype == torch.float64), ins_p, outs_p, ref.numel(),
-              ref.shape[1], int(with_sat), stream)
+    code = fn(int(ref.dtype == torch.float64), int(seed), ins_p, outs_p,
+              ref.numel(), ref.shape[1], int(with_sat), stream)
     _kernels.check(lib, code, "carbonate_dual_sat launch")
     return outs
 
 
 def co3_terms_dual_sat(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
-                       ph_prev_b, *, with_sat=True, impl="auto"):
+                       ph_prev_b, *, with_sat=True, seed=False, impl="auto"):
     """Dual pH solve of every cell with the equilibrium constants
     evaluated per cell, and the saturation values.
 
@@ -236,39 +270,44 @@ def co3_terms_dual_sat(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
     level.  ``with_sat=False`` skips the saturation values.  ``impl``:
     "auto" launches the kernel on CUDA tensors and uses the plain version
     on CPU tensors; "kernel" requires CUDA tensors; "torch" takes the
-    plain version on any device.
+    plain version on any device.  ``seed``: the seeded variant (see the
+    module's docstring).
 
     Returns ``((ph, h2co3, hco3, co3) ambient, (...) ALT_CO2,
     (co3_sat_calc, co3_sat_arag) or None)``, concentrations in mmol/m^3.
-    Each kernel launch adds one to ``co3_terms_dual_sat.launches``.
+    Each kernel launch adds one to ``co3_terms_dual_sat.launches``, or
+    with ``seed`` to ``co3_terms_dual_sat.seeded_launches``.
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
         return co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
                                         ph_prev_a, ph_prev_b,
-                                        with_sat=with_sat)
+                                        with_sat=with_sat, seed=seed)
     fields = (depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a, ph_prev_b)
     if dic.dim() != 2:
         raise ValueError(f"carbonate_dual_sat takes (nlev, ncol) fields, got "
                          f"shape {tuple(dic.shape)}")
     _check_kernel_inputs("carbonate_dual_sat", dic, {
         k: (t, dic.shape) for k, t in zip(SAT_FIELDS, fields)})
-    outs = _launch_sat(fields, with_sat)
-    co3_terms_dual_sat.launches += 1
+    outs = _launch_sat(fields, with_sat, seed)
+    _count(co3_terms_dual_sat, seed)
     return (tuple(outs[:4]), tuple(outs[4:8]),
             tuple(outs[8:]) if with_sat else None)
 
 
 co3_terms_dual_sat.launches = 0
+co3_terms_dual_sat.seeded_launches = 0
 
 
 def _launch_brackets(fields):
     """Launch the bracket-in instance on ``fields`` (by
-    :data:`BRACKET_FIELDS` name, inputs only); returns H per lane."""
+    :data:`BRACKET_FIELDS` name, inputs only; the seeded variant where
+    ``fields`` holds ``x0``); returns H per lane."""
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_solve_htotal_brackets
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     if lib.obgc_brackets_num_fields() != len(BRACKET_FIELDS):
         raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
@@ -276,17 +315,18 @@ def _launch_brackets(fields):
     dic = fields["dic"]
     h = torch.empty_like(dic)
     ptrs = {**fields, "h": h}
+    seed = "x0" in fields
     arr = (ctypes.c_void_p * len(BRACKET_FIELDS))(
-        *(ptrs[k].data_ptr() for k in BRACKET_FIELDS))
+        *(ptrs[k].data_ptr() if k in ptrs else None for k in BRACKET_FIELDS))
     stream = torch.cuda.current_stream(dic.device).cuda_stream
-    code = fn(int(dic.dtype == torch.float64), arr, dic.numel(),
+    code = fn(int(dic.dtype == torch.float64), int(seed), arr, dic.numel(),
               fields["ta"].numel(), stream)
     _kernels.check(lib, code, "solve_htotal_brackets launch")
     return h
 
 
 def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
-                          impl="auto"):
+                          seed=None, impl="auto"):
     """H (mol/kg) of every lane from the H-space bracket [x1, x2]: the
     function of :func:`ops.carbonate._solve_htotal_impl`, its plain
     version.
@@ -295,15 +335,19 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     ``pt``, ``sit`` (mol/kg) and the 15 coefficients are shared by lanes
     whose trailing indices agree: their shape is a trailing part of the
     lanes' shape (the surface pair: lanes ``(2, ncol)``, shared
-    ``(ncol,)``), and the kernel reads them in place.  ``impl``: "auto"
-    launches the kernel on CUDA tensors and uses the plain version on CPU
-    tensors; "kernel" requires CUDA tensors; "torch" takes the plain
-    version on any device.  Each kernel launch adds one to
-    ``solve_htotal_brackets.launches``.
+    ``(ncol,)``), and the kernel reads them in place.  ``seed``: the
+    seeded variant, with the iteration seed (mol/kg, 0 = none) per lane,
+    ``_solve_htotal_impl``'s ``x0``.  ``impl``: "auto" launches the
+    kernel on CUDA tensors and uses the plain version on CPU tensors;
+    "kernel" requires CUDA tensors; "torch" takes the plain version on any
+    device.  Each kernel launch adds one to
+    ``solve_htotal_brackets.launches``, or with a ``seed`` to
+    ``solve_htotal_brackets.seeded_launches``.
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
-        return _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2)
+        return _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2,
+                                  x0=seed)
     lanes, shared = tuple(dic.shape), tuple(ta.shape)
     if len(shared) > len(lanes) or lanes[len(lanes) - len(shared):] != shared:
         raise ValueError(f"solve_htotal_brackets: the shared fields' shape "
@@ -311,12 +355,15 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
                          f"shape {lanes}")
     fields = dict(dic=dic, x1=x1, x2=x2, ta=ta, pt=pt, sit=sit,
                   **coeffs._asdict())
+    if seed is not None:
+        fields["x0"] = seed
     _check_kernel_inputs("solve_htotal_brackets", dic, {
-        k: (t, lanes if k in ("dic", "x1", "x2") else shared)
+        k: (t, lanes if k in ("dic", "x1", "x2", "x0") else shared)
         for k, t in fields.items()})
     h = _launch_brackets(fields)
-    solve_htotal_brackets.launches += 1
+    _count(solve_htotal_brackets, seed is not None)
     return h
 
 
 solve_htotal_brackets.launches = 0
+solve_htotal_brackets.seeded_launches = 0

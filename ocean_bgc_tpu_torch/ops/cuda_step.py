@@ -64,10 +64,12 @@ def fused_interior_step_torch(tracers, grid: ColumnGrid, forcing: BGCForcing,
                               ) -> FusedInteriorOut:
     """The plain PyTorch version of K2 (the arguments of
     :func:`fused_interior_step` but ``impl``, and its results):
-    ``bgc_source_sink`` with diagnostics off and the plain pH solve."""
+    ``bgc_source_sink`` with diagnostics off and the plain pH solve,
+    never seeded (the TPU kernel has no seed, so the fused interior stays
+    unseeded under ``OBGC_X0_SEED=1``)."""
     out = bgc_source_sink(tracers, grid, forcing, ph_prev_3d,
                           ph_prev_alt_3d, params, compute_diags=False,
-                          carbonate_impl="torch", env=env)
+                          carbonate_impl="torch", env=env, x0_seed=False)
     return FusedInteriorOut(out.tendencies, out.ph_prev_3d,
                             out.ph_prev_alt_3d)
 

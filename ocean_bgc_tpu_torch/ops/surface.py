@@ -23,6 +23,7 @@ from ocean_bgc_tpu_torch.constants import (
 from ocean_bgc_tpu_torch.ops.carbonate import (
     co2calc_surface_dual,
     warm_brackets_h,
+    x0_seed_enabled,
 )
 from ocean_bgc_tpu_torch.ops.schmidt import (
     dmssat,
@@ -98,10 +99,12 @@ def bgc_surface_fluxes(
     if params.lcalc_CO2_gas_flux:
         sc_co2 = schmidt_co2(forcing.sst)
         pv_co2 = xkw_ice * torch.sqrt(660.0 / sc_co2)
+        # the opt-in seed (x0_seed_enabled): the previous root itself
+        seed = x0_seed_enabled()
         br = warm_brackets_h(surface_ph, PHLO_SURF_INIT, PHHI_SURF_INIT,
-                             DEL_PH)
+                             DEL_PH, with_seed=seed)
         br_alt = warm_brackets_h(surface_ph_alt, PHLO_SURF_INIT,
-                                 PHHI_SURF_INIT, DEL_PH)
+                                 PHHI_SURF_INIT, DEL_PH, with_seed=seed)
         ((ph_new, co2star, dco2star, pco2surf, dpco2),
          (ph_alt_new, co2star_alt, dco2star_alt, pco2surf_alt,
           dpco2_alt)) = co2calc_surface_dual(

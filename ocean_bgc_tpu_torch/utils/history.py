@@ -1,9 +1,10 @@
-"""Time-averaged history: the running sums ``models/coupled.py::run`` keeps.
+"""Time-averaged history: the running sums ``models/coupled.py::run`` keeps,
+and the ``.npz`` history writer and reader.
 
-Counterpart of the accumulator in ``ocean_bgc_tpu/utils/history.py``
-(the host model's "tavg" layer, BGC_mod.F90:1794).  The history writers
-(the .npz writer, the per-process shard writer and its stitcher) are not
-ported yet (ROADMAP queue 1 item 11).
+Counterpart of ``ocean_bgc_tpu/utils/history.py`` (the host model's
+"tavg" layer, BGC_mod.F90:1794), in the same file layout.  The
+per-process shard writer and its stitcher wait for the multi-device slice
+(ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
+
+from ocean_bgc_tpu_torch.utils.diag import coupled_registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +47,42 @@ class TavgState:
                  else torch.float64)
         c = torch.clamp_min(self.count, 1).to(dtype)
         return {n: s / c for n, s in self.sums.items()}
+
+    def reset(self) -> "TavgState":
+        return TavgState(
+            sums={n: torch.zeros_like(s) for n, s in self.sums.items()},
+            count=torch.zeros_like(self.count))
+
+
+def write_history(path: str, tavg: TavgState, *,
+                  attrs: Optional[Dict[str, str]] = None) -> str:
+    """Write the current means to ``path`` (.npz) with units/long-name
+    metadata from the diagnostics registry."""
+    registry = coupled_registry()
+    means = {n: v.detach().cpu().numpy() for n, v in tavg.means().items()}
+    meta = {}
+    for n in means:
+        spec = registry.get(n)
+        if spec is not None:
+            meta[f"__units__{n}"] = np.str_(spec.units)
+            meta[f"__desc__{n}"] = np.str_(spec.description)
+    if attrs:
+        meta.update({f"__attr__{k}": np.str_(v) for k, v in attrs.items()})
+    path = path if path.endswith(".npz") else path + ".npz"
+    np.savez(path, __count__=tavg.count.cpu().numpy(), **means, **meta)
+    return path
+
+
+def read_history(path: str):
+    """Returns (means dict, count, metadata dict)."""
+    with np.load(path) as f:
+        count = int(f["__count__"])
+        means, meta = {}, {}
+        for k in f.files:
+            if k == "__count__":
+                continue
+            if k.startswith("__"):
+                meta[k] = str(f[k])
+            else:
+                means[k] = f[k]
+    return means, count, meta

@@ -1,7 +1,7 @@
 """The kernels on the card against their plain versions: K1 (the dual pH
 solve, its coefficient-and-saturation instance for the step without an
 env cache, and its bracket-in instance for the surface pair and the
-stand-in) and the production and default steps with it, K2 (the whole interior) and the fused
+stand-in, each also seeded) and the production and default steps with it, K2 (the whole interior) and the fused
 step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -436,3 +436,97 @@ def test_probe_kernel_matches_plain_version(cuda):
     assert probe.probe_patterns.launches == before + 1
     assert probe.max_rel_err(got, probe.probe_patterns_torch(
         tr, temp, kmax)) <= probe.RTOL
+
+
+def _off_window(ph):
+    """``ph`` moved off its warm window by +/-0.5 on alternate cells."""
+    idx = torch.arange(ph.numel(), device=ph.device).view(ph.shape)
+    step_ = torch.where(idx % 2 == 0, 0.5, -0.5).to(ph.dtype)
+    return torch.where(ph != 0.0, ph + step_, ph).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_seeded_variants_match_plain_versions(cuda, dtype):
+    """K1's three seeded variants against their seeded plain versions,
+    bitwise on every output, on cold, warm and off-window inputs (the
+    bracket grows before the seed is clamped into it); each launch is
+    counted as seeded and not as unseeded."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False, env=env)
+    off = dataclasses.replace(warm, bgc=dataclasses.replace(
+        warm.bgc, ph_prev_3d=_off_window(warm.bgc.ph_prev_3d),
+        ph_prev_alt_3d=_off_window(warm.bgc.ph_prev_alt_3d),
+        surface_ph=_off_window(warm.bgc.surface_ph),
+        surface_ph_alt=_off_window(warm.bgc.surface_ph_alt)))
+    counts = (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches,
+              solve_htotal_brackets.launches)
+    seeded = (co3_terms_dual_coeffs.seeded_launches,
+              co3_terms_dual_sat.seeded_launches,
+              solve_htotal_brackets.seeded_launches)
+    for st in (state, warm, off):
+        b = st.bgc
+        args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                b.ph_prev_alt_3d, env)
+        got = co3_terms_dual_coeffs(*args, seed=True, impl="kernel")
+        want = co3_terms_dual_coeffs_torch(*args, seed=True)
+        for x, y in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.isfinite(x).all() and torch.equal(x, y)
+        sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                 b.ph_prev_alt_3d)
+        got = co3_terms_dual_sat(*sargs, seed=True, impl="kernel")
+        want = co3_terms_dual_sat_torch(*sargs, seed=True)
+        for x, y in zip(got[0] + got[1] + got[2], want[0] + want[1]
+                        + want[2]):
+            assert torch.isfinite(x).all() and torch.equal(x, y)
+        surf = st.bgc.tracers[0].clamp_min(0.0)
+        coeffs = tcarb.carbonate_coeffs(forcing.surface_depth, forcing.sst,
+                                        forcing.sss, False)
+        m = tcarb._to_mass_units(surf[6], surf[8], surf[0], surf[2])
+        x1, x2, x0 = tcarb.warm_brackets_h(st.bgc.surface_ph, 7.0, 9.0, 0.2,
+                                           with_seed=True)
+        got = solve_htotal_brackets(coeffs, *m, x1, x2, seed=x0,
+                                    impl="kernel")
+        torch.cuda.synchronize()
+        want = tcarb._solve_htotal_impl(coeffs, *m, x1, x2, x0=x0)
+        assert torch.equal(got, want)
+    assert (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches,
+            solve_htotal_brackets.launches) == counts
+    assert (co3_terms_dual_coeffs.seeded_launches,
+            co3_terms_dual_sat.seeded_launches,
+            solve_htotal_brackets.seeded_launches) == tuple(
+                n + 3 for n in seeded)
+
+
+def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
+    """With ``OBGC_X0_SEED=1`` the production step launches the seeded
+    cached-constants instance and the seeded surface pair, the default
+    call the seeded coefficient-and-saturation instance, and the fused
+    step's K2 and precompute_env's stand-in stay unseeded."""
+    monkeypatch.setenv("OBGC_X0_SEED", "1")
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           device=cuda)
+
+    def counts():
+        return (co3_terms_dual_coeffs.launches,
+                co3_terms_dual_coeffs.seeded_launches,
+                co3_terms_dual_sat.seeded_launches,
+                solve_htotal_brackets.launches,
+                solve_htotal_brackets.seeded_launches,
+                cs._launch_solve.launches)
+
+    c0 = counts()
+    env = precompute_env(grid, forcing, params.bgc)
+    s, _ = step(state, grid, forcing, params, 3600.0, compute_diags=False,
+                env=env)
+    s, _ = step(s, grid, forcing, params, 3600.0)
+    s, _ = step(s, grid, forcing, params, 3600.0, compute_diags=False,
+                env=env, interior_impl="fused")
+    torch.cuda.synchronize()
+    assert torch.isfinite(s.bgc.tracers).all()
+    assert tuple(b - a for a, b in zip(c0, counts())) == (0, 1, 1, 1, 3, 1)
