@@ -11,7 +11,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 3. the default path, at f64 and f32 — ``synthetic_world(60, 8192,
    ragged)``, ``precompute_env`` once, 10 ``step``s with diagnostics off
    — with every kernel's launches counted (the dual K1 10, its bracket-in
-   instance 10 for the surface pair, K2's two kernels 0);
+   instance 10 for the surface pair, K2's two kernels 0) and no host
+   synchronisation in a step (``torch.cuda.set_sync_debug_mode``; so
+   too the fused step and the default call with health counters);
    tracers/DMS/MACROS bitwise equal between ``carbonate_impl="kernel"``
    and ``"torch"``, pH within the solver's tolerance; K1 against its
    plain version on cold and warm inputs (all 8 outputs bitwise equal);
@@ -27,28 +29,36 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    (``scripts/qualify_fused.py``'s envelope);
 5. the JAX package's default call, ``step(state, grid, forcing, params,
    dt)`` — diagnostics on, no env cache — at f64 and f32 on the same
-   world: 10 steps with the launches counted (K1's coefficient-and-
-   saturation instance 10, the bracket-in instance 10, the dual K1 and
-   K2 0), then 10 diags-on steps with the env cache (the dual K1 10, the
-   coefficient-and-saturation instance 0); the instance against its plain
-   version on cold and warm inputs (all 10 outputs bitwise equal);
+   world: 10 steps with the launches counted (K1's constants kernel 10,
+   the dual K1 10 on its constants, the bracket-in instance 10, K2 0),
+   then 10 diags-on steps with the env cache (the dual K1 10, the
+   constants kernel 0); the constants kernel against its plain version
+   (all 17 outputs bitwise equal), with its registers, spills, SASS
+   instruction mix, time and bound, and the coefficient-and-saturation
+   route (the constants kernel, then the dual K1) against its plain
+   version on cold, warm and off-window inputs (all 10 outputs bitwise
+   equal), and the plain constants' device time (the eager evaluation
+   the kernel replaces on the health and fused paths without an env cache);
    tracers and every diagnostic bitwise equal between
    ``carbonate_impl="kernel"`` and ``"torch"``, tracers bitwise equal with
    diagnostics on and off; the diagnostics' names those of the registry
-   (``utils/diag.py``), every one finite;
+   (``utils/diag.py``), every one finite; the default call with health
+   counters timed;
 6. the production driver and K1's seeded variants (``OBGC_X0_SEED=1``), at
-   f64 and f32 on the same world: each seeded variant of K1's three
-   instances against its seeded plain version on cold, warm and
-   off-window inputs (every output bitwise equal), its time, bound and
-   iterations per warm problem beside the unseeded ones; then
+   f64 and f32 on the same world: each seeded variant of K1 (the dual
+   instance on the env cache's constants and on the constants kernel's,
+   and the bracket-in instance) against its seeded plain version on
+   cold, warm and off-window inputs (every output bitwise equal), its
+   time, bound and iterations per warm problem beside the unseeded ones;
+   then
    ``python -m ocean_bgc_tpu_torch.run_model`` through ``run_model.main``
    on the world written as a NetCDF world file and a 3-record forcing
    series (T +0, +0.5, -0.5 C, 8 h apart): 24 held-record steps with the
    seed, the 10-field history every 12 steps, checkpoints and health,
-   with every launch counted (the seeded cached-constants instance 24,
-   the seeded bracket-in instance 25, the seeded coefficient-and-
-   saturation instance 1, the unseeded bracket-in instance 3, the rest
-   0), and a resume from the step-12 checkpoint bitwise equal to it; at
+   with every launch counted (the seeded dual instance 25: 24 on the env
+   cache's constants and 1 on the constants kernel's, the constants
+   kernel 1, the seeded bracket-in instance 25, the unseeded bracket-in
+   instance 3, the rest 0), and a resume from the step-12 checkpoint bitwise equal to it; at
    f64 also linear interpolation, RK2, RK4 and no env cache with their
    launches counted, the driver's columns/s under constant, held and
    interpolated forcing with and without the seed, ``run_forced`` with
@@ -135,9 +145,13 @@ OPS_P_CELL, OPS_P_NEWTON = 27, 6
 # exp, 3 log, 2 sqrt among them), and the two saturation values besides
 # the terms they share with the constants
 OPS_COEFFS, OPS_SAT = 339, 68
-# the coefficient-and-saturation instance reads depth, T, S, the four
-# tracers and the two previous pH fields per cell and writes 8 fields, 10
-# with the saturation values
+# the constants kernel reads depth, T and S per cell and writes the 15
+# constants, and the two saturation values besides when asked
+COEFF_FIELDS_IN, COEFF_FIELDS_OUT = 3, 17
+# the coefficient-and-saturation function (the TPU kernel's coeffs_in=
+# False, with_sat=True variant) reads depth, T, S, the four tracers and
+# the two previous pH fields per cell and writes 8 fields, 10 with the
+# saturation values
 SAT_FIELDS_IN, SAT_FIELDS_OUT = 9, 10
 # the production history's 10 fields (scripts/bench_ragged_ab.py:50-52)
 PROD_FILTER = ("pco2surf", "dpco2", "NITRIF", "DENITRIF", "POC_FLUX_IN",
@@ -193,14 +207,14 @@ def cuda_ms(fn, reps, warmup=2, rounds=5, device_only=False):
 
 def _counters():
     """{name: (wrapper, attribute)} of every kernel launch count: K1's
-    three instances unseeded and seeded, K2's two kernels."""
+    two instances unseeded and seeded and its constants kernel, K2's two
+    kernels."""
     from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc, cuda_step
     return dict(
         k1=(cc.co3_terms_dual_coeffs, "launches"),
-        k1_sat=(cc.co3_terms_dual_sat, "launches"),
+        coeffs=(cc.carbonate_coeffs_sat, "launches"),
         brackets=(cc.solve_htotal_brackets, "launches"),
         k1_seeded=(cc.co3_terms_dual_coeffs, "seeded_launches"),
-        k1_sat_seeded=(cc.co3_terms_dual_sat, "seeded_launches"),
         brackets_seeded=(cc.solve_htotal_brackets, "seeded_launches"),
         k2_solve=(cuda_step._launch_solve, "launches"),
         k2_bio=(cuda_step._launch_bio, "launches"))
@@ -543,6 +557,30 @@ def breakdown(dtype, state, grid, forcing, params, env, step_ms):
             f"{step_ms:.3f} ms ({100 * busy / step_ms:.1f}%)")
 
 
+def host_syncs(fn):
+    """The host synchronisations that torch.cuda's sync debug mode reports
+    in one call of ``fn`` (already warm)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def check_no_sync(label, fn):
+    """Raise unless one call of ``fn`` makes no host synchronisation."""
+    n = host_syncs(fn)
+    log(f"{label}: {n} host synchronisations in one step (limit 0)")
+    if n:
+        raise AssertionError(f"{label} synchronises with the host")
+
+
 def device_busy_ms(fn):
     """Sum of device kernel time over one call of ``fn`` (already warm),
     from torch.profiler, or None where the profiler sees no device
@@ -588,7 +626,7 @@ def main_path(dtype, params):
         f"launches {counts}")
     if counts != expected(k1=10, brackets=10):
         raise AssertionError(f"the default path's launches in 10 steps: "
-                             f"{counts}, expected k1 10, k1_sat 0, brackets "
+                             f"{counts}, expected k1 10, coeffs 0, brackets "
                              f"10, k2_solve 0, k2_bio 0")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros)):
@@ -596,6 +634,8 @@ def main_path(dtype, params):
             raise AssertionError(f"non-finite {name} after 10 steps")
     if not (state.bgc.ph_prev_3d[grid.active_mask()] > 6.0).all():
         raise AssertionError("interior pH out of range after 10 steps")
+    check_no_sync(f"main path {dtype}", lambda: step(
+        state, grid, forcing, params, DT, compute_diags=False, env=env))
 
     # -- kernel vs plain version through the whole step --
     a = b = state0
@@ -891,13 +931,16 @@ def fused_path(dtype, params, ctx):
         f"launches {counts}")
     if counts != expected(brackets=10, k2_solve=10, k2_bio=10):
         raise AssertionError(f"the fused path's launches in 10 steps: "
-                             f"{counts}, expected k1 0, k1_sat 0, brackets "
+                             f"{counts}, expected k1 0, coeffs 0, brackets "
                              f"10, k2_solve 10, k2_bio 10")
     for name, t in (("tracers", state.bgc.tracers), ("dms", state.dms),
                     ("macros", state.macros),
                     ("pH", state.bgc.ph_prev_3d)):
         if not torch.isfinite(t).all():
             raise AssertionError(f"non-finite {name} after 10 fused steps")
+    check_no_sync(f"fused path {dtype}", lambda: step(
+        state, grid, forcing, params, DT, compute_diags=False, env=env,
+        interior_impl="fused"))
 
     k2 = check_k2(dtype, world, env, ctx["warm"], params)
     trajectory_gate(dtype, state0, grid, forcing, params, env, ctx["after"])
@@ -921,11 +964,11 @@ def fused_path(dtype, params, ctx):
 
 def sat_bound(args, dtype, with_sat=True, seed=False):
     """(bound_ms, bound_by, bytes, operations, mean iterations) of K1's
-    coefficient-and-saturation instance on ``args`` (its inputs): its
-    fields read and written once over the HBM rate, against the
-    constants', the saturation values' and the dual solve's operations
-    (iteration counts from the plain version) over the peak rate;
-    ``seed``: of its seeded variant."""
+    coefficient-and-saturation function on ``args`` (its inputs): its
+    fields read and written once over the HBM rate (the constants need
+    not leave the chip), against the constants', the saturation values'
+    and the dual solve's operations (iteration counts from the plain
+    version) over the peak rate; ``seed``: of its seeded variant."""
     from ocean_bgc_tpu_torch.ops.carbonate import carbonate_coeffs
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import subsurface_of
     depth, temp, salt, *solve_args = args
@@ -938,61 +981,175 @@ def sat_bound(args, dtype, with_sat=True, seed=False):
     return (*bound(nbytes, ops, dtype), nbytes, ops, iters)
 
 
-def check_sat(dtype, world, warm_state):
-    """K1's coefficient-and-saturation instance against its plain version
-    (``co3_terms_dual_sat_torch``: ``carbonate_coeffs``, the dual solve,
-    ``co3_sat_vals``) on the cold and warm inputs of the step without an
-    env cache; returns the numbers measured on the warm ones.
+def coeffs_bound(args, dtype, with_sat=True):
+    """(bound_ms, bound_by, bytes, operations) of K1's constants kernel
+    on ``args`` (depth, T, S): its fields read and written once over the
+    HBM rate, against the constants' and the saturation values'
+    operations over the peak rate."""
+    n = args[0].numel()
+    n_out = COEFF_FIELDS_OUT if with_sat else COEFF_FIELDS_OUT - 2
+    nbytes = (COEFF_FIELDS_IN + n_out) * args[0].element_size() * n
+    ops = n * (OPS_COEFFS + (OPS_SAT if with_sat else 0))
+    return (*bound(nbytes, ops, dtype), nbytes, ops)
 
-    Tolerance: none, all 10 outputs bitwise equal.  The constants repeat
-    the plain version's expressions in its order with PyTorch's CUDA
+
+# SASS opcode classes counted per kernel (the static instruction mix)
+SASS_CLASSES = (
+    ("DFMA", r"DFMA"), ("DMUL", r"DMUL"), ("DADD", r"DADD"),
+    ("MUFU.RCP64H", r"MUFU\.RCP64H"), ("MUFU.RSQ64H", r"MUFU\.RSQ64H"),
+    ("MUFU (f32)", r"MUFU\.(?!RCP64H|RSQ64H)"), ("FFMA", r"FFMA"),
+    ("FMUL", r"FMUL"), ("FADD", r"FADD"), ("CALL", r"CALL"),
+    ("BRA", r"BRA"), ("LDL", r"LDL"), ("STL", r"STL"), ("LDG", r"LDG"),
+    ("STG", r"STG"))
+
+
+def sass_mix(library, names):
+    """{kernel: 'total N; DFMA n, ...'} of the static SASS instruction
+    counts of the kernels of ``library`` (a built .so) whose demangled
+    name contains one of ``names``, from ``cuobjdump -sass``."""
+    from ocean_bgc_tpu_torch.ops import _kernels
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m[1], [])
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if m and cur is not None:
+            cur.append(m[1])
+    mangled = list(funcs)
+    demangled = subprocess.run(["c++filt"], input="\n".join(mangled),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    out = {}
+    for raw, name in zip(mangled, demangled or mangled):
+        name = name.replace("obgc::(anonymous namespace)::", "")
+        name = name.split("(")[0]
+        if not any(n in name for n in names):
+            continue
+        ops = funcs[raw]
+        counts = [(k, sum(1 for op in ops if re.match(rx, op)))
+                  for k, rx in SASS_CLASSES]
+        out[name] = f"total {len(ops)}; " + ", ".join(
+            f"{k} {v}" for k, v in counts if v)
+    return out
+
+
+def check_coeffs(dtype, world, warm_state):
+    """K1's constants kernel against its plain version (``carbonate_coeffs``
+    and ``co3_sat_vals`` in torch) on the cold and warm inputs of the step
+    without an env cache, its registers, spills and SASS instruction mix,
+    its time beside its bound; then the coefficient-and-saturation route
+    (the constants kernel, then the dual K1 on its constants) against its
+    plain version on cold, warm and off-window inputs, and its time.
+    Returns the constants kernel's numbers on the warm inputs.
+
+    Tolerance: none, every output bitwise equal.  The constants repeat the
+    plain version's expressions in its order with PyTorch's CUDA
     semantics (a tensor over a Python scalar is a product with the
     scalar's reciprocal), --fmad=false, IEEE division and the CUDA math
-    library's exp, log and sqrt; the solve is K1's."""
+    library's exp, log and sqrt; the solve is the dual K1's."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.ops import _kernels, cuda_carbonate as cc
     from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs
-    from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
-    from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
-        _launch_sat, co3_terms_dual_sat as ks, co3_terms_dual_sat_torch as
-        plain)
     state, grid, forcing = world
-    xacc = solver_xacc(dtype)
-    for label, st in (("cold", state), ("warm", warm_state)):
+    name = str(dtype).split(".")[-1]
+    off = dataclasses.replace(warm_state, bgc=dataclasses.replace(
+        warm_state.bgc, ph_prev_3d=off_window(warm_state.bgc.ph_prev_3d),
+        ph_prev_alt_3d=off_window(warm_state.bgc.ph_prev_alt_3d)))
+    cases = {}
+    for label, st in (("cold", state), ("warm", warm_state),
+                      ("off-window", off)):
         b = st.bgc
-        args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
-                                b.ph_prev_alt_3d)
-        got = ks(*args, impl="kernel")
+        cases[label] = carbonate_inputs(b.tracers, grid, forcing,
+                                        b.ph_prev_3d, b.ph_prev_alt_3d)
+    err = 0.0
+    for label in ("cold", "warm"):
+        cargs = cases[label][:3]
+        want, want_sat = cc.carbonate_coeffs_sat_torch(*cargs)
+        for with_sat in (True, False):
+            got, sat = cc.carbonate_coeffs_sat(*cargs, with_sat=with_sat,
+                                               impl="kernel")
+            torch.cuda.synchronize()
+            n_out = COEFF_FIELDS_OUT if with_sat else COEFF_FIELDS_OUT - 2
+            e = compare(f"K1 constants kernel {name} {label}, with_sat "
+                        f"{with_sat}", (*got, *(sat or ())),
+                        (*want, *want_sat)[:n_out])
+            err = max(err, e)
+    for label, args in cases.items():
+        got = cc.co3_terms_dual_sat(*args, impl="kernel")
         torch.cuda.synchronize()
-        want = plain(*args)
-        outs = [(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws)]
-        differ = sum(int((g != w).sum()) for g, w in outs)
-        err = max((g - w).abs().max().item() for g, w in outs)
-        dh = max((10.0 ** -g[0].double() - 10.0 ** -w[0].double())
-                 .abs().max().item() for g, w in zip(got[:2], want[:2]))
-        finite = all(torch.isfinite(g).all().item() for g, _ in outs)
-        log(f"K1 coefficient-and-saturation {dtype} {label}: {differ} of "
-            f"{10 * args[0].numel()} output values differ, max abs error "
-            f"over all 10 outputs {err:.3g} (limit 0, bitwise), max|dH|/xacc "
-            f"{dh / xacc:.3g}, finite {finite}")
-        if differ or not finite or len(outs) != 10:
-            raise AssertionError(f"K1's coefficient-and-saturation instance "
-                                 f"({dtype}, {label}) disagrees with its "
-                                 f"plain version")
+        want = cc.co3_terms_dual_sat_torch(*args)
+        compare(f"K1 coefficient-and-saturation route {name} {label}",
+                [x for part in got for x in part],
+                [x for part in want for x in part])
+
+    log(f"K1 constants kernel, ptxas: see the build log above; SASS "
+        f"(static instruction counts, cuobjdump):")
+    libs = {"carbonate_coeffs": ("coeffs_kernel",),
+            "carbonate_dual": ("DualLanes",)}
+    for src, names in libs.items():
+        for kname, mix in sass_mix(_kernels.library_path(src),
+                                   names).items():
+            log(f"    {kname}: {mix}")
+
+    args = cases["warm"]
+    cargs = args[:3]
     res = {}
     for with_sat in (True, False):
-        ms = cuda_ms(lambda: _launch_sat(args, with_sat), reps=20,
+        ms = cuda_ms(lambda: cc._launch_coeffs(*cargs, with_sat), reps=50,
                      device_only=True)
-        plain_ms = cuda_ms(lambda: plain(*args, with_sat=with_sat), reps=1,
-                           warmup=1, rounds=3)
-        bound_ms, bound_by, nbytes, ops, iters = sat_bound(args, dtype,
-                                                           with_sat)
-        log(f"K1 coefficient-and-saturation {dtype} warm, with_sat "
-            f"{with_sat}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
+        plain_ms = cuda_ms(lambda: cc.carbonate_coeffs_sat_torch(
+            *cargs, with_sat=with_sat), reps=1, warmup=1, rounds=3)
+        bound_ms, bound_by, nbytes, ops = coeffs_bound(cargs, dtype,
+                                                       with_sat)
+        log(f"K1 constants kernel {name} warm, with_sat {with_sat}: "
+            f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.3f} Gop, mean iterations {iters[0]:.2f} / "
-            f"{iters[1]:.2f})")
+            f"{ops / 1e9:.3f} Gop)")
         if with_sat:
             res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
+    busy = device_busy_ms(lambda: cc.carbonate_coeffs_sat_torch(
+        *cargs, with_sat=False))
+    log(f"K1 constants {name} warm, the plain version without the "
+        f"saturation values (the eager evaluation the kernel replaces on "
+        f"the health and fused paths without an env cache): device busy "
+        + ("not measured" if busy is None else f"{busy:.4f} ms"))
+
+    # the inactive cells (below the floor) keep their 0 pH sentinel without
+    # an env cache and solve from the cold window every step
+    active = grid.active_mask()
+    coeffs = cc.carbonate_coeffs_sat(*cargs, with_sat=False)[0]
+    its = [solve_ops_of((*args[3:], coeffs), cells=c)[1]
+           for c in (active, ~active)]
+    log(f"K1 coefficient-and-saturation route {name} warm: mean iterations "
+        f"per scenario, active cells {its[0][0]:.2f} / {its[0][1]:.2f}, "
+        f"inactive cells {its[1][0]:.2f} / {its[1][1]:.2f} "
+        f"({int((~active).sum())} of {active.numel()} cells inactive)")
+
+    coeffs = cc.carbonate_coeffs_sat(*cargs, impl="kernel")[0]
+    for seed in (False, True):
+        bound_ms, bound_by, nbytes, ops, _ = sat_bound(args, dtype,
+                                                       seed=seed)
+        dual_ms = cuda_ms(lambda: cc._launch((*args[3:], *coeffs), dtype,
+                                             seed), reps=20, device_only=True)
+        plain_ms = cuda_ms(lambda: cc.co3_terms_dual_sat_torch(
+            *args, seed=seed), reps=1, warmup=1, rounds=3)
+        ms = cuda_ms(lambda: cc.co3_terms_dual_sat(*args, seed=seed,
+                                                   impl="kernel"),
+                     reps=20, device_only=True)
+        log(f"K1 coefficient-and-saturation route {name} warm, seed {seed}: "
+            f"{ms:.4f} ms (the dual K1 alone on the kernel's constants "
+            f"{dual_ms:.4f} ms), plain {plain_ms:.3f} ms, bound of the "
+            f"function {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
     return res
 
 
@@ -1025,7 +1182,7 @@ def diags_breakdown(dtype, state, grid, forcing, params, step_ms):
         "bgc_source_sink (diagnostics on)": lambda: bgc.bgc_source_sink(
             b.tracers, grid, forcing, b.ph_prev_3d, b.ph_prev_alt_3d,
             params.bgc, compute_diags=True),
-        "  K1 coefficient-and-saturation": lambda: co3_terms_dual_sat(
+        "  K1 coefficient-and-saturation route": lambda: co3_terms_dual_sat(
             *args),
         "  ecosystem_kinetics": lambda: bgc.ecosystem_kinetics(
             tr, forcing.potential_temperature, grid.cell_thickness,
@@ -1042,7 +1199,7 @@ def diags_breakdown(dtype, state, grid, forcing, params, step_ms):
     for k, v in times.items():
         log(f"  {dtype} {k}: {v:.3f} ms")
     rest = (times["bgc_source_sink (diagnostics on)"]
-            - times["  K1 coefficient-and-saturation"]
+            - times["  K1 coefficient-and-saturation route"]
             - times["  ecosystem_kinetics"])
     log(f"  {dtype}   level recurrence + assembly + diagnostics + masking "
         f"(remainder): {rest:.3f} ms")
@@ -1061,7 +1218,7 @@ def diags_breakdown(dtype, state, grid, forcing, params, step_ms):
 
 def default_call(dtype, params, ctx):
     """Phase 5 at one dtype: the JAX package's default call; returns the
-    coefficient-and-saturation instance's kernel entry's numbers."""
+    constants kernel's entry's numbers."""
     from ocean_bgc_tpu_torch.models.coupled import step
     from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
     from ocean_bgc_tpu_torch.utils.diag import coupled_registry
@@ -1081,12 +1238,12 @@ def default_call(dtype, params, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    launches = counts["k1_sat"]
+    launches = counts["coeffs"]
     log(f"default call {dtype}: 10 steps at {NLEV}x{NCOL} (diagnostics on, "
         f"no env cache) in {wall:.3f} s, launches {counts}")
-    if counts != expected(k1_sat=10, brackets=10):
+    if counts != expected(coeffs=10, k1=10, brackets=10):
         raise AssertionError(f"the default call's launches in 10 steps: "
-                             f"{counts}, expected k1 0, k1_sat 10, brackets "
+                             f"{counts}, expected k1 10, coeffs 10, brackets "
                              f"10, k2_solve 0, k2_bio 0")
     bad = sorted(k for k, v in diags.items() if not torch.isfinite(v).all())
     log(f"default call {dtype}: {len(diags)} diagnostics, the registry's "
@@ -1097,6 +1254,8 @@ def default_call(dtype, params, ctx):
     if not torch.isfinite(state.bgc.tracers).all():
         raise AssertionError("non-finite tracers after 10 default calls")
     del diags
+    check_no_sync(f"default call {dtype} with health counters", lambda: step(
+        state, grid, forcing, params, DT, health=True))
 
     # -- diagnostics on with the env cache, counted --
     reset_counts()
@@ -1108,7 +1267,7 @@ def default_call(dtype, params, ctx):
     log(f"diags on with the env cache {dtype}: launches {counts}")
     if counts != expected(k1=10, brackets=10):
         raise AssertionError(f"the diags-on env-on launches in 10 steps: "
-                             f"{counts}, expected k1 10, k1_sat 0, brackets "
+                             f"{counts}, expected k1 10, coeffs 0, brackets "
                              f"10, k2_solve 0, k2_bio 0")
     if set(d) != registry or not all(torch.isfinite(v).all() for v in
                                      d.values()):
@@ -1142,7 +1301,7 @@ def default_call(dtype, params, ctx):
                              "off")
     del a, b, c, da, db
 
-    k = check_sat(dtype, world, states[0])
+    k = check_coeffs(dtype, world, states[0])
 
     # -- ms/step of the diags-on configurations --
     def timed(label, **kw):
@@ -1156,12 +1315,20 @@ def default_call(dtype, params, ctx):
             f"ms/step, {NCOL / (ms / 1e3):.1f} columns/s")
         return ms
     ms = timed("diags on, env off: the default call")
+    health_ms = timed("diags on, env off, health counters", health=True)
     timed("diags on, env on", env=env)
     timed(f"{len(PROD_FILTER)}-field diag_filter, env on", env=env,
           diag_filter=PROD_FILTER)
     if dtype == torch.float64:
         log(f"breakdown of one default-call {dtype} step at {NLEV}x{NCOL}:")
         diags_breakdown(dtype, states[-1], grid, forcing, params, ms)
+        busy = device_busy_ms(lambda: step(states[-1], grid, forcing,
+                                           params, DT, health=True))
+        log(f"  {dtype} device busy share of a default-call step with "
+            f"health counters: " + ("not measured (the profiler reported "
+                                    "no device time)" if busy is None else
+                                    f"{busy:.3f} ms of {health_ms:.3f} ms "
+                                    f"({100 * busy / health_ms:.1f}%)"))
     return dict(launches=launches, **k)
 
 
@@ -1284,22 +1451,23 @@ def compare(label, got, want):
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     n = sum(g.numel() for g in got)
-    log(f"{label}: {differ} of {n} output values differ from the seeded "
-        f"plain version (limit 0, bitwise), max abs error {err:.3g}, "
-        f"finite {finite}")
+    log(f"{label}: {differ} of {n} output values differ (limit 0, "
+        f"bitwise), max abs error {err:.3g}, finite {finite}")
     if differ or not finite or len(got) != len(want):
-        raise AssertionError(f"{label} disagrees with its plain version")
+        raise AssertionError(f"{label}: the outputs differ")
     return err
 
 
 def check_seeded(dtype, world, env, warm_state):
-    """Driver phase, part 1: K1's three seeded variants against their
+    """Driver phase, part 1: K1's seeded variants against their
     seeded plain versions on cold, warm and off-window inputs (bitwise,
     every output), then each one's time per launch on the warm inputs
     (queued behind a device sleep), its plain version's time, its bound
     (operations from the seeded plain version's iteration counts), and
-    the iterations per warm problem, seeded against unseeded.  Returns
-    {"dual", "sat", "brackets": the kernel entry's numbers}."""
+    the iterations per warm problem, seeded against unseeded; the
+    coefficient-and-saturation route (the constants kernel, then the
+    seeded dual instance) too.  Returns {"dual", "brackets": the kernel
+    entry's numbers}."""
     import dataclasses
 
     from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
@@ -1346,7 +1514,7 @@ def check_seeded(dtype, world, env, warm_state):
     report("dual", "K1 seeded", ms, plain_ms, k1_bound(args, dtype, True),
            *its, err)
 
-    # the coefficient-and-saturation instance
+    # the coefficient-and-saturation route
     for label, st in cases:
         b = st.bgc
         sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
@@ -1360,15 +1528,16 @@ def check_seeded(dtype, world, env, warm_state):
     b = warm_state.bgc
     sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
                              b.ph_prev_alt_3d)
-    ms = cuda_ms(lambda: cc._launch_sat(sargs, True, True), reps=20,
+    ms = cuda_ms(lambda: cc.co3_terms_dual_sat(*sargs, seed=True,
+                                               impl="kernel"), reps=20,
                  device_only=True)
     plain_ms = cuda_ms(lambda: cc.co3_terms_dual_sat_torch(
         *sargs, seed=True), reps=1, warmup=1, rounds=3)
     warm = (sargs[7] != 0.0, sargs[8] != 0.0)
     its = [iteration_stats(cc.co3_terms_dual_sat_torch(
         *sargs, seed=sd, with_stats=True)[3], warm) for sd in (True, False)]
-    report("sat", "K1 coefficient-and-saturation seeded", ms, plain_ms,
-           sat_bound(sargs, dtype, True, seed=True), *its, err)
+    report("sat", "K1 coefficient-and-saturation route seeded", ms,
+           plain_ms, sat_bound(sargs, dtype, True, seed=True), *its, err)
 
     # the bracket-in instance, on the surface pair
     for label, st in cases:
@@ -1471,11 +1640,11 @@ def driver_phase(dtype, tmp, files, f64_only):
             "--checkpoint-every", "12", "--health", "--solver-seed"]
     # 24 steps cross 3 records: the env cache rebuilt 3 times (the stand-in
     # solve on the unseeded bracket-in instance); each step's interior on
-    # the seeded cached-constants instance and its surface pair on the
-    # seeded bracket-in instance; the summary's closing step (no env
-    # cache, Jint_Ctot) one seeded coefficient-and-saturation launch and
-    # one seeded surface pair
-    main_counts = dict(k1_seeded=24, brackets_seeded=25, k1_sat_seeded=1,
+    # the seeded dual instance and its surface pair on the seeded
+    # bracket-in instance; the summary's closing step (no env cache,
+    # Jint_Ctot) one launch of the constants kernel, one of the seeded
+    # dual instance on its constants and one seeded surface pair
+    main_counts = dict(k1_seeded=25, coeffs=1, brackets_seeded=25,
                        brackets=3)
     a = run_driver(f"{name}, hold, seeded, 24 steps", [
         *forced, "--interp", "hold", *hist, "--steps", "24", "--out", out_a,
@@ -1516,18 +1685,18 @@ def driver_phase(dtype, tmp, files, f64_only):
     run_driver(f"{name}, linear, seeded, 6 steps", [
         *forced, "--interp", "linear", "--solver-seed", "--steps", "6",
         "--out", os.path.join(tmp, "linear")],
-        dict(k1_sat_seeded=7, brackets_seeded=7))
+        dict(coeffs=7, k1_seeded=7, brackets_seeded=7))
     run_driver(f"{name}, rk2, seeded, 2 steps", [
         *base, "--integrator", "rk2", "--solver-seed", "--steps", "2",
         "--out", os.path.join(tmp, "rk2")],
-        dict(k1_seeded=4, brackets=1, brackets_seeded=5, k1_sat_seeded=1))
+        dict(k1_seeded=5, coeffs=1, brackets=1, brackets_seeded=5))
     run_driver(f"{name}, rk4, seeded, 2 steps", [
         *base, "--integrator", "rk4", "--solver-seed", "--steps", "2",
         "--out", os.path.join(tmp, "rk4")],
-        dict(k1_seeded=8, brackets=1, brackets_seeded=9, k1_sat_seeded=1))
+        dict(k1_seeded=9, coeffs=1, brackets=1, brackets_seeded=9))
     run_driver(f"{name}, no env cache, 2 steps", [
         *base, "--no-env-cache", "--steps", "2", "--out",
-        os.path.join(tmp, "noenv")], dict(k1_sat=3, brackets=3))
+        os.path.join(tmp, "noenv")], dict(coeffs=3, k1=3, brackets=3))
     for label, extra in (("constant forcing", base),
                          ("hold", [*forced, "--interp", "hold"]),
                          ("linear", [*forced, "--interp", "linear"])):
@@ -1726,7 +1895,7 @@ def main():
         name = str(dtype).split('.')[-1]
         k1, kb, ctx = main_path(dtype, params)
         k2 = fused_path(dtype, params, ctx)
-        ksat = default_call(dtype, params, ctx)
+        kcoeffs = default_call(dtype, params, ctx)
         t0 = time.perf_counter()
         seeded = check_seeded(dtype, ctx["world"], ctx["env"], ctx["warm"])
         if files is None:     # the f64 world, loaded at f32 with --fp32
@@ -1741,9 +1910,7 @@ def main():
         for kname, key, k in (
                 ("carbonate_dual seeded", "k1_seeded", seeded["dual"]),
                 ("solve_htotal_brackets seeded", "brackets_seeded",
-                 seeded["brackets"]),
-                ("carbonate_dual_sat seeded", "k1_sat_seeded",
-                 seeded["sat"])):
+                 seeded["brackets"])):
             kernels.append(dict(
                 name=f"{kname} ({name})", route="cuda",
                 source="ocean_bgc_tpu_torch/csrc/carbonate_dual.cu",
@@ -1754,8 +1921,8 @@ def main():
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", k1),
                 ("solve_htotal_brackets", "carbonate_dual.cu",
                  "ocean_bgc_tpu/ops/pallas_carbonate.py:63", kb),
-                ("carbonate_dual_sat", "carbonate_dual.cu",
-                 "ocean_bgc_tpu/ops/pallas_carbonate.py:63", ksat),
+                ("carbonate_coeffs", "carbonate_coeffs.cu",
+                 "ocean_bgc_tpu/ops/pallas_carbonate.py:63", kcoeffs),
                 ("interior_step solve", "interior_step.cu",
                  "ocean_bgc_tpu/ops/pallas_step.py:146", k2["solve"]),
                 ("interior_step biology", "interior_step.cu",

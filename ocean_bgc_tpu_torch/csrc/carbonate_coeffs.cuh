@@ -1,8 +1,8 @@
 // The carbonate system's equilibrium constants and saturation values of one
 // cell, evaluated on the device: the device counterparts of
 // ops/carbonate.py::carbonate_coeffs (its k1_k2_ph_tot=True branch, the
-// interior's) and ops/carbonate.py::co3_sat_vals, for K1's
-// coefficient-and-saturation instance (carbonate_dual.cu).
+// interior's) and ops/carbonate.py::co3_sat_vals, for K1's constants
+// kernel (carbonate_coeffs.cu).
 //
 // Each expression repeats the plain version's as PyTorch's CUDA ops
 // evaluate it, one rounding per operation in Python's order:

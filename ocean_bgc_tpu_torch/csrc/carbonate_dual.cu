@@ -1,28 +1,20 @@
-// K1: the pH solve, CUDA C++ for Hopper (sm_90a), in three instances, each
+// K1: the pH solve, CUDA C++ for Hopper (sm_90a), in two instances, each
 // with an unseeded and a seeded variant.
 //
 // Replaces the Pallas TPU kernel
 //   ocean_bgc_tpu/ops/pallas_carbonate.py::_carbonate_kernel (:63).
 //
-// The dual interior instance (obgc_carbonate_dual) is the one the
-// env-cache step launches: equilibrium constants read from the env cache
-// (coeffs_in=True), no saturation outputs (with_sat=False), no iteration
-// seed.  Per cell: tracers to mass units, then for each of the two
-// scenarios (ambient, ALT_CO2) the pH bracket (previous pH +/- DEL_PH, or
-// the cold [6, 9] window where the previous pH is the 0 sentinel), the
-// bracketed safe-Newton root of the total-alkalinity residual
-// (drtsafe_row, co2calc.F90:872-997) and the speciation into pH, H2CO3,
-// HCO3 and CO3.
-//
-// The coefficient-and-saturation instance (obgc_carbonate_dual_sat) is the
-// TPU kernel's coeffs_in=False, with_sat=True variant, the one the step
-// without an env cache launches: the same dual solve, with the 15
-// constants evaluated per cell from depth, T and S (carbonate_coeffs.cuh;
-// pressure corrections below the first level, a flag the lane derives
-// from its cell index) and, when the caller asks for them (diagnostics
-// on), the calcite and aragonite saturation values written after both
-// solves, from its inputs read again, so that they hold no register
-// during the solve.
+// The dual interior instance (obgc_carbonate_dual) reads the 15
+// equilibrium constants per cell: from the env cache in the step with one
+// (the TPU kernel's coeffs_in=True, with_sat=False), and from the
+// constants kernel (carbonate_coeffs.cu, launched just before it) in the
+// step without one (the TPU kernel's coeffs_in=False, with_sat=True
+// variant, whose constants and saturation values that kernel writes).
+// Per cell: tracers to mass units, then for each of the two scenarios
+// (ambient, ALT_CO2) the pH bracket (previous pH +/- DEL_PH, or the cold
+// [6, 9] window where the previous pH is the 0 sentinel), the bracketed
+// safe-Newton root of the total-alkalinity residual (drtsafe_row,
+// co2calc.F90:872-997) and the speciation into pH, H2CO3, HCO3 and CO3.
 //
 // The bracket-in instance (obgc_solve_htotal_brackets) is
 // ops/carbonate.py::_solve_htotal_impl itself: H of every lane from
@@ -35,17 +27,20 @@
 //
 // Design.  Each lane freezes on its own convergence in the reference too
 // (ocean_bgc_tpu/ops/carbonate.py:416-425), so a lane may be solved by
-// any thread.  Every instance runs carbonate_solve.cuh's lanes, one per
+// any thread.  Both instances run carbonate_solve.cuh's lanes, one per
 // thread.  The TPU kernel's 128-lane tiles, padding and stacked/
 // sequential dual choice have no counterpart here.  Templated on
 // float/double with the solver tolerance chosen per type as the plain
 // version chooses it (1e-10 at f64, 1e-13 at f32).  The alkalinity
-// residual and the constants keep the plain version's association order
-// term by term; built with --fmad=false and IEEE division, each lane's
-// iterates are bitwise those of the plain PyTorch version.
+// residual keeps the plain version's association order term by term;
+// built with --fmad=false and IEEE division, each lane's iterates are
+// bitwise those of the plain PyTorch version.  The TPU kernel evaluated
+// the constants inside the solve to save HBM traffic; here they are a
+// kernel of their own, because the solve's registers (116 at f64) would
+// set their occupancy too (carbonate_coeffs.cu).
 //
 // Bound.  The dual instance must read 21 fields per cell (DIC, ALK, PO4,
-// SiO3, the two previous pH fields, 15 cached coefficients) and write 8:
+// SiO3, the two previous pH fields, 15 constants) and write 8:
 // 29 * sizeof(T) bytes per cell, ~114 MB at f64 and ~57 MB at f32 for the
 // 60 x 8192 flagship world, ~0.034 / 0.017 ms at 3.35 TB/s.  Warm cells
 // converge in 2-3 steps at f64; at f32 a third of them take 14-24 (a
@@ -54,11 +49,6 @@
 // launch runs at 8.6x its bound.  Refilling finished threads with
 // unstarted lanes from a device counter measured no faster on the H100
 // at either type, per problem or per residual evaluation (PERF.md, PR 3).
-// The coefficient-and-saturation instance reads 9 fields per cell and
-// writes 10 (8 without saturation), ~75 MB at f64; its constants add 339
-// operations per cell (13 exp, 3 log, 2 sqrt among them) and the
-// saturation values 68 more to the solve's, which stays the larger part
-// of its work at the flagship's warm iteration counts.
 // The bracket-in instance at the surface reads 3 fields per lane and 18
 // per column and writes one per lane (~1.7 MB at f64 for 8192 columns):
 // it is bound by its launch and its slowest lanes, not by the card's
@@ -70,8 +60,8 @@
 // of at the bracket midpoint: most warm problems then converge in one
 // step instead of two or three.  Each instance here has that variant as
 // a template argument of its lane source, so the unseeded variants
-// compile to the code they had before.  The interior instances recover
-// the seed from the pH-space window as the TPU kernel does (x0_of,
+// compile to the code they had before.  The dual instance recovers the
+// seed from the pH-space window as the TPU kernel does (x0_of,
 // carbonate_solve.cuh::ph_seed): H at the window's midpoint where the
 // window is warm (narrower than 1), else none; the bracket-in instance
 // reads it as one more per-lane field (the surface pair's previous root,
@@ -83,7 +73,6 @@
 
 #include <cstdint>
 
-#include "carbonate_coeffs.cuh"
 #include "carbonate_solve.cuh"
 
 namespace obgc {
@@ -93,30 +82,6 @@ constexpr int kNumCoeffs = 15;
 constexpr int kNumIn = 6 + kNumCoeffs;
 constexpr int kNumOut = 8;
 constexpr int kThreads = 256;
-
-// Write the speciation of problem s.part of lane i (the ambient scenario
-// into out[0..3], ALT_CO2 into out[4..7]) and, after the ambient one, set
-// up the ALT_CO2 problem; true once both are written.
-template <bool Seed, typename T>
-__device__ __forceinline__ bool finish_dual(T* const* out, int64_t i,
-                                            Lane<T>& s) {
-  const T h = s.soln;
-  const T h2 = h * h;
-  const T k12 = s.t.k12;
-  const T denom = T(1) / (h2 + s.t.k1 * h + k12);
-  // constant indices keep the pointers in the kernel's parameters
-  const bool a = s.part == 0;
-  (a ? out[0] : out[4])[i] = -m_log10(h);
-  (a ? out[1] : out[5])[i] = s.dic * h2 * denom * T(cst::MASS_TO_VOL);
-  (a ? out[2] : out[6])[i] =
-      s.dic * s.t.k1 * h * denom * T(cst::MASS_TO_VOL);
-  (a ? out[3] : out[7])[i] = s.dic * k12 * denom * T(cst::MASS_TO_VOL);
-  if (s.part == 1) return true;
-  s.part = 1;
-  ph_bracket(s.ph_alt, s.x1, s.x2);
-  if constexpr (Seed) s.x0 = ph_seed(s.ph_alt);
-  return false;
-}
 
 template <typename T, bool Seed>
 struct DualLanes {
@@ -142,64 +107,26 @@ struct DualLanes {
     return true;
   }
 
+  // Write the speciation of problem s.part of lane i (the ambient
+  // scenario into out[0..3], ALT_CO2 into out[4..7]) and, after the
+  // ambient one, set up the ALT_CO2 problem; true once both are written.
   __device__ __forceinline__ bool finish(int64_t i, Lane<T>& s) const {
-    return finish_dual<Seed>(out, i, s);
-  }
-};
-
-// The coefficient-and-saturation instance's inputs per cell: depth (m),
-// T, S (the stand-ins applied), DIC, ALK, PO4, SiO3 (mmol/m^3), the two
-// previous pH fields
-enum SatField : int {
-  S_depth,
-  S_temp,
-  S_salt,
-  S_dic,
-  S_ta,
-  S_pt,
-  S_sit,
-  S_ph_prev_a,
-  S_ph_prev_b,
-  S_COUNT
-};
-constexpr int kNumSatOut = kNumOut + 2;
-
-template <typename T, bool Seed>
-struct DualSatLanes {
-  static constexpr bool kSeed = Seed;
-  const T* in[S_COUNT];
-  // DualLanes' 8 outputs, then co3_sat_calc, co3_sat_arag
-  T* out[kNumSatOut];
-  int64_t ncol;     // cells of one level: cell i is at level i / ncol
-  bool with_sat;
-
-  // the reference's k > 1 gate: no pressure correction on the first level
-  __device__ __forceinline__ bool pressure(int64_t i) const {
-    return i >= ncol;
-  }
-
-  __device__ __forceinline__ bool begin(int64_t i, Lane<T>& s) const {
-    const MassUnits<T> m =
-        to_mass_units(in[S_dic][i], in[S_ta][i], in[S_pt][i], in[S_sit][i]);
-    s.t = talk_terms(carbonate_coeffs(in[S_depth][i], in[S_temp][i],
-                                      in[S_salt][i], pressure(i)),
-                     m);
-    s.dic = m.dic;
-    s.ph_alt = in[S_ph_prev_b][i];
-    s.part = 0;
-    const T ph_prev = in[S_ph_prev_a][i];
-    ph_bracket(ph_prev, s.x1, s.x2);
-    if constexpr (Seed) s.x0 = ph_seed(ph_prev);
-    return true;
-  }
-
-  __device__ __forceinline__ bool finish(int64_t i, Lane<T>& s) const {
-    if (!finish_dual<Seed>(out, i, s)) return false;
-    if (with_sat) {
-      co3_sat_vals(in[S_depth][i], in[S_temp][i], in[S_salt][i],
-                   pressure(i), out[8][i], out[9][i]);
-    }
-    return true;
+    const T h = s.soln;
+    const T h2 = h * h;
+    const T k12 = s.t.k12;
+    const T denom = T(1) / (h2 + s.t.k1 * h + k12);
+    // constant indices keep the pointers in the kernel's parameters
+    const bool a = s.part == 0;
+    (a ? out[0] : out[4])[i] = -m_log10(h);
+    (a ? out[1] : out[5])[i] = s.dic * h2 * denom * T(cst::MASS_TO_VOL);
+    (a ? out[2] : out[6])[i] =
+        s.dic * s.t.k1 * h * denom * T(cst::MASS_TO_VOL);
+    (a ? out[3] : out[7])[i] = s.dic * k12 * denom * T(cst::MASS_TO_VOL);
+    if (s.part == 1) return true;
+    s.part = 1;
+    ph_bracket(s.ph_alt, s.x1, s.x2);
+    if constexpr (Seed) s.x0 = ph_seed(s.ph_alt);
+    return false;
   }
 };
 
@@ -285,19 +212,6 @@ int launch_dual(const void* const* ins, void* const* outs, int64_t n,
 }
 
 template <typename T, bool Seed>
-int launch_dual_sat(const void* const* ins, void* const* outs, int64_t n,
-                    int64_t ncol, bool with_sat, cudaStream_t stream) {
-  DualSatLanes<T, Seed> src;
-  for (int j = 0; j < S_COUNT; ++j) src.in[j] = static_cast<const T*>(ins[j]);
-  for (int j = 0; j < kNumSatOut; ++j) {
-    src.out[j] = j < kNumOut || with_sat ? static_cast<T*>(outs[j]) : nullptr;
-  }
-  src.ncol = ncol;
-  src.with_sat = with_sat;
-  return launch<T>(src, n, stream);
-}
-
-template <typename T, bool Seed>
 int launch_brackets(void* const* fields, int64_t n, int64_t m,
                     cudaStream_t stream) {
   BracketLanes<T, Seed> src;
@@ -329,28 +243,6 @@ extern "C" int obgc_carbonate_dual(int is_double, int seed,
   return seed ? obgc::launch_dual<float, true>(ins, outs, n, s)
               : obgc::launch_dual<float, false>(ins, outs, n, s);
 }
-
-// The coefficient-and-saturation instance: ``ins`` holds the
-// obgc::SatField pointers and ``outs`` 10 (8 if not ``with_sat``), each of
-// ``n`` elements laid out (levels, ``ncol``).
-extern "C" int obgc_carbonate_dual_sat(int is_double, int seed,
-                                       const void* const* ins,
-                                       void* const* outs, long long n,
-                                       long long ncol, int with_sat,
-                                       void* stream) {
-  if (n <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool w = with_sat != 0;
-  if (is_double) {
-    return seed ? obgc::launch_dual_sat<double, true>(ins, outs, n, ncol, w, s)
-                : obgc::launch_dual_sat<double, false>(ins, outs, n, ncol, w,
-                                                       s);
-  }
-  return seed ? obgc::launch_dual_sat<float, true>(ins, outs, n, ncol, w, s)
-              : obgc::launch_dual_sat<float, false>(ins, outs, n, ncol, w, s);
-}
-
-extern "C" int obgc_sat_num_fields() { return obgc::S_COUNT; }
 
 // The bracket-in instance: ``fields`` holds the obgc::BracketField
 // pointers (x0 may be null unless ``seed``); per-lane fields have ``n``

@@ -200,10 +200,13 @@ def evaluate_tendencies(
     surf_src = torch.where(has_ocean, top_dzr, 0.0)   # (ncol,) 1/cm
     bgc_t = bgc_out.tendencies
     bgc_t[0] += surf_src[None, :] * sflux.net_flux
-    dms_t = dms_tend[:, [DT.DMS, DT.DMSP]]
+    # the prognostic tracers' tendencies, gathered by stacking (an index
+    # list would be copied from the host, a synchronisation)
+    dms_t = torch.stack([dms_tend[:, i] for i in (DT.DMS, DT.DMSP)], dim=1)
     dms_t[0, 0] += surf_src * dflux.dms_flux
     dms_t[0, 1] += surf_src * dflux.dmsp_flux
-    mac_t = mac_tend[:, [MT.PROT, MT.POLY, MT.LIP]]
+    mac_t = torch.stack([mac_tend[:, i] for i in (MT.PROT, MT.POLY, MT.LIP)],
+                        dim=1)
 
     tend = CoupledTendencies(
         bgc=bgc_t, dms=dms_t, macros=mac_t,

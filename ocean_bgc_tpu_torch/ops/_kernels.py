@@ -33,7 +33,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 INCLUDE_DIR = BUILD_DIR / "include"
-SOURCES = ("carbonate_dual", "interior_step", "probe_patterns")
+SOURCES = ("carbonate_dual", "carbonate_coeffs", "interior_step",
+           "probe_patterns")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

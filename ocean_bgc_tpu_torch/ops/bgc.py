@@ -11,9 +11,10 @@ nitrification/denitrification and DOM cycling.
 Layout and schedule follow the JAX package: columns on the last axis,
 all per-cell algebra batched over ``(nlev, ncol)``, PAR attenuation as a
 cumulative product over levels, the dual pH solve over every cell at
-once (the CUDA kernel K1, ``ops/cuda_carbonate.py``: with an env cache
-its cached-constants instance, without one the instance that evaluates
-the constants and the saturation values itself), and the sinking
+once (the CUDA kernel K1, ``ops/cuda_carbonate.py``: its dual instance
+on the env cache's constants, or without an env cache on those the
+constants kernel evaluates first, with the saturation values), and the
+sinking
 recurrence — the one sequential level coupling — as a Python loop over
 levels.  Autotroph groups are a Python loop over 4 static trait sets.
 Everything is masked by the per-column active-level count.  The
@@ -39,7 +40,7 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
 )
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     co3_terms_dual_coeffs,
-    co3_terms_dual_sat,
+    dual_sat_and_coeffs,
     solve_htotal_brackets,
     subsurface_of,
 )
@@ -310,9 +311,10 @@ def ecosystem_kinetics(
     cdt = temp.dtype
 
     def _ns(trait_n, trait_s):
-        """North/south trait select, in the working dtype."""
-        return torch.where(north, lat.new_tensor(trait_n, dtype=cdt),
-                           lat.new_tensor(trait_s, dtype=cdt))
+        """North/south trait select, in the working dtype (each value
+        filled on the device: a copy from the host would synchronise)."""
+        return torch.where(north, lat.new_full((), trait_n, dtype=cdt),
+                           lat.new_full((), trait_s, dtype=cdt))
 
     no3 = tr[:, T.NO3]
     sio3 = tr[:, T.SIO3]
@@ -622,8 +624,8 @@ def ecosystem_kinetics(
     lit = par_avg > 1.0    # euphotic-zone photochemistry switch
 
     def _lit_fac(bright, dark):
-        return torch.where(lit, doc.new_tensor(bright),
-                           doc.new_tensor(dark))
+        return torch.where(lit, doc.new_full((), bright),
+                           doc.new_full((), dark))
 
     doc_remin = doc * c.DOC_REMINR * _lit_fac(1.0, c.DOC_REMIN_DARK_FAC)
     don_remin = don * c.DON_REMINR * _lit_fac(1.0, c.DON_REMIN_DARK_FAC)
@@ -895,21 +897,20 @@ def q10_tfunc(temp):
     return c.Q_10 ** ((temp - c.TREF) / 10.0)
 
 
-def interior_coeffs(grid: ColumnGrid, forcing: BGCForcing) -> CarbCoeffs:
-    """The interior solve's equilibrium constants evaluated in-step (no
-    env cache): inactive cells at the stand-in T 10, S 35, pressure
-    corrections below the surface level."""
-    depth_m = grid.cell_center_depth * 0.01
-    temp_s, salt_s = _standin_ts(grid, forcing)
-    return carbonate_coeffs(depth_m, temp_s, salt_s, subsurface_of(depth_m),
-                            k1_k2_ph_tot=True)
-
-
 def _standin_ts(grid: ColumnGrid, forcing: BGCForcing):
     """T and S with the stand-ins (T 10, S 35) below the ocean floor."""
     active = grid.active_mask()
     return (torch.where(active, forcing.potential_temperature, 10.0),
             torch.where(active, forcing.salinity, 35.0))
+
+
+def coeff_inputs(grid: ColumnGrid, forcing: BGCForcing) -> tuple:
+    """The interior's equilibrium constants' inputs without an env cache,
+    contiguous, as :func:`carbonate_coeffs_sat` takes them: depth (m), and
+    T and S with the stand-ins (T 10, S 35) below the ocean floor."""
+    temp_s, salt_s = _standin_ts(grid, forcing)
+    return ((grid.cell_center_depth * 0.01).contiguous(),
+            temp_s.contiguous(), salt_s.contiguous())
 
 
 def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
@@ -919,7 +920,7 @@ def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
     :func:`bgc_source_sink` gives them, all contiguous.  With an env cache,
     those of :func:`co3_terms_dual_coeffs`: DIC, ALK, PO4, SiO3 of the
     clipped ``tracers``, the two pH seeds and the cached constants.
-    Without one, those of :func:`co3_terms_dual_sat`: depth (m), T and S,
+    Without one, those of :func:`co3_terms_dual_sat`: :func:`coeff_inputs`,
     the same four tracers and the two previous pH fields.
 
     Inactive cells get the benign stand-in problem the env cache solved
@@ -935,10 +936,8 @@ def carbonate_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
     tr = (field(T.DIC, 2000.0), field(T.ALK, 2300.0), field(T.PO4, 0.0),
           field(T.SIO3, 0.0))
     if env is None:
-        temp_s, salt_s = _standin_ts(grid, forcing)
-        return ((grid.cell_center_depth * 0.01).contiguous(),
-                temp_s.contiguous(), salt_s.contiguous(), *tr,
-                ph_prev_3d.contiguous(), ph_prev_alt_3d.contiguous())
+        return (*coeff_inputs(grid, forcing), *tr, ph_prev_3d.contiguous(),
+                ph_prev_alt_3d.contiguous())
     ph_seed = torch.where(active, ph_prev_3d, env.standin_ph)
     ph_seed_alt = torch.where(active, ph_prev_alt_3d, env.standin_ph)
     return (*tr, ph_seed.contiguous(), ph_seed_alt.contiguous(),
@@ -985,16 +984,16 @@ def bgc_source_sink(
 
     ``env``: precomputed forcing-invariant tables (:func:`precompute_env`),
     valid while (T, S, grid) are those the cache was built from.  Without
-    one, the pH solve evaluates the equilibrium constants per cell (and,
-    with diagnostics, the saturation values) itself.
+    one, the step evaluates the equilibrium constants per cell (and, with
+    diagnostics, the saturation values) once, for the pH solve and the
+    health counters (:func:`carbonate_coeffs_sat`).
 
     ``carbonate_impl``: "auto" (the CUDA kernel on CUDA tensors, its plain
     version on CPU tensors), "kernel" (CUDA tensors only) or "torch" (the
     plain version anywhere); see ``ops/cuda_carbonate.py``.
 
     ``health``: also return :class:`StepHealth`, at the cost of one
-    alkalinity residual per cell (and, without an env cache, the
-    equilibrium constants in torch).
+    alkalinity residual per cell.
 
     ``x0_seed``: seed the pH solve at the previous root (K1's seeded
     variant); None reads ``OBGC_X0_SEED`` (``ops/carbonate.py::
@@ -1025,20 +1024,22 @@ def bgc_source_sink(
     fe = tr[:, T.FE]
     o2 = tr[:, T.O2]
 
-    # Carbonate chemistry for all cells at once (K1).  The speciation and
-    # the saturation values feed only diagnostics.
+    # Carbonate chemistry for all cells at once (K1), on the env cache's
+    # constants or, without one, on constants evaluated once here for the
+    # solve and the health counters.  The speciation and the saturation
+    # values feed only diagnostics.
     args = carbonate_inputs(tracers, grid, forcing, ph_prev_3d,
                             ph_prev_alt_3d, env)
     seed = x0_seed_enabled() if x0_seed is None else x0_seed
     if env is not None:
-        ((ph_3d, h2co3, hco3, co3),
-         (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt)) = co3_terms_dual_coeffs(
-            *args, seed=seed, impl=carbonate_impl)
-        sat = (env.co3_sat_calc, env.co3_sat_arag)
+        coeffs, sat = args[-1], (env.co3_sat_calc, env.co3_sat_arag)
+        amb, alt = co3_terms_dual_coeffs(*args, seed=seed,
+                                         impl=carbonate_impl)
     else:
-        ((ph_3d, h2co3, hco3, co3),
-         (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt), sat) = co3_terms_dual_sat(
+        coeffs, amb, alt, sat = dual_sat_and_coeffs(
             *args, with_sat=compute_diags, seed=seed, impl=carbonate_impl)
+    ph_3d, h2co3, hco3, co3 = amb
+    ph_3d_alt, h2co3_alt, hco3_alt, co3_alt = alt
 
     ph_new = torch.where(active, ph_3d, ph_prev_3d)
     ph_alt_new = torch.where(active, ph_3d_alt, ph_prev_alt_3d)
@@ -1050,10 +1051,7 @@ def bgc_source_sink(
 
     health_out = None
     if health:
-        health_out = _health(
-            tr, ph_3d,
-            env.coeffs if env is not None else interior_coeffs(grid, forcing),
-            kin, active)
+        health_out = _health(tr, ph_3d, coeffs, kin, active)
 
     # ------------------------------------------------------------------
     # Sinking-particle recurrence over levels — the only sequential level

@@ -1,36 +1,38 @@
-"""K1, the pH solve: the CUDA kernel's wrappers and their plain PyTorch
-versions, in three instances.
+"""K1, the pH solve: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
 Counterpart of ``ocean_bgc_tpu/ops/pallas_carbonate.py``.
 
-- :func:`co3_terms_dual_coeffs`, the dual interior instance the step
-  with an env cache launches (equilibrium constants read from the cache,
-  no saturation outputs).  Per cell, for the ambient and the ALT_CO2
-  scenario: the pH bracket from the previous pH (+/- DEL_PH, or the cold
-  [6, 9] window where it is the 0 sentinel), the bracketed safe-Newton
-  root of the alkalinity residual, and the speciation.
-- :func:`co3_terms_dual_sat`, the coefficient-and-saturation instance the
-  step without an env cache launches: the same dual solve, with the 15
-  constants evaluated per cell from depth, T and S, and optionally the
-  calcite and aragonite saturation values (the TPU kernel's
-  ``coeffs_in=False, with_sat=True``).
+- :func:`co3_terms_dual_coeffs`, the dual interior instance: per cell,
+  for the ambient and the ALT_CO2 scenario, the pH bracket from the
+  previous pH (+/- DEL_PH, or the cold [6, 9] window where it is the 0
+  sentinel), the bracketed safe-Newton root of the alkalinity residual,
+  and the speciation, from given equilibrium constants (the env cache's,
+  or :func:`carbonate_coeffs_sat`'s).
+- :func:`carbonate_coeffs_sat`, the constants kernel: the 15 constants
+  of every cell from depth, T and S, and optionally the calcite and
+  aragonite saturation values (``csrc/carbonate_coeffs.cu``).
+- :func:`co3_terms_dual_sat`, the TPU kernel's ``coeffs_in=False,
+  with_sat=True`` variant, the step without an env cache: the constants
+  kernel, then the dual instance on its constants.
 - :func:`solve_htotal_brackets`, the bracket-in instance: H of every lane
   from H-space brackets given as input, the function of
   ``ops/carbonate.py::_solve_htotal_impl``.  It solves the surface pair
   (``co2calc_surface_dual``) and the env cache's stand-in problem
   (``ops/bgc.py::precompute_env``).
 
-Each launches ``csrc/carbonate_dual.cu`` for CUDA tensors and takes its
-plain version for CPU tensors, or wherever the caller asks for
+Each launches its kernel (``csrc/carbonate_dual.cu``, or
+``csrc/carbonate_coeffs.cu`` for the constants) for CUDA tensors and
+takes its plain version for CPU tensors, or wherever the caller asks for
 ``impl="torch"``.  A CUDA tensor never falls back to the plain version.
-Every instance runs its lanes (``csrc/carbonate_solve.cuh``) one per
+The solves run their lanes (``csrc/carbonate_solve.cuh``) one per
 thread, and none makes a host synchronisation.
 
-Each instance also has the TPU kernel's seeded variant (``x0_seed``,
+Each solve also has the TPU kernel's seeded variant (``x0_seed``,
 ``OBGC_X0_SEED=1``; ``ops/carbonate.py::x0_seed_enabled``), selected by
 its ``seed`` argument: every problem's iteration starts at the previous
 root, clamped into its bracket, instead of the bracket midpoint.  The
-interior instances recover the seed from the pH window
+dual instance recovers the seed from the pH window
 (:func:`_ph_brackets`), the bracket-in instance takes it per lane.  A
 wrapper counts its seeded launches apart, in ``.seeded_launches``.
 """
@@ -63,11 +65,10 @@ IMPLS = ("auto", "kernel", "torch")
 # holds the two equal): per lane, per shared element, then the output.
 BRACKET_FIELDS = ("dic", "x1", "x2", "x0", "ta", "pt", "sit",
                   *CarbCoeffs._fields, "h")
-# The coefficient-and-saturation instance's inputs, in the order of the
-# enum SatField in csrc/carbonate_dual.cu (tests/test_torch_carbonate.py
-# holds the two equal).
-SAT_FIELDS = ("depth", "temp", "salt", "dic", "ta", "pt", "sit", "ph_prev_a",
-              "ph_prev_b")
+# The constants kernel's outputs, in the order of the enum CoeffOut in
+# csrc/carbonate_coeffs.cu (tests/test_torch_carbonate.py holds the two
+# equal).
+COEFF_OUTPUTS = (*CarbCoeffs._fields, "sat_calc", "sat_arag")
 
 
 def _speciate(h, dic, coeffs):
@@ -213,90 +214,129 @@ def subsurface_of(depth_m):
     return (torch.arange(depth_m.shape[0], device=depth_m.device) > 0)[:, None]
 
 
-def co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
-                             ph_prev_a, ph_prev_b, *, with_sat=True,
-                             seed=False, with_stats=False):
-    """The plain PyTorch version of the coefficient-and-saturation
-    instance (same arguments and results as :func:`co3_terms_dual_sat`):
-    ``carbonate_coeffs``, the dual solve of
-    :func:`co3_terms_dual_coeffs_torch` and ``co3_sat_vals``, in the
-    kernel's order.  ``with_stats`` adds the solver's per-lane counts of
-    each scenario as a fourth element."""
+def carbonate_coeffs_sat_torch(depth_m, temp, salt, *, with_sat=True):
+    """The plain PyTorch version of the constants kernel (same arguments
+    and results as :func:`carbonate_coeffs_sat`): ``carbonate_coeffs``
+    with the Lueker k1/k2 and ``co3_sat_vals``, pressure corrections
+    below the first level."""
     subsurface = subsurface_of(depth_m)
     coeffs = carbonate_coeffs(depth_m, temp, salt, subsurface,
                               k1_k2_ph_tot=True)
+    sat = (co3_sat_vals(depth_m, temp, salt, subsurface) if with_sat
+           else None)
+    return coeffs, sat
+
+
+def _launch_coeffs(depth_m, temp, salt, with_sat):
+    """Launch the constants kernel; returns its :data:`COEFF_OUTPUTS`
+    (the constants only, without ``with_sat``), views of one buffer."""
+    lib = _kernels.load("carbonate_coeffs")
+    fn = lib.obgc_carbonate_coeffs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if lib.obgc_coeffs_num_outputs() != len(COEFF_OUTPUTS):
+        raise RuntimeError("csrc/carbonate_coeffs.cu and "
+                           "ops/cuda_carbonate.py disagree on the constants "
+                           "kernel's outputs")
+    n_out = len(COEFF_OUTPUTS) if with_sat else len(CarbCoeffs._fields)
+    outs = torch.empty((n_out, *depth_m.shape), dtype=depth_m.dtype,
+                       device=depth_m.device).unbind(0)
+    outs_p = (ctypes.c_void_p * len(COEFF_OUTPUTS))(
+        *(t.data_ptr() for t in outs))
+    stream = torch.cuda.current_stream(depth_m.device).cuda_stream
+    code = fn(int(depth_m.dtype == torch.float64), depth_m.data_ptr(),
+              temp.data_ptr(), salt.data_ptr(), outs_p, depth_m.numel(),
+              depth_m.shape[1], int(with_sat), stream)
+    _kernels.check(lib, code, "carbonate_coeffs launch")
+    return outs
+
+
+def carbonate_coeffs_sat(depth_m, temp, salt, *, with_sat=True,
+                         impl="auto"):
+    """The equilibrium constants of every cell, and the saturation
+    values.
+
+    Inputs are (nlev, ncol) tensors: depth (m), temperature and salinity
+    (stand-ins applied where the caller wants them); the constants take
+    pressure corrections below the first level.  ``with_sat=False`` skips
+    the saturation values.  ``impl``: "auto" launches the kernel on CUDA
+    tensors and uses the plain version on CPU tensors; "kernel" requires
+    CUDA tensors; "torch" takes the plain version on any device.
+
+    Returns ``(CarbCoeffs, (co3_sat_calc, co3_sat_arag) or None)``, the
+    saturation values in mmol/m^3.  Each kernel launch adds one to
+    ``carbonate_coeffs_sat.launches``.
+    """
+    _check_impl(impl)
+    if impl == "torch" or (impl == "auto" and depth_m.device.type == "cpu"):
+        return carbonate_coeffs_sat_torch(depth_m, temp, salt,
+                                          with_sat=with_sat)
+    if depth_m.dim() != 2:
+        raise ValueError(f"carbonate_coeffs takes (nlev, ncol) fields, got "
+                         f"shape {tuple(depth_m.shape)}")
+    _check_kernel_inputs("carbonate_coeffs", depth_m, {
+        k: (t, depth_m.shape) for k, t in (("depth_m", depth_m),
+                                           ("temp", temp), ("salt", salt))})
+    outs = _launch_coeffs(depth_m, temp, salt, with_sat)
+    carbonate_coeffs_sat.launches += 1
+    return CarbCoeffs(*outs[:15]), (tuple(outs[15:]) if with_sat else None)
+
+
+carbonate_coeffs_sat.launches = 0
+
+
+def co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
+                             ph_prev_a, ph_prev_b, *, with_sat=True,
+                             seed=False, with_stats=False):
+    """The plain PyTorch version of :func:`co3_terms_dual_sat` (same
+    arguments and results): :func:`carbonate_coeffs_sat_torch`, then the
+    dual solve of :func:`co3_terms_dual_coeffs_torch`.  ``with_stats``
+    adds the solver's per-lane counts of each scenario as a fourth
+    element."""
+    coeffs, sat = carbonate_coeffs_sat_torch(depth_m, temp, salt,
+                                             with_sat=with_sat)
     a, b, *stats = co3_terms_dual_coeffs_torch(
         dic, ta, pt, sit, ph_prev_a, ph_prev_b, coeffs, seed=seed,
         with_stats=with_stats)
-    sat = (co3_sat_vals(depth_m, temp, salt, subsurface) if with_sat
-           else None)
     return (a, b, sat, *stats)
-
-
-def _launch_sat(fields, with_sat, seed=False):
-    """Launch the coefficient-and-saturation instance on ``fields`` (the
-    :data:`SAT_FIELDS` tensors, in order); returns its 8 or 10 outputs."""
-    lib = _kernels.load("carbonate_dual")
-    fn = lib.obgc_carbonate_dual_sat
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    if lib.obgc_sat_num_fields() != len(SAT_FIELDS):
-        raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
-                           "disagree on the coefficient-and-saturation "
-                           "argument layout")
-    ref = fields[0]
-    outs = [torch.empty_like(ref) for _ in range(10 if with_sat else 8)]
-    ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
-    outs_p = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
-    stream = torch.cuda.current_stream(ref.device).cuda_stream
-    code = fn(int(ref.dtype == torch.float64), int(seed), ins_p, outs_p,
-              ref.numel(), ref.shape[1], int(with_sat), stream)
-    _kernels.check(lib, code, "carbonate_dual_sat launch")
-    return outs
 
 
 def co3_terms_dual_sat(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
                        ph_prev_b, *, with_sat=True, seed=False, impl="auto"):
     """Dual pH solve of every cell with the equilibrium constants
-    evaluated per cell, and the saturation values.
+    evaluated per cell, and the saturation values: the TPU kernel's
+    ``coeffs_in=False, with_sat=True`` variant, as two launches on CUDA
+    tensors, :func:`carbonate_coeffs_sat` and then
+    :func:`co3_terms_dual_coeffs` on its constants (each counted by its
+    own wrapper).
 
-    Inputs are (nlev, ncol) tensors: depth (m), temperature and salinity
-    (stand-ins applied where the caller wants them), DIC, ALK, PO4, SiO3
-    in mmol/m^3 and the previous pH of each scenario (0 = no previous
-    solution); the constants take pressure corrections below the first
-    level.  ``with_sat=False`` skips the saturation values.  ``impl``:
-    "auto" launches the kernel on CUDA tensors and uses the plain version
-    on CPU tensors; "kernel" requires CUDA tensors; "torch" takes the
-    plain version on any device.  ``seed``: the seeded variant (see the
-    module's docstring).
+    Inputs are (nlev, ncol) tensors: the three of
+    :func:`carbonate_coeffs_sat`, then DIC, ALK, PO4, SiO3 in mmol/m^3 and
+    the previous pH of each scenario (0 = no previous solution).
+    ``with_sat``, ``seed`` and ``impl`` as those wrappers take them.
 
     Returns ``((ph, h2co3, hco3, co3) ambient, (...) ALT_CO2,
     (co3_sat_calc, co3_sat_arag) or None)``, concentrations in mmol/m^3.
-    Each kernel launch adds one to ``co3_terms_dual_sat.launches``, or
-    with ``seed`` to ``co3_terms_dual_sat.seeded_launches``.
     """
-    _check_impl(impl)
-    if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
-        return co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
-                                        ph_prev_a, ph_prev_b,
-                                        with_sat=with_sat, seed=seed)
-    fields = (depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a, ph_prev_b)
-    if dic.dim() != 2:
-        raise ValueError(f"carbonate_dual_sat takes (nlev, ncol) fields, got "
-                         f"shape {tuple(dic.shape)}")
-    _check_kernel_inputs("carbonate_dual_sat", dic, {
-        k: (t, dic.shape) for k, t in zip(SAT_FIELDS, fields)})
-    outs = _launch_sat(fields, with_sat, seed)
-    _count(co3_terms_dual_sat, seed)
-    return (tuple(outs[:4]), tuple(outs[4:8]),
-            tuple(outs[8:]) if with_sat else None)
+    _, a, b, sat = dual_sat_and_coeffs(
+        depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a, ph_prev_b,
+        with_sat=with_sat, seed=seed, impl=impl)
+    return a, b, sat
 
 
-co3_terms_dual_sat.launches = 0
-co3_terms_dual_sat.seeded_launches = 0
+def dual_sat_and_coeffs(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
+                        ph_prev_b, *, with_sat, seed, impl):
+    """:func:`co3_terms_dual_sat`'s two launches, returning the constants
+    too, ``(CarbCoeffs, ambient, ALT_CO2, sat)``: the step without an env
+    cache hands them on to its health counters."""
+    coeffs, sat = carbonate_coeffs_sat(depth_m, temp, salt,
+                                       with_sat=with_sat, impl=impl)
+    a, b = co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
+                                 coeffs, seed=seed, impl=impl)
+    return coeffs, a, b, sat
 
 
 def _launch_brackets(fields):

@@ -9,7 +9,9 @@ ecosystem kinetics with PAR, the sinking recurrence with Fe scavenging,
 restoring and the tendency assembly.  The kernel reads
 the equilibrium constants, the Q10 response and the dissolution factors
 precomputed: from the env cache when one is given, otherwise evaluated
-here first with the plain version's own torch functions.
+here first, the constants by K1's constants kernel
+(``ops/cuda_carbonate.py::carbonate_coeffs_sat``, its plain version on
+CPU tensors) and the rest with the plain version's own torch functions.
 
 :func:`fused_interior_step` launches the kernel for CUDA tensors and
 takes :func:`fused_interior_step_torch` for CPU tensors.  Both compute
@@ -29,9 +31,10 @@ from ocean_bgc_tpu_torch.ops import _kernels
 from ocean_bgc_tpu_torch.ops.bgc import (
     EnvCache,
     bgc_source_sink,
-    interior_coeffs,
+    coeff_inputs,
     q10_tfunc,
 )
+from ocean_bgc_tpu_torch.ops.cuda_carbonate import carbonate_coeffs_sat
 from ocean_bgc_tpu_torch.ops.kernel_params import NUM_PARAMS, pack_bgc_params
 from ocean_bgc_tpu_torch.ops.particulates import (
     DissolutionCache,
@@ -83,7 +86,8 @@ def kernel_inputs(tracers, grid: ColumnGrid, forcing: BGCForcing,
     if env is not None:
         coeffs, tfunc, diss = env.coeffs, env.tfunc, env.diss
     else:
-        coeffs = interior_coeffs(grid, forcing)
+        coeffs, _ = carbonate_coeffs_sat(*coeff_inputs(grid, forcing),
+                                         with_sat=False)
         tfunc = q10_tfunc(forcing.potential_temperature)
         diss = precompute_dissolution(forcing.potential_temperature,
                                       grid.cell_thickness,

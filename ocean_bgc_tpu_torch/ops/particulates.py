@@ -120,9 +120,13 @@ def _scalelength(cell_bottom_depth, params: BGCParams):
     (parm_scalelen_z, parm_scalelen_vals) table, in the arithmetic of
     ``jnp.interp``."""
     x = cell_bottom_depth
-    xp = torch.tensor(params.parm_scalelen_z, dtype=x.dtype, device=x.device)
-    fp = torch.tensor(params.parm_scalelen_vals, dtype=x.dtype,
-                      device=x.device)
+    n = len(params.parm_scalelen_z)
+    # one copy of both tables, from pinned memory on the card: a copy from
+    # pageable memory would synchronise with the host
+    knots = torch.tensor((*params.parm_scalelen_z, *params.parm_scalelen_vals),
+                         dtype=x.dtype, pin_memory=x.is_cuda)
+    knots = knots.to(x.device, non_blocking=True)
+    xp, fp = knots[:n], knots[n:]
     i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True),
                     1, len(xp) - 1)
     df = fp[i] - fp[i - 1]
@@ -217,9 +221,9 @@ def particulate_level_update(
     poc_diss = torch.where(
         (o2_loc >= 5.0) & (o2_loc < 40.0),
         params.parm_POC_diss * (1.0 + (3.3 - 1.0) * (40.0 - o2_loc) / 35.0),
-        torch.where(o2_loc < 5.0, o2_loc.new_tensor(params.parm_POC_diss
-                                                    * 3.3),
-                    o2_loc.new_tensor(params.parm_POC_diss)))
+        torch.where(o2_loc < 5.0, o2_loc.new_full((), params.parm_POC_diss
+                                                  * 3.3),
+                    o2_loc.new_full((), params.parm_POC_diss)))
 
     poc_diss = scalelength * poc_diss
     decay_poc_e = torch.exp(-dz / poc_diss)
@@ -326,8 +330,8 @@ def particulate_level_update(
 
     sio2_flux = sio2_s_out + sio2_h_out
     sio2_bury_eff = torch.where(sio2_flux * MPERCM * SPD > 2.0,
-                                sio2_flux.new_tensor(0.2),
-                                sio2_flux.new_tensor(0.04))
+                                sio2_flux.new_full((), 0.2),
+                                sio2_flux.new_full((), 0.04))
     sio2_sed_loss = torch.where(bot, sio2_flux * params.parm_BSIbury
                                 * sio2_bury_eff, 0.0)
 

@@ -149,6 +149,10 @@ def _run(args) -> int:
     start_step = 0
     if args.restore:
         state, n = ckpt.restore(args.restore, device=device)
+        held = state.bgc.tracers.dtype
+        if held != dtype:
+            raise SystemExit(f"{args.restore} holds {held} tracers, but this "
+                             f"run is {dtype} (--fp32 selects float32)")
         start_step = n or 0
         if not args.quiet:
             print(f"resumed from {args.restore} at step {start_step}")

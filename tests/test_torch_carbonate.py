@@ -22,7 +22,8 @@ from ocean_bgc_tpu_torch import constants
 from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs, precompute_env
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     BRACKET_FIELDS,
-    SAT_FIELDS,
+    COEFF_OUTPUTS,
+    carbonate_coeffs_sat,
     co3_terms_dual_coeffs,
     co3_terms_dual_coeffs_torch,
     solve_htotal_brackets,
@@ -48,6 +49,7 @@ def _cells(seed, n):
 
 
 def _t(a, dtype=torch.float64):
+    """A CPU tensor of ``a``, of ``dtype`` (None: ``a``'s own)."""
     return torch.tensor(np.asarray(a), dtype=dtype)
 
 
@@ -61,43 +63,85 @@ def _coeffs_both(w, dtype):
             tcarb.CarbCoeffs(*(torch.tensor(a) for a in arrs)))
 
 
-# f64 formula ports: the same expressions in the same order, so they
-# differ only by libm/XLA ulps; 1e-13 relative bounds a few ulps through
-# the ~10-term exp arguments.
-def test_coeffs_talk_sat_match_jax_f64():
-    w = _cells(1, 400)
-    args = (w["depth"], w["temp"], w["salt"])
+# Formula ports: the same expressions in the same order, so the two
+# packages differ only by libm/XLA ulps.  At f64, 1e-13 relative bounds a
+# few ulps through the ~10-term exp arguments.  At f32 the exp arguments
+# are sums of terms up to ~1.1e3 (kb's) that cancel to O(10): four f32
+# roundings of such a term, 4 * 1.1e3 * 2**-24 ~ 2.6e-4, are that
+# relative error in the constant, so 3e-4; the residual's terms (~2.5e-3
+# mol/kg) carry it, so its atol is 3e-4 of that scale.
+_FORMULA_TOL = {np.float64: dict(rtol=1e-13, fn_atol=1e-15, df_rtol=1e-12),
+                np.float32: dict(rtol=3e-4, fn_atol=7.5e-7, df_rtol=3e-4)}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_coeffs_talk_sat_match_jax_f64(dtype):
+    """The constants, the alkalinity residual and the saturation values
+    of both packages, the surface and interior forms, and the constants
+    kernel's plain version (``carbonate_coeffs_sat`` on CPU tensors, with
+    the pressure gate below the first level).  All on (20, 20) fields, so
+    that JAX compiles each operation once."""
+    tol = _FORMULA_TOL[dtype]
+    w = {k: v.reshape(20, 20) for k, v in _cells(1, 400).items()}
+    args = tuple(w[k].astype(dtype) for k in ("depth", "temp", "salt"))
     for ph_tot in (True, False):
         jc = jcarb.carbonate_coeffs(*(jnp.asarray(a) for a in args),
                                     jnp.asarray(w["press"]),
                                     k1_k2_ph_tot=ph_tot)
-        tc = tcarb.carbonate_coeffs(*(_t(a) for a in args),
+        tc = tcarb.carbonate_coeffs(*(_t(a, None) for a in args),
                                     torch.tensor(w["press"]),
                                     k1_k2_ph_tot=ph_tot)
         for name, a, b in zip(jcarb.CarbCoeffs._fields, jc, tc):
+            assert b.dtype == _t(args[0], None).dtype
             np.testing.assert_allclose(b.numpy(), np.asarray(a),
-                                       rtol=1e-13, err_msg=name)
+                                       rtol=tol["rtol"], err_msg=name)
     # the surface form takes a Python bool gate
     jc0 = jcarb.carbonate_coeffs(*(jnp.asarray(a) for a in args), False)
-    tc0 = tcarb.carbonate_coeffs(*(_t(a) for a in args), False)
+    tc0 = tcarb.carbonate_coeffs(*(_t(a, None) for a in args), False)
     for a, b in zip(jc0, tc0):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-13)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                   rtol=tol["rtol"])
 
-    h = 10.0 ** -np.random.default_rng(2).uniform(6.5, 9.0, 400)
-    m = [w[k] * (1.0 / 1.026e6) for k in ("dic", "ta", "pt", "sit")]
+    h = (10.0 ** -np.random.default_rng(2).uniform(6.5, 9.0, (20, 20))
+         ).astype(dtype)
+    m = [(w[k] * (1.0 / 1.026e6)).astype(dtype)
+         for k in ("dic", "ta", "pt", "sit")]
     fj, dj = jcarb.talk(jc, *(jnp.asarray(a) for a in m), jnp.asarray(h))
-    ft, dt = tcarb.talk(tc, *(_t(a) for a in m), _t(h))
+    ft, dt = tcarb.talk(tc, *(_t(a, None) for a in m), _t(h, None))
     # fn is a difference of ~1e-3 terms near a root: compare on the
     # terms' scale, not relative to fn itself
     np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=0,
-                               atol=1e-15)
-    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-12)
+                               atol=tol["fn_atol"])
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj),
+                               rtol=tol["df_rtol"])
 
     sj = jcarb.co3_sat_vals(*(jnp.asarray(a) for a in args),
                             jnp.asarray(w["press"]))
-    st = tcarb.co3_sat_vals(*(_t(a) for a in args), torch.tensor(w["press"]))
+    st = tcarb.co3_sat_vals(*(_t(a, None) for a in args),
+                            torch.tensor(w["press"]))
     for a, b in zip(sj, st):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-13)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                   rtol=tol["rtol"])
+
+    # the constants kernel's plain version: pressure below the first level
+    subsurface = np.repeat((np.arange(20) > 0)[:, None], 20, axis=1)
+    jc = jcarb.carbonate_coeffs(*(jnp.asarray(a) for a in args),
+                                jnp.asarray(subsurface), k1_k2_ph_tot=True)
+    sj = jcarb.co3_sat_vals(*(jnp.asarray(a) for a in args),
+                            jnp.asarray(subsurface))
+    before = carbonate_coeffs_sat.launches
+    for with_sat in (True, False):
+        tc, st = carbonate_coeffs_sat(*(_t(a, None) for a in args),
+                                      with_sat=with_sat)
+        assert (st is None) != with_sat
+        for name, a, b in zip(COEFF_OUTPUTS, (*jc, *sj), (*tc, *(st or ()))):
+            assert b.dtype == _t(args[0], None).dtype
+            np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                       rtol=tol["rtol"], err_msg=name)
+    assert carbonate_coeffs_sat.launches == before     # no kernel on CPU
+    with pytest.raises(ValueError, match="CUDA"):
+        carbonate_coeffs_sat(*(_t(a, None) for a in args), impl="kernel")
 
 
 def _surface_inputs(seed, n):
@@ -349,20 +393,22 @@ def test_bracket_instance_argument_layout_matches_the_source():
 
 
 def test_sat_instance_argument_layout_matches_the_source():
-    """The same for the coefficient-and-saturation instance: SAT_FIELDS
-    against the kernel's SatField enum, and the order in which
-    ops/bgc.py::carbonate_inputs gives the fields without an env cache."""
+    """The same for the coefficient-and-saturation route: COEFF_OUTPUTS
+    against the constants kernel's CoeffOut enum (the constants in
+    CarbCoeffs order, then the saturation values), and the order in which
+    ops/bgc.py::carbonate_inputs gives the fields without an env cache:
+    the constants' three, then the dual solve's six."""
     src = (Path(__file__).resolve().parent.parent / "ocean_bgc_tpu_torch"
-           / "csrc" / "carbonate_dual.cu").read_text()
-    body = re.search(r"enum SatField : int \{(.*?)\};", src, re.S)[1]
+           / "csrc" / "carbonate_coeffs.cu").read_text()
+    body = re.search(r"enum CoeffOut : int \{(.*?)\};", src, re.S)[1]
     names = [n.strip() for n in body.split(",") if n.strip()]
-    assert names == ["S_" + f for f in SAT_FIELDS] + ["S_COUNT"]
+    assert names == ["O_" + f for f in COEFF_OUTPUTS] + ["O_COUNT"]
+    assert COEFF_OUTPUTS[:15] == tcarb.CarbCoeffs._fields
     state, grid, forcing = synthetic_world(nlev=3, ncol=5, seed=2,
                                            device="cpu")
     b = state.bgc
     args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
                             b.ph_prev_alt_3d)
-    assert len(args) == len(SAT_FIELDS)
+    assert len(args) == 9
     assert torch.equal(args[0], grid.cell_center_depth * 0.01)
-    assert torch.equal(args[SAT_FIELDS.index("ph_prev_b")],
-                       b.ph_prev_alt_3d)
+    assert torch.equal(args[-1], b.ph_prev_alt_3d)

@@ -1,8 +1,8 @@
 """The kernels on the card against their plain versions: K1 (the dual pH
-solve, its coefficient-and-saturation instance for the step without an
-env cache, and its bracket-in instance for the surface pair and the
-stand-in, each also seeded) and the production and default steps with it, K2 (the whole interior) and the fused
-step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
+solve, on the constants kernel's constants in the step without an env
+cache, and its bracket-in instance for the surface pair and the
+stand-in, each also seeded) and the production and default steps with
+it, K2 (the whole interior) and the fused step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 
@@ -20,6 +20,8 @@ from ocean_bgc_tpu_torch.ops import cuda_step as cs
 from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     _ph_brackets,
+    carbonate_coeffs_sat,
+    carbonate_coeffs_sat_torch,
     co3_terms_dual_coeffs,
     co3_terms_dual_coeffs_torch,
     co3_terms_dual_sat,
@@ -103,30 +105,63 @@ def test_kernel_step_equals_plain_step(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_constants_kernel_matches_plain_version(cuda, dtype):
+    """The constants kernel against its plain version (``carbonate_coeffs``
+    and ``co3_sat_vals`` in torch) on the inputs of the step without an
+    env cache: the 15 constants and the 2 saturation values bitwise
+    equal, with and without the saturation values; one launch counted per
+    call.  The constants repeat the plain version's expressions in its
+    order with PyTorch's CUDA semantics (a tensor over a scalar is a
+    product with the scalar's reciprocal), --fmad=false, IEEE division
+    and the CUDA math library's exp, log and sqrt."""
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    b = state.bgc
+    args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                            b.ph_prev_alt_3d)[:3]
+    want, want_sat = carbonate_coeffs_sat_torch(*args)
+    before = carbonate_coeffs_sat.launches
+    for with_sat in (True, False):
+        got, sat = carbonate_coeffs_sat(*args, with_sat=with_sat,
+                                        impl="kernel")
+        torch.cuda.synchronize()
+        assert (sat is None) != with_sat
+        for x, y in zip((*got, *(sat or ())), (*want, *want_sat)):
+            assert x.dtype == dtype and torch.isfinite(x).all()
+            assert torch.equal(x, y)
+    assert carbonate_coeffs_sat.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_sat_instance_matches_plain_version(cuda, dtype):
-    """K1's coefficient-and-saturation instance against its plain version
+    """K1's coefficient-and-saturation route (the constants kernel, then
+    the dual instance on its constants) against its plain version
     (``carbonate_coeffs``, the dual solve and ``co3_sat_vals`` in torch)
-    on cold and warm inputs as the step without an env cache gives them:
-    all 10 outputs bitwise equal.  The constants repeat the plain
-    version's expressions in its order with PyTorch's CUDA semantics (a
-    tensor over a scalar is a product with the scalar's reciprocal),
-    --fmad=false, IEEE division and the CUDA math library's exp, log and
-    sqrt.  ``with_sat=False`` gives the same 8 outputs and no saturation
-    values; one launch counted per call."""
+    on cold, warm and off-window inputs as the step without an env cache
+    gives them: all 10 outputs bitwise equal.  ``with_sat=False`` gives
+    the same 8 outputs and no saturation values; each call launches the
+    constants kernel once and the dual instance once."""
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
                                            ragged=True, dtype=dtype,
                                            device=cuda)
     warm, _ = step(state, grid, forcing, params, 3600.0,
                    compute_diags=False)
-    for st in (state, warm):
+    off = dataclasses.replace(warm, bgc=dataclasses.replace(
+        warm.bgc, ph_prev_3d=_off_window(warm.bgc.ph_prev_3d),
+        ph_prev_alt_3d=_off_window(warm.bgc.ph_prev_alt_3d)))
+    for st in (state, warm, off):
         args = carbonate_inputs(st.bgc.tracers, grid, forcing,
                                 st.bgc.ph_prev_3d, st.bgc.ph_prev_alt_3d)
-        before = co3_terms_dual_sat.launches
+        before = (carbonate_coeffs_sat.launches,
+                  co3_terms_dual_coeffs.launches)
         got = co3_terms_dual_sat(*args, impl="kernel")
         nosat = co3_terms_dual_sat(*args, with_sat=False, impl="kernel")
         torch.cuda.synchronize()
-        assert co3_terms_dual_sat.launches == before + 2
+        assert (carbonate_coeffs_sat.launches,
+                co3_terms_dual_coeffs.launches) == (before[0] + 2,
+                                                    before[1] + 2)
         want = co3_terms_dual_sat_torch(*args)
         for g, w in zip(got, want):
             for x, y in zip(g, w):
@@ -140,18 +175,18 @@ def test_sat_instance_matches_plain_version(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_default_call_on_the_card(cuda, dtype):
     """The default call (diagnostics on, no env cache) launches the
-    coefficient-and-saturation instance and the surface pair's bracket-in
-    instance once a step, never the cached-constants instance or K2; with
-    an env cache the cached-constants instance takes its place.  Tracers
-    are bitwise equal between ``carbonate_impl="kernel"`` and ``"torch"``
-    and between diagnostics on and off; the diagnostics are the
-    registry's and finite."""
+    constants kernel, the dual instance on its constants and the surface
+    pair's bracket-in instance once a step, never K2; with an env cache
+    the dual instance runs on the cache's constants and the constants
+    kernel not at all.  Tracers are bitwise equal between
+    ``carbonate_impl="kernel"`` and ``"torch"`` and between diagnostics
+    on and off; the diagnostics are the registry's and finite."""
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
                                            ragged=True, dtype=dtype,
                                            device=cuda)
     env = precompute_env(grid, forcing, params.bgc)
-    counts = (co3_terms_dual_sat.launches, co3_terms_dual_coeffs.launches,
+    counts = (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches,
               solve_htotal_brackets.launches, _k2_counts())
     a = b = c = state
     for _ in range(2):
@@ -160,20 +195,56 @@ def test_default_call_on_the_card(cuda, dtype):
         c, _ = step(c, grid, forcing, params, 3600.0, compute_diags=False)
     torch.cuda.synchronize()
     # a and c on the kernels, b on the plain versions
-    assert (co3_terms_dual_sat.launches, co3_terms_dual_coeffs.launches,
+    assert (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches,
             solve_htotal_brackets.launches, _k2_counts()) == (
-        counts[0] + 4, counts[1], counts[2] + 4, counts[3])
+        counts[0] + 4, counts[1] + 4, counts[2] + 4, counts[3])
     for x, y in ((a, b), (a, c)):
         assert torch.equal(x.bgc.tracers, y.bgc.tracers)
         assert torch.equal(x.dms, y.dms)
         assert torch.equal(x.macros, y.macros)
     assert set(d) == set(coupled_registry())
     assert all(torch.isfinite(v).all() for v in d.values())
-    before = (co3_terms_dual_sat.launches, co3_terms_dual_coeffs.launches)
+    before = (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches)
     _, de = step(state, grid, forcing, params, 3600.0, env=env)
-    assert (co3_terms_dual_sat.launches,
+    assert (carbonate_coeffs_sat.launches,
             co3_terms_dual_coeffs.launches) == (before[0], before[1] + 1)
     assert set(de) == set(d)
+
+
+def test_health_call_evaluates_the_constants_once_without_a_sync(
+        cuda, monkeypatch):
+    """The default call with health counters evaluates the interior's
+    constants once a step, on the constants kernel (no eager
+    ``carbonate_coeffs`` on the interior), for the solve and the health
+    residual alike, and makes no host synchronisation; its tracers,
+    diagnostics and counters are bitwise those of the plain route."""
+    from ocean_bgc_tpu_torch.ops import bgc, cuda_carbonate
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           ragged=True, device=cuda)
+    want, wd = step(state, grid, forcing, params, 3600.0, health=True,
+                    carbonate_impl="torch")
+    step(state, grid, forcing, params, 3600.0, health=True)  # loads the libs
+    torch.cuda.synchronize()
+    eager = []
+
+    def counted(*args, **kwargs):
+        eager.append(args[0].shape)
+        raise AssertionError("eager constants on the kernel route")
+    monkeypatch.setattr(cuda_carbonate, "carbonate_coeffs", counted)
+    monkeypatch.setattr(bgc, "carbonate_coeffs", counted)
+    before = carbonate_coeffs_sat.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, gd = step(state, grid, forcing, params, 3600.0, health=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert carbonate_coeffs_sat.launches == before + 1 and not eager
+    assert torch.equal(got.bgc.tracers, want.bgc.tracers)
+    assert set(gd) == set(wd)
+    for k, v in gd.items():
+        assert torch.equal(v, wd[k]), k
 
 
 def _k2_counts():
@@ -447,10 +518,12 @@ def _off_window(ph):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_seeded_variants_match_plain_versions(cuda, dtype):
-    """K1's three seeded variants against their seeded plain versions,
-    bitwise on every output, on cold, warm and off-window inputs (the
-    bracket grows before the seed is clamped into it); each launch is
-    counted as seeded and not as unseeded."""
+    """K1's seeded variants against their seeded plain versions, bitwise
+    on every output, on cold, warm and off-window inputs (the bracket
+    grows before the seed is clamped into it): the dual instance on the
+    env cache's constants and on the constants kernel's (the
+    coefficient-and-saturation route), and the bracket-in instance; each
+    solve's launch is counted as seeded and not as unseeded."""
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
                                            ragged=True, dtype=dtype,
@@ -463,10 +536,9 @@ def test_seeded_variants_match_plain_versions(cuda, dtype):
         ph_prev_alt_3d=_off_window(warm.bgc.ph_prev_alt_3d),
         surface_ph=_off_window(warm.bgc.surface_ph),
         surface_ph_alt=_off_window(warm.bgc.surface_ph_alt)))
-    counts = (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches,
+    counts = (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
               solve_htotal_brackets.launches)
     seeded = (co3_terms_dual_coeffs.seeded_launches,
-              co3_terms_dual_sat.seeded_launches,
               solve_htotal_brackets.seeded_launches)
     for st in (state, warm, off):
         b = st.bgc
@@ -494,19 +566,21 @@ def test_seeded_variants_match_plain_versions(cuda, dtype):
         torch.cuda.synchronize()
         want = tcarb._solve_htotal_impl(coeffs, *m, x1, x2, x0=x0)
         assert torch.equal(got, want)
-    assert (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches,
-            solve_htotal_brackets.launches) == counts
+    # per case: the dual instance seeded twice (on the cached and on the
+    # kernel's constants), the constants kernel (which has no seed) once
+    assert (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
+            solve_htotal_brackets.launches) == (counts[0], counts[1] + 3,
+                                                counts[2])
     assert (co3_terms_dual_coeffs.seeded_launches,
-            co3_terms_dual_sat.seeded_launches,
-            solve_htotal_brackets.seeded_launches) == tuple(
-                n + 3 for n in seeded)
+            solve_htotal_brackets.seeded_launches) == (seeded[0] + 6,
+                                                       seeded[1] + 3)
 
 
 def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
     """With ``OBGC_X0_SEED=1`` the production step launches the seeded
-    cached-constants instance and the seeded surface pair, the default
-    call the seeded coefficient-and-saturation instance, and the fused
-    step's K2 and precompute_env's stand-in stay unseeded."""
+    dual instance and the seeded surface pair, the default call the
+    constants kernel and the seeded dual instance on its constants, and
+    the fused step's K2 and precompute_env's stand-in stay unseeded."""
     monkeypatch.setenv("OBGC_X0_SEED", "1")
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
@@ -515,7 +589,7 @@ def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
     def counts():
         return (co3_terms_dual_coeffs.launches,
                 co3_terms_dual_coeffs.seeded_launches,
-                co3_terms_dual_sat.seeded_launches,
+                carbonate_coeffs_sat.launches,
                 solve_htotal_brackets.launches,
                 solve_htotal_brackets.seeded_launches,
                 cs._launch_solve.launches)
@@ -529,4 +603,4 @@ def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
                 env=env, interior_impl="fused")
     torch.cuda.synchronize()
     assert torch.isfinite(s.bgc.tracers).all()
-    assert tuple(b - a for a, b in zip(c0, counts())) == (0, 1, 1, 1, 3, 1)
+    assert tuple(b - a for a, b in zip(c0, counts())) == (0, 2, 1, 1, 3, 1)

@@ -27,10 +27,13 @@ from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
 from ocean_bgc_tpu_torch.constants import DEL_PH, XACC
 from ocean_bgc_tpu_torch.models.coupled import HEALTH_NAMES, run, step
+from ocean_bgc_tpu_torch.ops import bgc
 from ocean_bgc_tpu_torch.ops.bgc import _zsat_search, precompute_env
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
 from ocean_bgc_tpu_torch.ops.dms import DMS_DIAG_NAMES, dms_source_sink
+from ocean_bgc_tpu_torch.ops import cuda_carbonate
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+    carbonate_coeffs_sat,
     co3_terms_dual_coeffs,
     co3_terms_dual_sat,
     co3_terms_dual_sat_torch,
@@ -171,11 +174,12 @@ def test_dual_sat_plain_matches_jax_f64():
 
 def test_dual_sat_wrapper_on_cpu_tensors():
     """On CPU tensors "auto" and "torch" take the plain version (bitwise
-    the same results, no launch counted), ``with_sat=False`` returns no
-    saturation values, and "kernel" raises."""
+    the same results, no launch of the constants kernel or the dual
+    instance counted), ``with_sat=False`` returns no saturation values,
+    and "kernel" raises."""
     w = _cells(43, nlev=3, ncol=10)
     args = [torch.tensor(w[k]) for k in _KEYS]
-    before = co3_terms_dual_sat.launches
+    before = (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches)
     a = co3_terms_dual_sat(*args)
     b = co3_terms_dual_sat(*args, impl="torch")
     for x, y in zip(a[0] + a[1] + a[2], b[0] + b[1] + b[2]):
@@ -184,7 +188,8 @@ def test_dual_sat_wrapper_on_cpu_tensors():
     assert c[2] is None
     for x, y in zip(a[0] + a[1], c[0] + c[1]):
         assert torch.equal(x, y)
-    assert co3_terms_dual_sat.launches == before
+    assert (carbonate_coeffs_sat.launches,
+            co3_terms_dual_coeffs.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         co3_terms_dual_sat(*args, impl="kernel")
 
@@ -213,7 +218,7 @@ def runs(request):
     out = dict(dtype=dtype, grid=tg, forcing=tf, params=tp, state0=ts,
                jax=[], port=[], plain=[], off=[])
     plain = off = ts
-    before = (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches,
+    before = (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
               solve_htotal_brackets.launches)
     for _ in range(NSTEPS):
         js, jd = jfn(js)
@@ -227,7 +232,7 @@ def runs(request):
         out["plain"].append((pd, plain))
         out["off"].append(off)
     # CPU tensors: every solve took its plain version
-    assert (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches,
+    assert (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
             solve_htotal_brackets.launches) == before
     return out
 
@@ -330,6 +335,30 @@ def test_health_counters(runs):
             else:
                 print(f"\nf32 {name}: JAX {a:g}, port {b:g}")
                 assert abs(a - b) <= 3
+
+
+def test_health_step_evaluates_the_constants_once(runs, monkeypatch):
+    """Without an env cache a step with health counters evaluates the
+    interior's equilibrium constants once, for the pH solve and the
+    health residual alike (``carbonate_coeffs_sat``; its plain version
+    on CPU tensors), and gives the tracers, diagnostics and counters of
+    the fixture's first step, which the tests above hold to JAX."""
+    calls = []
+    plain = cuda_carbonate.carbonate_coeffs
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return plain(*args, **kwargs)
+    monkeypatch.setattr(cuda_carbonate, "carbonate_coeffs", counted)
+    monkeypatch.setattr(bgc, "carbonate_coeffs", counted)
+    ts, td = step(runs["state0"], runs["grid"], runs["forcing"],
+                  runs["params"], DT, health=True)
+    assert calls == [(NLEV, NCOL)]
+    want_d, want_s = runs["port"][0]
+    assert torch.equal(ts.bgc.tracers, want_s.bgc.tracers)
+    assert set(td) == set(want_d)
+    for k, v in td.items():
+        assert torch.equal(v, want_d[k]), k
 
 
 def test_tracers_do_not_depend_on_diagnostics(runs):

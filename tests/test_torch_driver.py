@@ -200,3 +200,22 @@ def test_run_model_runs_resumes_and_refuses_sharding(tmp_path, capsys,
     assert rk2["finite"]
     with pytest.raises(SystemExit, match="queue 1 item 13"):
         run_model.main(["--sharded", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("first,then", [((), ("--fp32",)),
+                                        (("--fp32",), ())],
+                         ids=["f64_into_fp32", "f32_into_f64"])
+def test_run_model_refuses_a_checkpoint_of_another_dtype(tmp_path, capsys,
+                                                         first, then):
+    """A checkpoint restored into a run of the other dtype exits, naming
+    both dtypes, instead of running at mixed precision."""
+    world = ("--nlev", "3", "--ncol", "4")
+    summary = _main(capsys, *world, *first, "--steps", "2", "--out",
+                    str(tmp_path / "a"))
+    names = ["torch.float64", "torch.float32"]
+    with pytest.raises(SystemExit, match="|".join(names)) as exc:
+        run_model.main([*world, *then, "--steps", "1", "--restore",
+                        summary["final_checkpoint"], "--out",
+                        str(tmp_path / "b"), "--device", "cpu", "--quiet"])
+    assert all(n in str(exc.value) for n in names)
+    assert not (tmp_path / "b" / "ck_final.npz").exists()

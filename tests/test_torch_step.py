@@ -26,8 +26,8 @@ from ocean_bgc_tpu_torch.models.coupled import (
 )
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
+    carbonate_coeffs_sat,
     co3_terms_dual_coeffs,
-    co3_terms_dual_sat,
     solve_htotal_brackets,
 )
 from ocean_bgc_tpu_torch.state import BGCState, BGCTracers as T
@@ -241,11 +241,11 @@ def test_cpu_step_never_counts_a_launch():
     state, grid, forcing = world_from_numpy(*_np_world(nlev=3, ncol=8),
                                             device="cpu")
     params = params_from_dict(dataclasses.asdict(JaxModelParams()))
-    before = (co3_terms_dual_coeffs.launches, co3_terms_dual_sat.launches)
+    before = (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches)
     out, _ = step(state, grid, forcing, params, DT, compute_diags=False)
     assert isinstance(out.bgc, BGCState)
     assert (co3_terms_dual_coeffs.launches,
-            co3_terms_dual_sat.launches) == before
+            carbonate_coeffs_sat.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         step(state, grid, forcing, params, DT, compute_diags=False,
              carbonate_impl="kernel")
