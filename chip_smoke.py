@@ -44,7 +44,23 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    diagnostics on and off; the diagnostics' names those of the registry
    (``utils/diag.py``), every one finite; the default call with health
    counters timed;
-6. the production driver and K1's seeded variants (``OBGC_X0_SEED=1``), at
+6. the host-coupling API (``ocean_bgc_tpu_torch/host_api.py``), f64, on
+   the same world written out as the host's NumPy arrays
+   (``utils/bridge.py::host_arguments``): ``BGC_SourceSink`` and
+   ``BGC_SurfaceFluxes`` cold and warm, ``DMS_SourceSink``,
+   ``DMS_SurfaceFluxes``, ``MACROS_SourceSink``, each with a shuffled
+   tracer order, ``BGC_SourceSink`` with ``diag_names``, and a seeded warm
+   pair, with every launch counted (per ``BGC_SourceSink`` the constants
+   kernel 1 and the dual K1 1, per ``BGC_SurfaceFluxes`` the bracket-in
+   instance 1, DMS and MACROS none; the seeded pair the constants kernel,
+   the seeded dual and the seeded bracket-in instance 1 each); the BGC
+   pair bitwise ``bgc_source_sink`` (diagnostics on, no env cache) and
+   ``bgc_surface_fluxes`` on the level-major world, and the plain route's
+   values (pH within 2 xacc); the shuffled order and the filter bitwise
+   the canonical run; the ``OBGC_CHECK_ENV=1`` staleness guard and
+   ``checked_step`` raising; each call's wall, device, ingest, compute and
+   egress times and K1's device time in a cold and a warm call;
+7. the production driver and K1's seeded variants (``OBGC_X0_SEED=1``), at
    f64 and f32 on the same world: each seeded variant of K1 (the dual
    instance on the env cache's constants and on the constants kernel's,
    and the bracket-in instance) against its seeded plain version on
@@ -64,14 +80,14 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    interpolated forcing with and without the seed, ``run_forced`` with
    the env tables blended and held, and 24 seeded steps against 24
    unseeded ones inside tests/test_x0_seed_trajectory.py's envelope;
-7. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
+8. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
    version;
-8. one f64 step of each path at 60 x 131072 columns (diagnostics off),
+9. one f64 step of each path at 60 x 131072 columns (diagnostics off),
    and one step of that world streamed through the card in chunks of
    32768 columns (``models/chunked.py::step_chunked``) against the
    unchunked step (values differing: 0 required), with wall times and
    peak device memory;
-9. numbers: columns/s of every step configuration (diagnostics off with
+10. numbers: columns/s of every step configuration (diagnostics off with
    each interior; diagnostics on without and with the env cache and with
    a 10-field ``diag_filter``), each kernel's time beside its plain
    version's and its bound, each kernel's registers and spills from the
@@ -1332,6 +1348,380 @@ def default_call(dtype, params, ctx):
     return dict(launches=launches, **k)
 
 
+def device_kernels_ms(fn):
+    """{kernel name: device ms} over one call of ``fn`` (already warm),
+    from torch.profiler; empty where the profiler sees no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            out[evt.name] = out.get(evt.name, 0.0) + (
+                evt.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def compare_host(label, got, want):
+    """Raise unless the NumPy arrays ``got`` and ``want`` (dicts, the same
+    keys, nested dicts alike) are bitwise equal; returns the count of
+    values compared."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: keys {sorted(got)} against "
+                             f"{sorted(want)}")
+    n = 0
+    for k, w in want.items():
+        if isinstance(w, dict):
+            n += compare_host(f"{label}.{k}", got[k], w)
+            continue
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype or not np_equal(g, w):
+            raise AssertionError(f"{label}: {k} is not bitwise equal")
+        n += w.size
+    return n
+
+
+def np_equal(a, b):
+    """Bitwise equality of two arrays of one type (NaN equal to NaN)."""
+    import numpy as np
+    u = f"u{a.itemsize}"
+    return bool(np.array_equal(np.ascontiguousarray(a).view(u),
+                               np.ascontiguousarray(b).view(u)))
+
+
+def _permuted(kw, names, seed):
+    """``kw`` with every tracer block and flux in a shuffled host order,
+    its index map and the permutation (canonical c at host perm[c])."""
+    import numpy as np
+    perm = np.random.default_rng(seed).permutation(len(names))
+    out = dict(kw)
+    for k in ("BGC_tracers", "DMS_tracers", "MACROS_tracers",
+              "depositionFlux", "riverFlux", "gasFlux", "seaIceFlux"):
+        if k in out:
+            a = np.empty_like(out[k])
+            a[..., perm] = out[k]
+            out[k] = a
+    return out, {n: int(perm[c]) for c, n in enumerate(names)}, perm
+
+
+def host_api_phase(params, world, env):
+    """Phase 6: the host-coupling API (``ocean_bgc_tpu_torch/host_api.py``)
+    on the flagship world written out as the host's NumPy arrays, f64.
+    Every call's launches counted; the BGC pair bitwise the port's own
+    functions on the level-major world and the plain route's values;
+    the tracer-order adapter and the diagnostics filter bitwise the
+    canonical run; the seeded pair; the env staleness guard;
+    ``checked_step``; then each call's wall, device, ingest, compute and
+    egress times."""
+    import numpy as np
+    from ocean_bgc_tpu_torch import host_api as api
+    from ocean_bgc_tpu_torch.io import host_layout
+    from ocean_bgc_tpu_torch.models.coupled import step
+    from ocean_bgc_tpu_torch.ops.bgc import bgc_source_sink
+    from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
+    from ocean_bgc_tpu_torch.ops.surface import bgc_surface_fluxes
+    from ocean_bgc_tpu_torch.state import BGCTracers as T
+    from ocean_bgc_tpu_torch.utils.bridge import host_arguments
+    from ocean_bgc_tpu_torch.utils.debug import checked_step
+
+    t_phase = time.perf_counter()
+    state, grid, forcing = world
+    b, p = state.bgc, params.bgc
+    kw = host_arguments(state, grid, forcing)
+    ss_kw, sf_kw = kw["BGC_SourceSink"], kw["BGC_SurfaceFluxes"]
+    log(f"host API: {NLEV}x{NCOL} f64 world in the host's layout "
+        f"(tracer block {ss_kw['BGC_tracers'].nbytes / 1e6:.1f} MB); native "
+        f"packer loaded {host_layout.native_available()}")
+    xacc = solver_xacc(torch.float64)
+
+    def counted(label, fn, **want):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"host API {label}: launches {counts}")
+        if counts != expected(**want):
+            raise AssertionError(f"host API {label}: launches {counts}, "
+                                 f"expected {want} and 0 elsewhere")
+        return out
+
+    def ss_dict(out):
+        """A BGCSourceSinkOut as the API's dict (exact transposes)."""
+        return {"BGC_tendencies": np.ascontiguousarray(
+                    out.tendencies.cpu().numpy().transpose(2, 0, 1)),
+                "PH_PREV_3D": np.ascontiguousarray(
+                    out.ph_prev_3d.cpu().numpy().T),
+                "PH_PREV_ALT_CO2_3D": np.ascontiguousarray(
+                    out.ph_prev_alt_3d.cpu().numpy().T),
+                "diags": {k: v.cpu().numpy() for k, v in out.diags.items()}}
+
+    def sf_dict(out):
+        return {"netFlux": np.ascontiguousarray(
+                    out.net_flux.cpu().numpy().T),
+                "surface_pH": out.surface_ph.cpu().numpy(),
+                "surface_pH_alt_co2": out.surface_ph_alt.cpu().numpy(),
+                "diags": {k: v.cpu().numpy() for k, v in out.diags.items()}}
+
+    def against_plain(label, got, want, ph_keys):
+        """The plain route's results: tendencies and diagnostics bitwise,
+        pH within 2 xacc of H (as phase 5 holds the default call)."""
+        h = max(float(np.abs(10.0 ** -got[k] - 10.0 ** -want[k]).max())
+                for k in ph_keys)
+        rest = {k: v for k, v in want.items() if k not in ph_keys}
+        n = compare_host(label, {k: got[k] for k in rest}, rest)
+        log(f"host API {label} against the plain route: {n} values bitwise "
+            f"equal, max|dH|/xacc {h / xacc:.3g} (limit 2)")
+        if not h <= 2 * xacc:
+            raise AssertionError(f"host API {label}: pH beyond 2 xacc of "
+                                 f"the plain route's")
+
+    # -- the BGC pair, cold then warm, counted, against the port's own
+    # functions on the level-major world and against the plain route --
+    ss, sf, ph, sph = {}, {}, (b.ph_prev_3d, b.ph_prev_alt_3d), (
+        b.surface_ph, b.surface_ph_alt)
+    for mode in ("cold", "warm"):
+        warm = {} if mode == "cold" else dict(
+            PH_PREV_3D=ss["cold"]["PH_PREV_3D"],
+            PH_PREV_ALT_CO2_3D=ss["cold"]["PH_PREV_ALT_CO2_3D"])
+        swarm = {} if mode == "cold" else dict(
+            surface_pH=sf["cold"]["surface_pH"],
+            surface_pH_alt_co2=sf["cold"]["surface_pH_alt_co2"])
+        ss[mode] = counted(f"BGC_SourceSink {mode}",
+                           lambda: api.BGC_SourceSink(**ss_kw, **warm),
+                           coeffs=1, k1=1)
+        sf[mode] = counted(f"BGC_SurfaceFluxes {mode}",
+                           lambda: api.BGC_SurfaceFluxes(**sf_kw, **swarm),
+                           brackets=1)
+        ref = bgc_source_sink(b.tracers, grid, forcing, *ph, p,
+                              compute_diags=True, env=None)
+        sref = bgc_surface_fluxes(b.tracers, forcing, *sph, p)
+        n = compare_host(f"BGC_SourceSink {mode}", ss[mode], ss_dict(ref))
+        n += compare_host(f"BGC_SurfaceFluxes {mode}", sf[mode],
+                          sf_dict(sref))
+        log(f"host API {mode} pair against bgc_source_sink and "
+            f"bgc_surface_fluxes on the card: {n} values bitwise equal")
+        against_plain(f"BGC_SourceSink {mode}", ss[mode], ss_dict(
+            bgc_source_sink(b.tracers, grid, forcing, *ph, p,
+                            compute_diags=True, carbonate_impl="torch")),
+            ("PH_PREV_3D", "PH_PREV_ALT_CO2_3D"))
+        against_plain(f"BGC_SurfaceFluxes {mode}", sf[mode], sf_dict(
+            bgc_surface_fluxes(b.tracers, forcing, *sph, p,
+                               carbonate_impl="torch")),
+            ("surface_pH", "surface_pH_alt_co2"))
+        ph = (ref.ph_prev_3d, ref.ph_prev_alt_3d)
+        sph = (sref.surface_ph, sref.surface_ph_alt)
+    log(f"host API checks, the BGC pair: {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    warm_kw = dict(ss_kw, PH_PREV_3D=ss["cold"]["PH_PREV_3D"],
+                   PH_PREV_ALT_CO2_3D=ss["cold"]["PH_PREV_ALT_CO2_3D"])
+    swarm_kw = dict(sf_kw, surface_pH=sf["cold"]["surface_pH"],
+                    surface_pH_alt_co2=sf["cold"]["surface_pH_alt_co2"])
+    canon = {"BGC_SourceSink": ss["cold"], "BGC_SurfaceFluxes": sf["cold"]}
+    for name in ("DMS_SourceSink", "DMS_SurfaceFluxes", "MACROS_SourceSink"):
+        canon[name] = counted(name, lambda: getattr(api, name)(**kw[name]))
+        bad = [k for k, v in canon[name].items()
+               if isinstance(v, np.ndarray) and not np.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"host API {name}: non-finite {bad}")
+
+    # -- the tracer-order adapter and the diagnostics filter --
+    for i, (name, names) in enumerate((
+            ("BGC_SourceSink", api.BGC_TRACER_NAMES),
+            ("BGC_SurfaceFluxes", api.BGC_TRACER_NAMES),
+            ("DMS_SourceSink", api.DMS_TRACER_NAMES),
+            ("DMS_SurfaceFluxes", api.DMS_TRACER_NAMES),
+            ("MACROS_SourceSink", api.MACROS_TRACER_NAMES))):
+        shuffled, indices, perm = _permuted(kw[name], names, seed=100 + i)
+        got = getattr(api, name)(**shuffled, indices=indices)
+        want = dict(canon[name])
+        for k in want:
+            if k.endswith("tendencies") or k == "netFlux":
+                a = np.empty_like(want[k])
+                a[..., perm] = want[k]
+                want[k] = a
+        n = compare_host(f"{name} in a shuffled tracer order", got, want)
+        log(f"host API {name} in a shuffled tracer order: {n} values "
+            f"bitwise the canonical run's, permuted")
+    # the history's fields that the interior emits (the other two,
+    # pco2surf and dpco2, are BGC_SurfaceFluxes' and raise KeyError here,
+    # as in the JAX package)
+    names = tuple(k for k in PROD_FILTER if k in ss["cold"]["diags"])
+    got = counted(f"BGC_SourceSink with diag_names (the history's "
+                  f"{len(names)} interior fields)", lambda: api.BGC_SourceSink(
+                      **ss_kw, diag_names=names), coeffs=1, k1=1)
+    want = dict(ss["cold"], diags={k: ss["cold"]["diags"][k] for k in names})
+    n = compare_host("BGC_SourceSink with diag_names", got, want)
+    try:
+        api.BGC_SourceSink(**ss_kw, diag_names=PROD_FILTER)
+    except KeyError:
+        pass
+    else:
+        raise AssertionError("diag_names took names BGC_SourceSink does "
+                             "not emit")
+    log(f"host API diag_names: {n} values bitwise the full run's; the "
+        f"history's surface fields raise KeyError")
+
+    log(f"host API checks, the adapter and the filter: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- one warm pair under OBGC_X0_SEED=1 --
+    os.environ["OBGC_X0_SEED"] = "1"
+    try:
+        seeded = counted("the seeded warm pair", lambda: (
+            api.BGC_SourceSink(**warm_kw), api.BGC_SurfaceFluxes(**swarm_kw)),
+            coeffs=1, k1_seeded=1, brackets_seeded=1)
+    finally:
+        del os.environ["OBGC_X0_SEED"]
+    h = max(float(np.abs(10.0 ** -seeded[i][k] - 10.0 ** -w[k]).max())
+            for i, w, keys in ((0, ss["warm"], ("PH_PREV_3D",
+                                                "PH_PREV_ALT_CO2_3D")),
+                               (1, sf["warm"], ("surface_pH",
+                                                "surface_pH_alt_co2")))
+            for k in keys)
+    finite = all(np.isfinite(v).all() for out in seeded
+                 for v in out.values() if isinstance(v, np.ndarray))
+    log(f"host API seeded warm pair against the unseeded: max|dH|/xacc "
+        f"{h / xacc:.3g} (limit 2), finite {finite}")
+    if not (finite and h <= 2 * xacc):
+        raise AssertionError("host API: the seeded pair is off the "
+                             "unseeded roots")
+
+    # -- the env staleness guard and checked_step --
+    import dataclasses
+    stale = dataclasses.replace(
+        forcing, potential_temperature=forcing.potential_temperature + 0.5)
+    os.environ["OBGC_CHECK_ENV"] = "1"
+    try:
+        bgc_source_sink(b.tracers, grid, forcing, *ph, p,
+                        compute_diags=False, env=env)
+        try:
+            bgc_source_sink(b.tracers, grid, stale, *ph, p,
+                            compute_diags=False, env=env)
+        except ValueError as exc:
+            log(f"staleness guard: a fresh env cache passes; a stale one "
+                f"raises: {str(exc)[:60]}...")
+        else:
+            raise AssertionError("the staleness guard let a stale env "
+                                 "cache through")
+    finally:
+        del os.environ["OBGC_CHECK_ENV"]
+    col = int(torch.nonzero(grid.kmax > 0)[0])
+
+    def poisoned(s):
+        new, d = step(s, grid, forcing, params, DT, compute_diags=False,
+                      env=env)
+        tr = new.bgc.tracers.clone()
+        tr[0, T.DIC, col] = float("nan")
+        return dataclasses.replace(
+            new, bgc=dataclasses.replace(new.bgc, tracers=tr)), d
+    checked_step(lambda s: step(s, grid, forcing, params, DT,
+                                compute_diags=False, env=env), grid)(state)
+    try:
+        checked_step(poisoned, grid)(state)
+    except FloatingPointError as exc:
+        log(f"checked_step: a clean step passes; a NaN injected into the "
+            f"state raises: {str(exc)[:60]}...")
+    else:
+        raise AssertionError("checked_step let a NaN through")
+
+    # -- times: wall (numpy in, numpy out), device, and the three parts --
+    log(f"host API checks: {time.perf_counter() - t_phase:.1f} s")
+    log(f"host API times at {NLEV}x{NCOL} f64 (wall: numpy in, numpy out, "
+        f"median of 3; device: profiler, one call; parts: median of 3, "
+        f"each synchronised):")
+    dev = grid.kmax.device
+
+    def k1_text(kernels):
+        k1 = {k: v for k, v in kernels.items()
+              if "coeffs_kernel" in k or "lanes_kernel" in k}
+        return ", ".join(f"{k[:60]} {v:.4f} ms"
+                         for k, v in sorted(k1.items())) or "not measured"
+
+    for name, args in (("BGC_SourceSink", warm_kw),
+                       ("BGC_SurfaceFluxes", swarm_kw),
+                       ("DMS_SourceSink", kw["DMS_SourceSink"]),
+                       ("DMS_SurfaceFluxes", kw["DMS_SurfaceFluxes"]),
+                       ("MACROS_SourceSink", kw["MACROS_SourceSink"])):
+        fn = getattr(api, name)
+        prm = {"BGC": p, "DMS": params.dms, "MACROS": params.macros}[
+            name.split("_")[0]]
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(**args)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kernels = device_kernels_ms(lambda: fn(**args))
+        parts = api.PARTS[name]
+        split = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ins = parts.ingest(dev, None, **args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = parts.compute(ins, prm)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            parts.egress(out, None)
+            t3 = time.perf_counter()
+            split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+        ing, comp, egr = (statistics.median(x) for x in zip(*split))
+        busy = sum(kernels.values())
+        log(f"  {name} (warm): wall {statistics.median(walls):.3f} ms "
+            f"(rounds {', '.join(f'{w:.1f}' for w in walls)}); device busy "
+            f"(kernels and copies) "
+            + (f"{busy:.3f} ms" if busy > 0 else "not measured")
+            + f"; ingest {ing:.3f} ms, compute {comp:.3f} ms, egress "
+            f"{egr:.3f} ms")
+        if name.startswith("BGC"):
+            log(f"    K1 in it (profiler): {k1_text(kernels)}")
+    log(f"    K1 in a cold BGC_SourceSink (profiler): " + k1_text(
+        device_kernels_ms(lambda: api.BGC_SourceSink(**ss_kw))))
+
+    # -- the BGC tracer block's ingest, part by part, and the same block
+    # copied as the host holds it and transposed on the card --
+    blk = ss_kw["BGC_tracers"]
+
+    def med(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def staged(a):
+        buf = torch.empty(a.shape, dtype=torch.float64, pin_memory=True)
+        buf.copy_(torch.from_numpy(a))
+        return buf
+
+    def on_card():
+        return staged(blk).to(dev, non_blocking=True).permute(
+            1, 2, 0).contiguous()
+
+    packed = host_layout.pack_tracer_block(blk)
+    pinned = staged(packed)
+    same = torch.equal(on_card(), pinned.to(dev))
+    t_pack = med(lambda: host_layout.pack_tracer_block(blk))
+    t_stage = med(lambda: staged(packed))
+    t_copy = med(lambda: pinned.to(dev, non_blocking=True))
+    log(f"  BGC tracer block ingest ({blk.nbytes / 1e6:.1f} MB): transpose "
+        f"(host_layout) {t_pack:.3f} ms, copy into pinned memory "
+        f"{t_stage:.3f} ms, to the card {t_copy:.3f} ms; the host's block "
+        f"staged, copied and transposed on the card {med(on_card):.3f} ms, "
+        f"bitwise the same tensor {same}")
+    if not same:
+        raise AssertionError("a transpose on the card differs from the "
+                             "host's")
+
+
 def probe_phase():
     """Phase 5: P on its own path (probe.run), counted, then against its
     plain version; returns its kernel entry's numbers."""
@@ -1896,6 +2286,10 @@ def main():
         k1, kb, ctx = main_path(dtype, params)
         k2 = fused_path(dtype, params, ctx)
         kcoeffs = default_call(dtype, params, ctx)
+        if dtype == torch.float64:
+            t0 = time.perf_counter()
+            host_api_phase(params, ctx["world"], ctx["env"])
+            log(f"host API phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         seeded = check_seeded(dtype, ctx["world"], ctx["env"], ctx["warm"])
         if files is None:     # the f64 world, loaded at f32 with --fp32

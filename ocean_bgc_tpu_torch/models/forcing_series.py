@@ -68,7 +68,7 @@ def stack_forcings(records) -> BGCForcing:
 def _blend_env(e0, e1, w: float):
     """``a + (b - a) * w`` over every tensor of two env caches (the
     coefficients, the saturation values, the Q10 response, the
-    dissolution factors and the stand-in pH alike)."""
+    dissolution factors, the stand-in pH and the fingerprint alike)."""
     if isinstance(e0, torch.Tensor):
         return e0 + (e1 - e0) * w
     return type(e0)(*(_blend_env(a, b, w) for a, b in zip(e0, e1)))

@@ -24,6 +24,7 @@ follow the JAX package's ``bgc_source_sink`` field for field.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -173,6 +174,11 @@ class EnvCache(NamedTuple):
     2000, ALK 2300, T 10, S 35, PO4 = SiO3 = 0), solved once per snapshot
     so that every inactive lane of the interior solve starts warm; their
     results are discarded by ``where(active, ...)``.
+
+    ``fingerprint`` is :func:`env_fingerprint` of the (grid, forcing) the
+    cache was built from, which the staleness guard compares
+    (:func:`check_env_cache`); last and optional, so that a cache built
+    field by field without it still works where the guard is off.
     """
 
     coeffs: CarbCoeffs         # interior-solve constants ((nlev, ncol))
@@ -181,6 +187,59 @@ class EnvCache(NamedTuple):
     tfunc: torch.Tensor        # ecosystem Q10 response
     diss: DissolutionCache     # sinking-scheme decay factors
     standin_ph: torch.Tensor
+    fingerprint: Optional[torch.Tensor] = None
+
+
+def env_fingerprint(grid: ColumnGrid, forcing: BGCForcing) -> torch.Tensor:
+    """Cheap order-sensitive checksum of every input the
+    :class:`EnvCache` tables depend on: (T, S) and the grid geometry.  Two
+    forcing snapshots that differ anywhere give different fingerprints (up
+    to rounding).  Shape (5,), the forcing temperature's type and device;
+    no host synchronisation."""
+    dt = forcing.potential_temperature.dtype
+
+    def chk(a):
+        a = a.reshape(-1).to(dt)
+        w = torch.arange(a.numel(), dtype=dt, device=a.device) % 97.0 + 1.0
+        return torch.dot(a, w) / a.numel()
+
+    return torch.stack([chk(forcing.potential_temperature),
+                        chk(forcing.salinity),
+                        chk(grid.cell_thickness),
+                        chk(grid.cell_bottom_depth),
+                        chk(grid.kmax)])
+
+
+def _env_check_enabled() -> bool:
+    """The staleness guard is opt-in (debug mode): OBGC_CHECK_ENV=1.
+    Read at every call, so hosts and tests can flip it at run time."""
+    return os.environ.get("OBGC_CHECK_ENV", "0") == "1"
+
+
+def _raise_if_env_stale(rel_err: float, tol: float) -> None:
+    if rel_err > tol:
+        raise ValueError(
+            f"stale EnvCache: the (T, S, grid) fingerprint differs from "
+            f"the cache's by {rel_err:.3e} (tol {tol:.1e}).  The forcing "
+            f"or grid changed since precompute_env(): rebuild the cache "
+            f"(ops/bgc.py::precompute_env) or pass env=None.")
+
+
+def check_env_cache(env: EnvCache, grid: ColumnGrid,
+                    forcing: BGCForcing) -> None:
+    """Verify that ``env`` was built from this (grid, forcing) pair;
+    raises ValueError if stale.  :func:`bgc_source_sink` calls it under
+    ``OBGC_CHECK_ENV=1``; hosts with their own forcing cadence can call it
+    at each forcing update.  It reads one scalar back, so on the card it
+    synchronises with the host."""
+    if env.fingerprint is None:
+        raise ValueError("EnvCache has no fingerprint (built without "
+                         "precompute_env?): rebuild it.")
+    live = env_fingerprint(grid, forcing)
+    tol = 1e-5 if live.dtype == torch.float32 else 1e-10
+    fp = env.fingerprint.to(live.dtype)
+    rel = torch.max(torch.abs(live - fp) / (1.0 + torch.abs(fp)))
+    _raise_if_env_stale(rel.item(), tol)
 
 
 def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
@@ -189,7 +248,11 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
     the masked stand-ins and pressure gating the in-step code uses.  The
     stand-in solve is K1's bracket-in instance on CUDA tensors and its
     plain version on CPU tensors
-    (``ops/cuda_carbonate.py::solve_htotal_brackets``)."""
+    (``ops/cuda_carbonate.py::solve_htotal_brackets``).
+
+    The cache is valid while (T, S, grid) keep the values passed here; it
+    carries their :func:`env_fingerprint`, which ``OBGC_CHECK_ENV=1`` makes
+    every consuming :func:`bgc_source_sink` call check."""
     temp = forcing.potential_temperature
     depth_m = grid.cell_center_depth * 0.01
     subsurface = subsurface_of(depth_m)
@@ -210,7 +273,8 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
         torch.full_like(temp_s, 10.0 ** -c.PHLO_3D_INIT))
     return EnvCache(coeffs=coeffs, co3_sat_calc=sat_calc,
                     co3_sat_arag=sat_arag, tfunc=tfunc, diss=diss,
-                    standin_ph=-torch.log10(h_standin))
+                    standin_ph=-torch.log10(h_standin),
+                    fingerprint=env_fingerprint(grid, forcing))
 
 
 class EcosystemKinetics(NamedTuple):
@@ -983,7 +1047,9 @@ def bgc_source_sink(
     diagnostics (an empty dict with ``compute_diags=False``).
 
     ``env``: precomputed forcing-invariant tables (:func:`precompute_env`),
-    valid while (T, S, grid) are those the cache was built from.  Without
+    valid while (T, S, grid) are those the cache was built from; under
+    ``OBGC_CHECK_ENV=1`` each call checks that (:func:`check_env_cache`,
+    one host synchronisation), raising ValueError on a stale cache.  Without
     one, the step evaluates the equilibrium constants per cell (and, with
     diagnostics, the saturation values) once, for the pH solve and the
     health counters (:func:`carbonate_coeffs_sat`).
@@ -1002,6 +1068,8 @@ def bgc_source_sink(
     seeds them (bgc.py:1180-1183, :1242-1247).
     """
     nlev = tracers.shape[0]
+    if env is not None and _env_check_enabled():
+        check_env_cache(env, grid, forcing)
     active = grid.active_mask()                          # (nlev, ncol)
     lat = grid.latitude                                  # (ncol,)
 

@@ -16,7 +16,7 @@ handle 32 neighbouring columns read 32 neighbouring addresses.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -261,3 +261,28 @@ class BGCState:
     @property
     def nlev(self) -> int:
         return self.tracers.shape[0]
+
+
+def zeros_state(nlev: int, ncol: int, dtype=torch.float64,
+                device=None) -> BGCState:
+    """A BGC state of zeros (every pH field the "no previous solution"
+    sentinel) on ``device``, CUDA unless the caller passes another."""
+    from ocean_bgc_tpu_torch.utils.bridge import resolve_device
+    dev = resolve_device(device)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return BGCState(tracers=z(nlev, BGCTracers.CNT, ncol),
+                    ph_prev_3d=z(nlev, ncol), ph_prev_alt_3d=z(nlev, ncol),
+                    surface_ph=z(ncol), surface_ph_alt=z(ncol))
+
+
+def pack_tracers(named: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Stack a {tracer-name: (nlev, ncol)} dict into (nlev, 30, ncol)."""
+    return torch.stack([named[n] for n in BGC_TRACER_NAMES], dim=1)
+
+
+def unpack_tracers(tracers: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Split a (nlev, 30, ncol) block into a {name: (nlev, ncol)} dict."""
+    return {n: tracers[:, i] for i, n in enumerate(BGC_TRACER_NAMES)}

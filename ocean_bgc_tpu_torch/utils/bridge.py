@@ -1,20 +1,26 @@
-"""Carry a parameter set and a world across from numpy.
+"""Carry a parameter set and a world across from numpy, and a world out
+to a host's arrays.
 
 The reference package's dataclasses reach this module as plain Python
 data: ``dataclasses.asdict`` of its parameters, and dicts of numpy arrays
 keyed by its dataclasses' field names for the state, grid and forcing.
-Nothing here imports the reference package.
+Nothing here imports the reference package.  :func:`host_arguments`
+writes a world out as the host-coupling API's arguments.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from ocean_bgc_tpu_torch.models.coupled import CoupledState
+from ocean_bgc_tpu_torch.models.coupled import (
+    CoupledState,
+    dms_tracer_block,
+    macros_tracer_block,
+)
 from ocean_bgc_tpu_torch.params import (
     AutotrophTraits,
     BGCParams,
@@ -73,3 +79,54 @@ def world_from_numpy(state: Mapping, grid: Mapping, forcing: Mapping, *,
                             device=dev))
     return (cstate, _build(ColumnGrid, grid, dev, dtype),
             _build(BGCForcing, forcing, dev, dtype))
+
+
+def host_arguments(state: CoupledState, grid: ColumnGrid,
+                   forcing: BGCForcing) -> Dict[str, Dict[str, np.ndarray]]:
+    """A world as the host-coupling API's keyword arguments, by entry
+    point (``host_api.BGC_SourceSink`` etc.): every field as a float64
+    NumPy array in the host's layout, ``(ncol, nlev[, ntracer])``, per
+    column ``(ncol,)`` and per-tracer fluxes ``(ncol, 30)``, canonical
+    tracer order, ``kmax`` int32.  The pH warm starts are left out (a
+    cold call); the caller adds them."""
+
+    def host(t):
+        a = t.detach().to("cpu", torch.float64).numpy()
+        if a.ndim == 3:            # (nlev, ntracer, ncol) tracer block
+            return np.ascontiguousarray(a.transpose(2, 0, 1))
+        return np.ascontiguousarray(a.T)
+
+    f = {k.name: host(getattr(forcing, k.name))
+         for k in dataclasses.fields(forcing)}
+    dz = host(grid.cell_thickness)
+    kmax = np.ascontiguousarray(grid.kmax.cpu().numpy().astype(np.int32))
+    bgc = host(state.bgc.tracers)
+    dms = host(dms_tracer_block(state))
+    surface = dict(SST=f["sst"], SSS=f["sss"], iceFraction=f["ice_fraction"],
+                   windSpeedSquared10m=f["wind_speed_squared_10m"],
+                   surfacePressure=f["surface_pressure"])
+    return {
+        "BGC_SourceSink": dict(
+            BGC_tracers=bgc, PotentialTemperature=f["potential_temperature"],
+            Salinity=f["salinity"],
+            cell_center_depth=host(grid.cell_center_depth),
+            cell_thickness=dz, cell_bottom_depth=host(grid.cell_bottom_depth),
+            cell_latitude=host(grid.latitude), number_of_active_levels=kmax,
+            dust_FLUX_IN=f["dust_flux_in"],
+            ShortWaveFlux_surface=f["shortwave_surface"],
+            FESEDFLUX=f["fesedflux"], NUTR_RESTORE_RTAU=f["nutr_restore_rtau"],
+            NO3_CLIM=f["no3_clim"], PO4_CLIM=f["po4_clim"],
+            SiO3_CLIM=f["sio3_clim"]),
+        "BGC_SurfaceFluxes": dict(
+            BGC_tracers=bgc, atmCO2=f["atm_co2"],
+            atmCO2_ALT_CO2=f["atm_co2_alt"], surfaceDepth=f["surface_depth"],
+            depositionFlux=f["deposition_flux"], riverFlux=f["river_flux"],
+            gasFlux=f["gas_flux"], seaIceFlux=f["seaice_flux"], **surface),
+        "DMS_SourceSink": dict(
+            DMS_tracers=dms, cell_thickness=dz, number_of_active_levels=kmax,
+            SST=f["sst"], ShortWaveFlux_surface=f["shortwave_surface"]),
+        "DMS_SurfaceFluxes": dict(DMS_tracers=dms, **surface),
+        "MACROS_SourceSink": dict(
+            MACROS_tracers=host(macros_tracer_block(state)),
+            number_of_active_levels=kmax),
+    }

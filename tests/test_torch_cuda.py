@@ -2,7 +2,9 @@
 solve, on the constants kernel's constants in the step without an env
 cache, and its bracket-in instance for the surface pair and the
 stand-in, each also seeded) and the production and default steps with
-it, K2 (the whole interior) and the fused step, and P (the probe).  Needs an NVIDIA GPU with the CUDA
+it, K2 (the whole interior) and the fused step, P (the probe), and the
+host-coupling API, the env staleness guard and ``solver_health`` on the
+kernels.  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 
@@ -14,7 +16,11 @@ import torch
 from ocean_bgc_tpu_torch import probe
 
 from ocean_bgc_tpu_torch.models.coupled import step
-from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs, precompute_env
+from ocean_bgc_tpu_torch.ops.bgc import (
+    bgc_source_sink,
+    carbonate_inputs,
+    precompute_env,
+)
 from ocean_bgc_tpu_torch.ops import carbonate as tcarb
 from ocean_bgc_tpu_torch.ops import cuda_step as cs
 from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
@@ -604,3 +610,120 @@ def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.isfinite(s.bgc.tracers).all()
     assert tuple(b - a for a, b in zip(c0, counts())) == (0, 2, 1, 1, 3, 1)
+
+
+def _k1_counts():
+    """K1's launch counts: the dual instance, the constants kernel, the
+    bracket-in instance, then the seeded dual and bracket-in instances."""
+    return (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
+            solve_htotal_brackets.launches,
+            co3_terms_dual_coeffs.seeded_launches,
+            solve_htotal_brackets.seeded_launches)
+
+
+def test_host_api_on_the_card(cuda):
+    """The host API's entry points run on the card by default:
+    BGC_SourceSink launches the constants kernel and the dual K1 once
+    each, BGC_SurfaceFluxes the bracket-in instance once, DMS and MACROS
+    no kernel; the BGC pair's results, cold and warm, are bitwise those of
+    ``bgc_source_sink`` and ``bgc_surface_fluxes`` on the same world on
+    the card (the API adds only exact transposes)."""
+    import numpy as np
+
+    from ocean_bgc_tpu_torch import host_api
+    from ocean_bgc_tpu_torch.utils.bridge import host_arguments
+
+    p = ModelParams().bgc
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           ragged=True, device=cuda)
+    kw = host_arguments(state, grid, forcing)
+    b = state.bgc
+    ph, ph_alt, sph, sph_alt = (b.ph_prev_3d, b.ph_prev_alt_3d,
+                                b.surface_ph, b.surface_ph_alt)
+    warm, swarm = {}, {}
+    for _ in range(2):        # cold, then warm from the returned pH
+        c0 = _k1_counts()
+        got = host_api.BGC_SourceSink(**kw["BGC_SourceSink"], **warm)
+        c1 = _k1_counts()
+        sf = host_api.BGC_SurfaceFluxes(**kw["BGC_SurfaceFluxes"], **swarm)
+        c2 = _k1_counts()
+        assert [y - x for x, y in zip(c0, c1)] == [1, 1, 0, 0, 0]
+        assert [y - x for x, y in zip(c1, c2)] == [0, 0, 1, 0, 0]
+        want = bgc_source_sink(b.tracers, grid, forcing, ph, ph_alt, p,
+                               compute_diags=True)
+        assert np.array_equal(got["BGC_tendencies"],
+                              want.tendencies.cpu().numpy().transpose(2, 0, 1))
+        assert np.array_equal(got["PH_PREV_3D"], want.ph_prev_3d.cpu().T)
+        assert np.array_equal(got["PH_PREV_ALT_CO2_3D"],
+                              want.ph_prev_alt_3d.cpu().T)
+        assert got["diags"].keys() == want.diags.keys()
+        for k, v in want.diags.items():
+            assert np.array_equal(got["diags"][k], v.cpu().numpy()), k
+        swant = bgc_surface_fluxes(b.tracers, forcing, sph, sph_alt, p)
+        assert np.array_equal(sf["netFlux"], swant.net_flux.cpu().numpy().T)
+        assert np.array_equal(sf["surface_pH"], swant.surface_ph.cpu())
+        for k, v in swant.diags.items():
+            assert np.array_equal(sf["diags"][k], v.cpu().numpy()), k
+        warm = dict(PH_PREV_3D=got["PH_PREV_3D"],
+                    PH_PREV_ALT_CO2_3D=got["PH_PREV_ALT_CO2_3D"])
+        ph, ph_alt = want.ph_prev_3d, want.ph_prev_alt_3d
+        sph, sph_alt = swant.surface_ph, swant.surface_ph_alt
+        swarm = dict(surface_pH=sf["surface_pH"],
+                     surface_pH_alt_co2=sf["surface_pH_alt_co2"])
+    c0 = _k1_counts()
+    for name in ("DMS_SourceSink", "DMS_SurfaceFluxes", "MACROS_SourceSink"):
+        out = getattr(host_api, name)(**kw[name])
+        assert all(np.isfinite(v).all() for v in out.values()
+                   if isinstance(v, np.ndarray)), name
+    assert _k1_counts() == c0
+
+
+def test_env_guard_on_the_card(cuda, monkeypatch):
+    """With the guard off a production step on the env cache makes no
+    host synchronisation; with ``OBGC_CHECK_ENV=1`` a fresh cache passes
+    and a stale one raises."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           ragged=True, device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    monkeypatch.delenv("OBGC_CHECK_ENV", raising=False)
+    step(state, grid, forcing, params, 3600.0, compute_diags=False, env=env)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, grid, forcing, params, 3600.0, compute_diags=False,
+             env=env)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setenv("OBGC_CHECK_ENV", "1")
+    s, _ = step(state, grid, forcing, params, 3600.0, compute_diags=False,
+                env=env)
+    assert torch.isfinite(s.bgc.tracers).all()
+    stale = dataclasses.replace(
+        forcing, salinity=forcing.salinity + 0.1)
+    with pytest.raises(ValueError, match="stale EnvCache"):
+        step(state, grid, stale, params, 3600.0, compute_diags=False,
+             env=env)
+
+
+def test_solver_health_on_the_constants_kernel(cuda):
+    """``solver_health`` on CUDA tensors takes its constants from the
+    constants kernel (one launch) and agrees with the same call on the
+    CPU; converged warm starts give steps below the solver's tolerance."""
+    from ocean_bgc_tpu_torch.utils.debug import solver_health
+
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
+                                           ragged=True, device=cuda)
+    s, _ = step(state, grid, forcing, params, 3600.0, compute_diags=False)
+    n = carbonate_coeffs_sat.launches
+    got = solver_health(s, grid, forcing)
+    assert carbonate_coeffs_sat.launches == n + 1
+    cpu = [dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+        for x in (s.bgc, grid, forcing)]
+    want = solver_health(dataclasses.replace(s, bgc=cpu[0]), *cpu[1:])
+    assert got["cells_checked"] == want["cells_checked"] > 0
+    assert got["max_newton_step_h"] < 1e-9
+    assert abs(got["mean_newton_step_h"] - want["mean_newton_step_h"]) <= 1e-12
