@@ -80,14 +80,23 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    interpolated forcing with and without the seed, ``run_forced`` with
    the env tables blended and held, and 24 seeded steps against 24
    unseeded ones inside tests/test_x0_seed_trajectory.py's envelope;
-8. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
+8. the adjoint (``models/adjoint.py``; :func:`adjoint_phase`): one
+   reverse sweep of ``parameter_sensitivities`` over three parameters and
+   8 steps with remat at 60 x 8192 f64, on the kernel route and on the
+   plain route (equal within 1e-12), its kappa entry against central
+   finite differences (2e-3), K1's launches in the sweep (the forward's
+   and the recompute's), remat against no remat at 60 x 1024 (1e-12),
+   the calibration twin experiment at 6 x 8 (PCref within 3%), the f32
+   sweep, the seconds per forward and backward step, K1's backwards'
+   share and the peak memory;
+9. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
    version;
-9. one f64 step of each path at 60 x 131072 columns (diagnostics off),
+10. one f64 step of each path at 60 x 131072 columns (diagnostics off),
    and one step of that world streamed through the card in chunks of
    32768 columns (``models/chunked.py::step_chunked``) against the
    unchunked step (values differing: 0 required), with wall times and
    peak device memory;
-10. numbers: columns/s of every step configuration (diagnostics off with
+11. numbers: columns/s of every step configuration (diagnostics off with
    each interior; diagnostics on without and with the env cache and with
    a 10-field ``diag_filter``), each kernel's time beside its plain
    version's and its bound, each kernel's registers and spills from the
@@ -101,6 +110,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -2256,6 +2266,313 @@ def chunked_step(params, state, grid, forcing):
                              "one")
 
 
+# the adjoint phase: steps of the sweep, the parameters it differentiates
+# (dJ/d ln p), the width of the remat comparison, and the twin experiment
+# of tests/test_adjoint.py:195-227 at its own size
+ADJ_STEPS = 8
+ADJ_PATHS = ("bgc.parm_kappa_nitrif", "bgc.autotrophs[0].PCref",
+             "bgc.parm_POC_diss")
+REMAT_NCOL = 1024
+TWIN = dict(nlev=6, ncol=8, seed=73, steps=6, iters=60, lr=0.1, start=1.4)
+
+
+def adjoint_functional(active):
+    """J(final) = mean NO3**2 + mean surface DIC + mean interior pH of the
+    active cells: the NO3 term is JAX's (tests/test_adjoint.py:168-169);
+    the DIC term reaches the surface pair's implicit-function backward
+    through the air-sea CO2 flux, the pH term the dual instance's, which
+    the NO3 term never reaches."""
+    from ocean_bgc_tpu_torch.state import BGCTracers as BT
+    n_active = active.sum()
+
+    def functional(final):
+        return (torch.mean(final.bgc.tracers[:, BT.NO3] ** 2)
+                + torch.mean(final.bgc.tracers[0, BT.DIC])
+                + torch.where(active, final.bgc.ph_prev_3d, 0.0).sum()
+                / n_active)
+    return functional
+
+
+def k1_backward_ms(world, params):
+    """Wall ms of one backward of each K1 route a sweep's step passes, on
+    the kernel (the dual instance on the env cache's constants, the
+    surface pair's bracket-in instance), each from its inputs as leaves,
+    and the bytes each must move (every input read once, every gradient
+    written once)."""
+    from ocean_bgc_tpu_torch.constants import (
+        DEL_PH, PHHI_SURF_INIT, PHLO_SURF_INIT)
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
+    from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs, precompute_env
+    from ocean_bgc_tpu_torch.ops.carbonate import (
+        _to_mass_units, carbonate_coeffs, warm_brackets_h)
+    from ocean_bgc_tpu_torch.state import BGCTracers as T
+    state, grid, forcing = world
+    env = precompute_env(grid, forcing, params.bgc)
+    out = {}
+    dic, ta, pt, sit, pa, pb, coeffs = carbonate_inputs(
+        state.bgc.tracers, grid, forcing, state.bgc.ph_prev_3d,
+        state.bgc.ph_prev_alt_3d, env)
+    leaves = [t.clone().requires_grad_() for t in (dic, ta, pt, sit, *coeffs)]
+    outs = cc.co3_terms_dual_coeffs(*leaves[:4], pa, pb,
+                                    cc.CarbCoeffs(*leaves[4:]))
+    outs = (*outs[0], *outs[1])
+    grads = [torch.ones_like(o) for o in outs]
+
+    def dual():
+        torch.autograd.grad(outs, leaves, grads, retain_graph=True,
+                            allow_unused=True)
+        torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*leaves, pa, pb, *grads, *leaves))
+    out["dual"] = (_wall_ms(dual), nbytes)
+
+    surf = torch.clamp_min(state.bgc.tracers[0], 0.0)
+    coeffs_s = carbonate_coeffs(torch.zeros_like(forcing.sst), forcing.sst,
+                                forcing.sss, False)
+    d_a, ta_s, pt_s, sit_s = _to_mass_units(surf[T.DIC], surf[T.ALK],
+                                            surf[T.PO4], surf[T.SIO3])
+    d_b = _to_mass_units(surf[T.DIC_ALT_CO2], surf[T.ALK], surf[T.PO4],
+                         surf[T.SIO3])[0]
+    x1, x2 = warm_brackets_h(state.bgc.surface_ph, PHLO_SURF_INIT,
+                             PHHI_SURF_INIT, DEL_PH)
+    x1b, x2b = warm_brackets_h(state.bgc.surface_ph_alt, PHLO_SURF_INIT,
+                               PHHI_SURF_INIT, DEL_PH)
+    s_leaves = [t.clone().requires_grad_()
+                for t in (torch.stack([d_a, d_b]), ta_s, pt_s, sit_s,
+                          *coeffs_s)]
+    h = cc.solve_htotal_brackets(cc.CarbCoeffs(*s_leaves[4:]),
+                                 *s_leaves[:4], torch.stack([x1, x1b]),
+                                 torch.stack([x2, x2b]))
+    g_h = torch.ones_like(h)
+
+    def pair():
+        torch.autograd.grad(h, s_leaves, g_h, retain_graph=True,
+                            allow_unused=True)
+        torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*s_leaves, h, g_h, *s_leaves))
+    out["surface"] = (_wall_ms(pair), nbytes)
+    return out
+
+
+def _wall_ms(fn, reps=5):
+    """Median wall ms of ``fn`` (which synchronises) after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def adjoint_phase(params, card):
+    """Phase 8 (the adjoint, ``models/adjoint.py``) on the ragged world at
+    60 x 8192 columns, f64 unless stated:
+
+    (a) ``parameter_sensitivities`` of :func:`adjoint_functional` over
+        ADJ_PATHS and ADJ_STEPS steps with remat, on the kernel route and
+        on the plain route (``carbonate_impl="torch"``): within 1e-12
+        relative (the routes' forwards are bitwise equal and they share
+        their backward);
+    (b) the kappa entry against central finite differences (+-1%) of two
+        more forward runs, rtol 2e-3 (JAX's bound);
+    (c) the sweep's K1 launches: the bracket-in instance 1 + 2 * steps
+        (the stand-in, the surface pair's forward and its recompute), the
+        dual instance 2 * steps, nothing else; the plain route only the
+        stand-in's 1;
+    (d) remat against no remat at 60 x REMAT_NCOL: the gradients with
+        respect to the parameters and the initial tracers within 1e-12 of
+        each one's largest, with each one's peak memory;
+    (e) the twin experiment of tests/test_adjoint.py at its own size
+        (TWIN): the loss falls at least 100-fold and PCref is recovered
+        within 3%;
+    (f) the f32 sweep of (a): finite, the signs of f64's; the relative
+        difference printed, not gated;
+    (g) seconds per forward and per backward step of a timed sweep, the
+        K1 backwards' share of the backward (from their wall time alone on
+        the step's inputs), peak memory."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.models.adjoint import (
+        calibrate, get_param, override_params, parameter_sensitivities,
+        run_diff)
+    from ocean_bgc_tpu_torch.state import BGCTracers as BT
+    from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+
+    def world_at(ncol, dtype=torch.float64, **kw):
+        kw = dict(nlev=NLEV, ncol=ncol, seed=SEED, ragged=True, **kw)
+        return synthetic_world(dtype=dtype, **kw)
+
+    def sweep(world, **kw):
+        state, grid, forcing = world
+        return parameter_sensitivities(
+            params, ADJ_PATHS, state, grid, forcing, DT, ADJ_STEPS,
+            adjoint_functional(grid.active_mask()), **kw)
+
+    t_phase = time.perf_counter()
+    world = world_at(NCOL)
+    # (a) and (c): the kernel route, counted, and the plain route
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sens = sweep(world)
+    torch.cuda.synchronize()
+    wall_kernel = time.perf_counter() - t0
+    counts = read_counts()
+    peak_kernel = torch.cuda.max_memory_allocated() / 1e9
+    want = expected(k1=2 * ADJ_STEPS, brackets=1 + 2 * ADJ_STEPS)
+    log(f"adjoint (c): launches of the sweep, {ADJ_STEPS} steps with remat "
+        f"at {NLEV}x{NCOL} f64: {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"the sweep's K1 launches {counts} != {want}")
+    reset_counts()
+    t0 = time.perf_counter()
+    sens_plain = sweep(world, carbonate_impl="torch")
+    wall_plain = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != expected(brackets=1):
+        raise AssertionError(f"the plain route's sweep launched {counts}")
+    worst = max(_rel(sens[p], sens_plain[p]) for p in ADJ_PATHS)
+    log(f"adjoint (a): dJ/dln p, kernel route {sens}, plain route "
+        f"{sens_plain}; largest relative difference {worst:.3e} (limit "
+        f"1e-12); sweeps {wall_kernel:.2f} s kernel, {wall_plain:.2f} s "
+        f"plain (first calls), {card}")
+    if not (worst <= 1e-12 and all(map(math.isfinite, sens.values()))):
+        raise AssertionError("kernel and plain routes' sensitivities "
+                             "differ, or are not finite")
+
+    # (b) the kappa entry against central finite differences
+    state, grid, forcing = world
+    functional = adjoint_functional(grid.active_mask())
+    path = ADJ_PATHS[0]
+    p0 = get_param(params, path)
+
+    def j_of(value):
+        with torch.no_grad():
+            final = run_diff(state, grid, forcing,
+                             override_params(params, {path: value}), DT,
+                             ADJ_STEPS)
+            return float(functional(final))
+    fd = (j_of(1.01 * p0) - j_of(0.99 * p0)) / 0.02
+    err = _rel(sens[path], fd)
+    log(f"adjoint (b): {path} dJ/dln p {sens[path]!r} vs central finite "
+        f"differences {fd!r}: relative difference {err:.3e} (limit 2e-3)")
+    if not err <= 2e-3:
+        raise AssertionError("the adjoint disagrees with finite differences")
+
+    # (g) a timed sweep: forward and backward apart, and K1's backward
+    theta = torch.ones(len(ADJ_PATHS), dtype=torch.float64,
+                       device=state.bgc.tracers.device, requires_grad=True)
+    over = override_params(params, {
+        p: get_param(params, p) * theta[i] for i, p in enumerate(ADJ_PATHS)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    j = functional(run_diff(state, grid, forcing, over, DT, ADJ_STEPS))
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.autograd.grad(j, theta)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    peak_timed = torch.cuda.max_memory_allocated() / 1e9
+    del j, over, theta
+    k1b = k1_backward_ms(world, params)
+    k1b_ms = k1b["dual"][0] + k1b["surface"][0]
+    share = ADJ_STEPS * k1b_ms / (t_bwd * 1e3)
+    k1b_bytes = k1b["dual"][1] + k1b["surface"][1]
+    k1b_bound = k1b_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"adjoint (g), {card}: {ADJ_STEPS}-step sweep at {NLEV}x{NCOL} f64 "
+        f"with remat: forward {t_fwd / ADJ_STEPS:.4f} s/step, backward "
+        f"(recompute included) {t_bwd / ADJ_STEPS:.4f} s/step, peak device "
+        f"memory {peak_timed:.2f} GB (the counted sweep's "
+        f"{peak_kernel:.2f} GB); K1's backwards per step: dual "
+        f"{k1b['dual'][0]:.3f} ms + surface pair {k1b['surface'][0]:.3f} "
+        f"ms wall (byte bound {k1b_bound:.4f} ms), "
+        f"{100 * share:.1f}% of the backward")
+    del world
+
+    # (d) remat against no remat at 60 x REMAT_NCOL
+    state, grid, forcing = world_at(REMAT_NCOL)
+    functional = adjoint_functional(grid.active_mask())
+    grads, peaks = {}, {}
+    for remat in (True, False):
+        theta = torch.ones(len(ADJ_PATHS), dtype=torch.float64,
+                           device=state.bgc.tracers.device,
+                           requires_grad=True)
+        tr = state.bgc.tracers.clone().requires_grad_()
+        over = override_params(params, {
+            p: get_param(params, p) * theta[i]
+            for i, p in enumerate(ADJ_PATHS)})
+        s0 = dataclasses.replace(state, bgc=dataclasses.replace(
+            state.bgc, tracers=tr))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        j = functional(run_diff(s0, grid, forcing, over, DT, ADJ_STEPS,
+                                remat=remat))
+        grads[remat] = torch.autograd.grad(j, (theta, tr))
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del j
+    diff = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(grads[True], grads[False]))
+    log(f"adjoint (d): remat vs no remat, {ADJ_STEPS} steps at "
+        f"{NLEV}x{REMAT_NCOL} f64, gradients in the parameters and the "
+        f"initial tracers: largest difference {diff:.3e} of the largest "
+        f"(limit 1e-12); peak device memory above the world {peaks[True]:.3f}"
+        f" GB with remat, {peaks[False]:.3f} GB without, {card}")
+    if not diff <= 1e-12:
+        raise AssertionError("remat changes the gradient")
+    del grads
+
+    # (f) the f32 sweep
+    sens32 = sweep(world_at(NCOL, torch.float32))
+    rel32 = {p: _rel(sens32[p], sens[p]) for p in ADJ_PATHS}
+    signs = all((sens32[p] > 0) == (sens[p] > 0) for p in ADJ_PATHS)
+    log(f"adjoint (f): f32 sweep {sens32}: relative difference from f64 "
+        f"{rel32} (not gated); finite "
+        f"{all(map(math.isfinite, sens32.values()))}, signs of f64's {signs}")
+    if not (signs and all(map(math.isfinite, sens32.values()))):
+        raise AssertionError("the f32 sweep is not finite or flips a sign")
+
+    # (e) the twin experiment
+    t0 = time.perf_counter()
+    state, grid, forcing = synthetic_world(
+        nlev=TWIN["nlev"], ncol=TWIN["ncol"], seed=TWIN["seed"],
+        ragged=False)
+    path = "bgc.autotrophs[0].PCref"
+    true_val = get_param(params, path)
+
+    def obs_fn(s):
+        return s.bgc.tracers[0][(BT.SPC, BT.SPCHL, BT.DIC), :]
+
+    with torch.no_grad():
+        _, observations = run_diff(state, grid, forcing, params, DT,
+                                   TWIN["steps"], obs_fn=obs_fn)
+    result = calibrate(
+        override_params(params, {path: TWIN["start"] * true_val}), [path],
+        state, grid, forcing, DT, TWIN["steps"], observations, obs_fn,
+        iters=TWIN["iters"], learning_rate=TWIN["lr"])
+    drop = result.losses[0] / max(result.losses[-1], 1e-300)
+    err = _rel(result.values[path], true_val)
+    log(f"adjoint (e): twin experiment at {TWIN['nlev']}x{TWIN['ncol']}, "
+        f"{TWIN['steps']} steps, {TWIN['iters']} Adam iterations (lr "
+        f"{TWIN['lr']}) from {TWIN['start']}x PCref: loss "
+        f"{result.losses[0]:.3e} -> {result.losses[-1]:.3e} ({drop:.3g}x, "
+        f"limit >= 100), PCref {result.values[path]!r} vs {true_val!r} "
+        f"({100 * err:.3f}%, limit 3%), {time.perf_counter() - t0:.1f} s, "
+        f"{card}")
+    if not (drop >= 100.0 and err <= 0.03):
+        raise AssertionError("the twin experiment did not recover PCref")
+    log(f"adjoint phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -2327,6 +2644,7 @@ def main():
                 launches=k["launches"], max_abs_err=k["max_abs_err"],
                 ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                 bound_by=k["bound_by"], library_ms=None))
+    adjoint_phase(params, card)
     p = probe_phase()
     kernels.append(dict(
         name="probe (float32)", route="cuda",

@@ -107,7 +107,8 @@ def _resolve_interior_impl(interior_impl, compute_diags, health):
     """"auto" -> "xla" (``bgc_source_sink``, with K1 on CUDA tensors);
     "fused" takes K2 (``ops/cuda_step.py``) at f64 and f32, with
     diagnostics off and no health counters, as the JAX package's
-    ``resolve_interior_impl`` allows it."""
+    ``resolve_interior_impl`` allows it; forward-only, as there (K2 raises
+    on inputs that require grad)."""
     if interior_impl == "auto":
         return "xla"
     if interior_impl not in ("xla", "fused"):

@@ -21,6 +21,7 @@ module of the package.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -28,6 +29,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -186,3 +189,30 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.obgc_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def requires_grad(obj) -> bool:
+    """Whether any tensor in ``obj`` (a tensor, or tensors inside
+    dataclasses, named tuples, tuples, lists and dicts, as the port's
+    states, worlds, env caches and parameters hold them) requires grad."""
+    if isinstance(obj, torch.Tensor):
+        return obj.requires_grad
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return any(requires_grad(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return any(requires_grad(v) for v in obj)
+    if isinstance(obj, dict):
+        return any(requires_grad(v) for v in obj.values())
+    return False
+
+
+def refuse_grad(what: str, *inputs) -> None:
+    """Raise where a kernel is about to read, through raw pointers,
+    inputs that autograd records: its outputs would leave the graph as
+    constants.  A kernel with a backward launches inside its
+    ``torch.autograd.Function``'s forward, where recording is off."""
+    if torch.is_grad_enabled() and requires_grad(inputs):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward, and its inputs require "
+            f"grad; its outputs would be detached from autograd")

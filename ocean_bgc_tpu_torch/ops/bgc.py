@@ -45,7 +45,12 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     solve_htotal_brackets,
     subsurface_of,
 )
-from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, safe_div
+from ocean_bgc_tpu_torch.ops.numerics import (
+    fill_like,
+    morel_kpar,
+    safe_div,
+    z_sqrt_z,
+)
 from ocean_bgc_tpu_torch.ops.particulates import (
     RHO_CACO3,
     RHO_SIO2,
@@ -377,8 +382,8 @@ def ecosystem_kinetics(
     def _ns(trait_n, trait_s):
         """North/south trait select, in the working dtype (each value
         filled on the device: a copy from the host would synchronise)."""
-        return torch.where(north, lat.new_full((), trait_n, dtype=cdt),
-                           lat.new_full((), trait_s, dtype=cdt))
+        return torch.where(north, fill_like(temp, trait_n),
+                           fill_like(temp, trait_s))
 
     no3 = tr[:, T.NO3]
     sio3 = tr[:, T.SIO3]
@@ -435,8 +440,8 @@ def ecosystem_kinetics(
                 (fe < c.CKSI * au.kFe) & (fe > 0.0)
                 & (sio3 > c.CKSI * au.kSiO3),
                 _minimum(
-                    safe_div(torch.full_like(fe, c.GQSI_0 * c.CKSI
-                                              * au.kFe), fe),
+                    safe_div(fill_like(fe, c.GQSI_0 * c.CKSI * au.kFe)
+                             .expand_as(fe), fe),
                     c.GQSI_MAX),
                 gs)
             gs = torch.where(fe == 0.0, c.GQSI_MAX, gs)
@@ -664,8 +669,8 @@ def ecosystem_kinetics(
 
     zprime = _maximum(zooC - f_loss_thres * c.LOSS_THRES_ZOO, 0.0)
     # Zprime**1.5 (BGC_mod.F90:1397) as z*sqrt(z), as the JAX package
-    # writes it
-    zoo_loss = (params.parm_z_mort2_0 * (zprime * torch.sqrt(zprime))
+    # writes it, with the derivative 1.5*sqrt(z), 0 at zero biomass
+    zoo_loss = (params.parm_z_mort2_0 * z_sqrt_z(zprime)
                 + params.parm_z_mort_0 * zprime) * tfunc
     zoo_loss_doc = ((1.0 - params.parm_labile_ratio)
                     * (1.0 - f_zoo_detr) * zoo_loss)

@@ -8,7 +8,10 @@ plain PyTorch form of the bracketed safe-Newton iteration: every lane
 carries its own bracket and Newton state and freezes when it converges,
 so each lane's result is independent of its batchmates — the property
 that lets the CUDA kernel (``ops/cuda_carbonate.py``) run one thread per
-cell with its own loop and still agree with this code.
+cell with its own loop and still agree with this code.  For autograd the
+root is :func:`solve_htotal` (:func:`implicit_root` for a kernel's root):
+the implicit-function backward, never a derivative through the
+iteration.
 
 Every sum and product keeps the JAX package's association order; the
 docstring of :func:`talk` says why.
@@ -400,6 +403,69 @@ def _solve_htotal_impl(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
     if with_stats:
         return soln, {"iters": iters, "grows": grows, "converged": ~active}
     return soln
+
+
+def implicit_vjp(g, h, coeffs: CarbCoeffs, dic, ta, pt, sit, needs):
+    """The gradient of a loss with respect to (dic, ta, pt, sit, *coeffs)
+    through a root h of ``talk(coeffs, dic, ta, pt, sit, h) = 0``, given
+    the loss's gradient ``g`` with respect to h, by the implicit function
+    theorem (JAX ``_solve_htotal_bwd``, ocean_bgc_tpu/ops/carbonate.py:
+    611-634): with ``lam = -g / f_h`` at the root, the VJP of the
+    residual with respect to the inputs, from one residual evaluation.
+    ``needs`` flags which of the 19 inputs want a gradient; the others
+    get None.
+
+    ``lam`` is 0 wherever ``g`` is, so a lane whose root the caller
+    discards (an inactive cell, whose residual slope may be 0 or not
+    finite) adds no NaN to the inputs' gradients."""
+    inputs = (dic, ta, pt, sit, *coeffs)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        fn, f_h = talk(CarbCoeffs(*leaves[4:]), *leaves[:4], h.detach())
+        lam = torch.where(g == 0.0, 0.0, -g / f_h.detach())
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        got = iter(torch.autograd.grad(fn, wanted, lam, allow_unused=True)
+                   if wanted else ())
+    return tuple(next(got) if n else None for n in needs)
+
+
+class _ImplicitRoot(torch.autograd.Function):
+    """The root h of the alkalinity residual from a given solver, with
+    the implicit-function backward: the solver (the plain iteration or a
+    kernel) runs unrecorded, and the brackets and the seed it closes
+    over take no gradient (the root does not depend on them)."""
+
+    @staticmethod
+    def forward(ctx, solver, dic, ta, pt, sit, *coeffs):
+        h = solver()
+        ctx.save_for_backward(h, dic, ta, pt, sit, *coeffs)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        h, dic, ta, pt, sit, *coeffs = ctx.saved_tensors
+        return (None, *implicit_vjp(g, h, CarbCoeffs(*coeffs), dic, ta, pt,
+                                    sit, ctx.needs_input_grad[1:]))
+
+
+def implicit_root(solver, coeffs: CarbCoeffs, dic, ta, pt, sit):
+    """``solver()``, the root H of ``talk(coeffs, dic, ta, pt, sit, H) =
+    0``, as a function of those inputs for autograd (the implicit-function
+    backward of :func:`implicit_vjp`)."""
+    return _ImplicitRoot.apply(solver, dic, ta, pt, sit, *coeffs)
+
+
+def solve_htotal(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, x0=None):
+    """:func:`_solve_htotal_impl` (its ``x0`` seed included) as a function
+    of (coeffs, dic, ta, pt, sit) for autograd, with the JAX package's
+    implicit-function backward (``solve_htotal``/``solve_htotal_warm``,
+    ocean_bgc_tpu/ops/carbonate.py:416-434, :611-676) in place of a
+    derivative through every iteration: the forward is the plain solve,
+    unrecorded."""
+    return implicit_root(
+        lambda: _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2, x0=x0),
+        coeffs, dic, ta, pt, sit)
 
 
 def _to_mass_units(dic_in, ta_in, pt_in, sit_in):

@@ -28,6 +28,19 @@ takes its plain version for CPU tensors, or wherever the caller asks for
 The solves run their lanes (``csrc/carbonate_solve.cuh``) one per
 thread, and none makes a host synchronisation.
 
+Every route is differentiable, on the kernel as on the plain version,
+through one ``torch.autograd.Function`` per route whose forward (the
+kernel, or the plain version unrecorded) is not taped and whose backward
+is plain PyTorch: the solves' implicit-function rule
+(``ops/carbonate.py::implicit_vjp``) at the returned roots, with the
+speciation rebuilt from them by :func:`_speciate`, and the constants'
+derivative from :func:`carbonate_coeffs_sat_torch` recomputed.  A kernel
+route and its plain route share that backward, so where their forward
+outputs are bitwise equal so are their gradients.  Brackets, seeds and
+previous pH fields take no gradient (the root does not depend on them).
+A kernel reached outside its Function with inputs that require grad
+raises (``_kernels.refuse_grad``).
+
 Each solve also has the TPU kernel's seeded variant (``x0_seed``,
 ``OBGC_X0_SEED=1``; ``ops/carbonate.py::x0_seed_enabled``), selected by
 its ``seed`` argument: every problem's iteration starts at the previous
@@ -57,6 +70,8 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     _to_mass_units,
     carbonate_coeffs,
     co3_sat_vals,
+    implicit_root,
+    solve_htotal,
 )
 
 IMPLS = ("auto", "kernel", "torch")
@@ -103,18 +118,21 @@ def co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
                                 coeffs: CarbCoeffs, *, with_stats=False,
                                 seed=False):
     """The plain PyTorch version of K1 (same arguments and results as
-    :func:`co3_terms_dual_coeffs`).  ``with_stats`` adds the solver's
-    per-lane counts of each scenario (``_solve_htotal_impl``)."""
+    :func:`co3_terms_dual_coeffs`), differentiable through the solve's
+    implicit-function rule (``ops/carbonate.py::solve_htotal``).
+    ``with_stats`` adds the solver's per-lane counts of each scenario
+    (``_solve_htotal_impl``; not differentiable)."""
     dic_m, ta_m, pt_m, sit_m = _to_mass_units(dic, ta, pt, sit)
     results, stats = [], []
     for ph_prev in (ph_prev_a, ph_prev_b):
         x1, x2, *x0 = _ph_brackets(ph_prev, seed)
-        h = _solve_htotal_impl(coeffs, dic_m, ta_m, pt_m, sit_m, x1, x2,
-                               with_stats=with_stats,
-                               x0=x0[0] if seed else None)
+        x0 = x0[0] if seed else None
         if with_stats:
-            h, st = h
+            h, st = _solve_htotal_impl(coeffs, dic_m, ta_m, pt_m, sit_m, x1,
+                                       x2, with_stats=True, x0=x0)
             stats.append(st)
+        else:
+            h = solve_htotal(coeffs, dic_m, ta_m, pt_m, sit_m, x1, x2, x0)
         results.append(_speciate(h, dic_m, coeffs))
     if with_stats:
         return results[0], results[1], stats
@@ -149,6 +167,7 @@ def _check_kernel_inputs(kernel, ref, fields):
 
 
 def _launch(fields, out_dtype, seed=False):
+    _kernels.refuse_grad("carbonate_dual", fields)
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual
     fn.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -185,15 +204,63 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
-        return co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
-                                           ph_prev_b, coeffs, seed=seed)
-    fields = dict(dic=dic, ta=ta, pt=pt, sit=sit, ph_prev_a=ph_prev_a,
-                  ph_prev_b=ph_prev_b, **coeffs._asdict())
-    _check_kernel_inputs("carbonate_dual", dic,
-                         {k: (t, dic.shape) for k, t in fields.items()})
-    outs = _launch(tuple(fields.values()), dic.dtype, seed)
-    _count(co3_terms_dual_coeffs, seed)
+        def run():
+            a, b = co3_terms_dual_coeffs_torch(dic, ta, pt, sit, ph_prev_a,
+                                               ph_prev_b, coeffs, seed=seed)
+            return (*a, *b)
+    else:
+        fields = dict(dic=dic, ta=ta, pt=pt, sit=sit, ph_prev_a=ph_prev_a,
+                      ph_prev_b=ph_prev_b, **coeffs._asdict())
+        _check_kernel_inputs("carbonate_dual", dic,
+                             {k: (t, dic.shape) for k, t in fields.items()})
+
+        def run():
+            outs = _launch(tuple(fields.values()), dic.dtype, seed)
+            _count(co3_terms_dual_coeffs, seed)
+            return outs
+    outs = _DualSolve.apply(run, dic, ta, pt, sit, ph_prev_a, ph_prev_b,
+                            *coeffs)
     return tuple(outs[:4]), tuple(outs[4:])
+
+
+class _DualSolve(torch.autograd.Function):
+    """The dual instance's 8 outputs from ``run()`` (the kernel or the
+    plain version), with the implicit-function backward: H of each
+    scenario recovered from its pH, the speciation rebuilt from it."""
+
+    @staticmethod
+    def forward(ctx, run, dic, ta, pt, sit, ph_prev_a, ph_prev_b, *coeffs):
+        outs = tuple(run())
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dic, ta, pt, sit, outs[0], outs[4], *coeffs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dic, ta, pt, sit, ph_a, ph_b, *coeffs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:5] + ctx.needs_input_grad[7:]
+        inputs = (dic, ta, pt, sit, *coeffs)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(bool(n))
+                      for t, n in zip(inputs, needs)]
+            cc = CarbCoeffs(*leaves[4:])
+            mass = _to_mass_units(*leaves[:4])
+            outs, gs = [], []
+            for ph, g4 in ((ph_a, grads[:4]), (ph_b, grads[4:])):
+                if all(g is None for g in g4):
+                    continue
+                h = torch.pow(10.0, -ph)
+                h = implicit_root(lambda h=h: h, cc, *mass)
+                for o, g in zip(_speciate(h, mass[0], cc), g4):
+                    if g is not None:
+                        outs.append(o)
+                        gs.append(g)
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            got = iter(torch.autograd.grad(outs, wanted, gs,
+                                           allow_unused=True)
+                       if outs and wanted else [None] * len(wanted))
+        d = [next(got) if n else None for n in needs]
+        return (None, *d[:4], None, None, *d[4:])
 
 
 def _count(wrapper, seed):
@@ -229,7 +296,9 @@ def carbonate_coeffs_sat_torch(depth_m, temp, salt, *, with_sat=True):
 
 def _launch_coeffs(depth_m, temp, salt, with_sat):
     """Launch the constants kernel; returns its :data:`COEFF_OUTPUTS`
-    (the constants only, without ``with_sat``), views of one buffer."""
+    (the constants only, without ``with_sat``) as one
+    ``(outputs, nlev, ncol)`` buffer."""
+    _kernels.refuse_grad("carbonate_coeffs", depth_m, temp, salt)
     lib = _kernels.load("carbonate_coeffs")
     fn = lib.obgc_carbonate_coeffs
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -242,16 +311,16 @@ def _launch_coeffs(depth_m, temp, salt, with_sat):
                            "ops/cuda_carbonate.py disagree on the constants "
                            "kernel's outputs")
     n_out = len(COEFF_OUTPUTS) if with_sat else len(CarbCoeffs._fields)
-    outs = torch.empty((n_out, *depth_m.shape), dtype=depth_m.dtype,
-                       device=depth_m.device).unbind(0)
+    buf = torch.empty((n_out, *depth_m.shape), dtype=depth_m.dtype,
+                      device=depth_m.device)
     outs_p = (ctypes.c_void_p * len(COEFF_OUTPUTS))(
-        *(t.data_ptr() for t in outs))
+        *(t.data_ptr() for t in buf.unbind(0)))
     stream = torch.cuda.current_stream(depth_m.device).cuda_stream
     code = fn(int(depth_m.dtype == torch.float64), depth_m.data_ptr(),
               temp.data_ptr(), salt.data_ptr(), outs_p, depth_m.numel(),
               depth_m.shape[1], int(with_sat), stream)
     _kernels.check(lib, code, "carbonate_coeffs launch")
-    return outs
+    return buf
 
 
 def carbonate_coeffs_sat(depth_m, temp, salt, *, with_sat=True,
@@ -280,12 +349,39 @@ def carbonate_coeffs_sat(depth_m, temp, salt, *, with_sat=True,
     _check_kernel_inputs("carbonate_coeffs", depth_m, {
         k: (t, depth_m.shape) for k, t in (("depth_m", depth_m),
                                            ("temp", temp), ("salt", salt))})
-    outs = _launch_coeffs(depth_m, temp, salt, with_sat)
-    carbonate_coeffs_sat.launches += 1
+    outs = _CoeffsKernel.apply(with_sat, depth_m, temp, salt).unbind(0)
     return CarbCoeffs(*outs[:15]), (tuple(outs[15:]) if with_sat else None)
 
 
 carbonate_coeffs_sat.launches = 0
+
+
+class _CoeffsKernel(torch.autograd.Function):
+    """The constants kernel's outputs as one buffer, with the backward of
+    its plain version: :func:`carbonate_coeffs_sat_torch` recomputed and
+    differentiated with respect to depth, T and S."""
+
+    @staticmethod
+    def forward(ctx, with_sat, depth_m, temp, salt):
+        buf = _launch_coeffs(depth_m, temp, salt, with_sat)
+        carbonate_coeffs_sat.launches += 1
+        ctx.with_sat = with_sat
+        ctx.save_for_backward(depth_m, temp, salt)
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(bool(n))
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            coeffs, sat = carbonate_coeffs_sat_torch(*leaves,
+                                                     with_sat=ctx.with_sat)
+            outs = (*coeffs, *(sat or ()))
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            got = iter(torch.autograd.grad(outs, wanted, grad.unbind(0),
+                                           allow_unused=True))
+        return (None, *(next(got) if n else None for n in needs))
 
 
 def co3_terms_dual_sat_torch(depth_m, temp, salt, dic, ta, pt, sit,
@@ -343,6 +439,7 @@ def _launch_brackets(fields):
     """Launch the bracket-in instance on ``fields`` (by
     :data:`BRACKET_FIELDS` name, inputs only; the seeded variant where
     ``fields`` holds ``x0``); returns H per lane."""
+    _kernels.refuse_grad("solve_htotal_brackets", fields)
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_solve_htotal_brackets
     fn.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -386,8 +483,7 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
-        return _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2,
-                                  x0=seed)
+        return solve_htotal(coeffs, dic, ta, pt, sit, x1, x2, seed)
     lanes, shared = tuple(dic.shape), tuple(ta.shape)
     if len(shared) > len(lanes) or lanes[len(lanes) - len(shared):] != shared:
         raise ValueError(f"solve_htotal_brackets: the shared fields' shape "
@@ -400,9 +496,12 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     _check_kernel_inputs("solve_htotal_brackets", dic, {
         k: (t, lanes if k in ("dic", "x1", "x2", "x0") else shared)
         for k, t in fields.items()})
-    h = _launch_brackets(fields)
-    _count(solve_htotal_brackets, seed is not None)
-    return h
+
+    def run():
+        h = _launch_brackets(fields)
+        _count(solve_htotal_brackets, seed is not None)
+        return h
+    return implicit_root(run, coeffs, dic, ta, pt, sit)
 
 
 solve_htotal_brackets.launches = 0

@@ -164,6 +164,7 @@ def _library():
 def _launch_solve(fields: dict, outs: FusedInteriorOut):
     """The solve kernel: both pH fields of every cell into ``outs``.
     Each launch adds one to ``_launch_solve.launches``."""
+    _kernels.refuse_grad("interior_step solve", fields)
     lib = _library()
     fn = lib.obgc_interior_solve
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
@@ -203,6 +204,7 @@ def _launch_bio(fields: dict, outs: FusedInteriorOut, params: BGCParams,
     """The biology kernel: the tendencies of every cell into ``outs``,
     ``cols`` columns per block (:func:`columns_per_block` if None).  Each
     launch adds one to ``_launch_bio.launches``."""
+    _kernels.refuse_grad("interior_step biology", fields, params)
     lib = _library()
     fn = lib.obgc_interior_bio
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
@@ -244,11 +246,19 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
     kernel on CUDA tensors and uses the plain version on CPU tensors;
     "kernel" requires CUDA tensors.  A call launches two kernels, the pH
     solve (counted in ``_launch_solve.launches``) and the biology
-    (``_launch_bio.launches``).
+    (``_launch_bio.launches``).  Forward-only: inputs that require grad
+    (under grad mode) raise ValueError, on any device.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown interior kernel impl {impl!r}; "
                          f"expected one of {IMPLS}")
+    if torch.is_grad_enabled() and _kernels.requires_grad(
+            (tracers, grid, forcing, ph_prev_3d, ph_prev_alt_3d, params,
+             env)):
+        # K2 is forward-only, as the TPU kernel is (JAX coupled.py:114)
+        raise ValueError("interior_impl='fused' is forward-only: its inputs "
+                         "require grad; use interior_impl='xla' (the "
+                         "default) under autograd")
     if impl == "auto" and tracers.device.type == "cpu":
         return fused_interior_step_torch(tracers, grid, forcing, ph_prev_3d,
                                          ph_prev_alt_3d, params, env=env)

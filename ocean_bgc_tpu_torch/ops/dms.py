@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from ocean_bgc_tpu_torch.constants import EPSC, F_QSW_PAR_DMS
-from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, safe_div
+from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, pow_floor0, safe_div
 from ocean_bgc_tpu_torch.params import DMSParams
 from ocean_bgc_tpu_torch.state import DMSTracers as DT
 
@@ -154,8 +154,9 @@ def dms_source_sink(
                            rs2n_zoo_fallback)
     zooS = rs2n_zoo * zooN
 
-    # diagnosed bacteria (DMS_mod.F90:695)
-    b_diagnosed = p.B_preexp * phytoN ** p.B_exp
+    # diagnosed bacteria (DMS_mod.F90:695); the derivative in phytoN is
+    # taken as 0 at phytoN = 0, where it is infinite
+    b_diagnosed = p.B_preexp * pow_floor0(phytoN, p.B_exp)
 
     # kinetic terms (DMS_mod.F90:701-716)
     dms_s = yield_ * p.k_conv * dmsp

@@ -24,6 +24,8 @@ and ``parm_Fe_bioavail`` belong to ``ops/surface.py``.
 
 from __future__ import annotations
 
+import torch
+
 from ocean_bgc_tpu_torch.constants import AUTOTROPH_CNT
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCTracers as T
@@ -73,9 +75,17 @@ def check_traits(params: BGCParams) -> None:
 
 def pack_bgc_params(params: BGCParams) -> tuple:
     """``NUM_PARAMS`` floats: :data:`GLOBAL_FIELDS` of ``params``, then
-    :data:`TRAIT_FIELDS` of each autotroph group."""
+    :data:`TRAIT_FIELDS` of each autotroph group.  A value that requires
+    grad (a parameter under calibration) raises: the kernel reads it by
+    value, and its gradient would be lost."""
     check_traits(params)
-    values = [float(getattr(params, f)) for f in GLOBAL_FIELDS]
-    for au in params.autotrophs:
-        values += [float(getattr(au, f)) for f in TRAIT_FIELDS]
-    return tuple(values)
+    named = [(f, getattr(params, f)) for f in GLOBAL_FIELDS]
+    for g, au in enumerate(params.autotrophs):
+        named += [(f"autotrophs[{g}].{f}", getattr(au, f))
+                  for f in TRAIT_FIELDS]
+    for name, v in named:
+        if torch.is_tensor(v) and v.requires_grad:
+            raise ValueError(f"pack_bgc_params: {name} requires grad; the "
+                             f"interior kernel takes its parameters by "
+                             f"value and has no backward")
+    return tuple(float(v) for _, v in named)

@@ -44,7 +44,7 @@ from ocean_bgc_tpu_torch.constants import (
     TFUNCS_Q10,
     TREF,
 )
-from ocean_bgc_tpu_torch.ops.numerics import safe_div
+from ocean_bgc_tpu_torch.ops.numerics import fill_like, safe_div
 from ocean_bgc_tpu_torch.params import BGCParams
 
 # QA mass ratios (rho = 0.05 * mass / POC mass, BGC_mod.F90:2054-2064)
@@ -121,11 +121,15 @@ def _scalelength(cell_bottom_depth, params: BGCParams):
     ``jnp.interp``."""
     x = cell_bottom_depth
     n = len(params.parm_scalelen_z)
-    # one copy of both tables, from pinned memory on the card: a copy from
-    # pageable memory would synchronise with the host
-    knots = torch.tensor((*params.parm_scalelen_z, *params.parm_scalelen_vals),
-                         dtype=x.dtype, pin_memory=x.is_cuda)
-    knots = knots.to(x.device, non_blocking=True)
+    values = (*params.parm_scalelen_z, *params.parm_scalelen_vals)
+    if any(torch.is_tensor(v) for v in values):
+        # a knot under calibration: stacked, so that its gradient flows
+        knots = torch.stack([fill_like(x, v) for v in values])
+    else:
+        # one copy of both tables, from pinned memory on the card: a copy
+        # from pageable memory would synchronise with the host
+        knots = torch.tensor(values, dtype=x.dtype, pin_memory=x.is_cuda)
+        knots = knots.to(x.device, non_blocking=True)
     xp, fp = knots[:n], knots[n:]
     i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True),
                     1, len(xp) - 1)
@@ -221,9 +225,9 @@ def particulate_level_update(
     poc_diss = torch.where(
         (o2_loc >= 5.0) & (o2_loc < 40.0),
         params.parm_POC_diss * (1.0 + (3.3 - 1.0) * (40.0 - o2_loc) / 35.0),
-        torch.where(o2_loc < 5.0, o2_loc.new_full((), params.parm_POC_diss
-                                                  * 3.3),
-                    o2_loc.new_full((), params.parm_POC_diss)))
+        torch.where(o2_loc < 5.0, fill_like(o2_loc,
+                                            params.parm_POC_diss * 3.3),
+                    fill_like(o2_loc, params.parm_POC_diss)))
 
     poc_diss = scalelength * poc_diss
     decay_poc_e = torch.exp(-dz / poc_diss)

@@ -25,6 +25,7 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     warm_brackets_h,
     x0_seed_enabled,
 )
+from ocean_bgc_tpu_torch.ops.numerics import sqrt_abs
 from ocean_bgc_tpu_torch.ops.schmidt import (
     dmssat,
     o2sat,
@@ -162,7 +163,8 @@ def dms_surface_fluxes(
     dms_surf = torch.clamp_min(dms_surf_tracer, 0.0)
     ice = torch.clamp(ice_fraction, 0.0, 1.0)
     sc = schmidt_dms(sst)
-    wind = torch.sqrt(torch.abs(wind_speed_squared_10m)) * 0.01  # m/s
+    # m/s; the derivative is taken as 0 in calm wind, where it is infinite
+    wind = sqrt_abs(wind_speed_squared_10m) * 0.01
 
     a, e2, e3 = 0.31, 2.85, 0.612
     xkw_w92 = a * (660.0 / sc) ** 0.5 * wind * wind

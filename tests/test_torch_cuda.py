@@ -2,9 +2,9 @@
 solve, on the constants kernel's constants in the step without an env
 cache, and its bracket-in instance for the surface pair and the
 stand-in, each also seeded) and the production and default steps with
-it, K2 (the whole interior) and the fused step, P (the probe), and the
+it, K2 (the whole interior) and the fused step, P (the probe), the
 host-coupling API, the env staleness guard and ``solver_health`` on the
-kernels.  Needs an NVIDIA GPU with the CUDA
+kernels, and K1's routes under autograd with the adjoint's sweep.  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 
@@ -32,6 +32,7 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     co3_terms_dual_coeffs_torch,
     co3_terms_dual_sat,
     co3_terms_dual_sat_torch,
+    dual_sat_and_coeffs,
     solve_htotal_brackets,
 )
 from ocean_bgc_tpu_torch.ops.cuda_step import (
@@ -727,3 +728,125 @@ def test_solver_health_on_the_constants_kernel(cuda):
     assert got["cells_checked"] == want["cells_checked"] > 0
     assert got["max_newton_step_h"] < 1e-9
     assert abs(got["mean_newton_step_h"] - want["mean_newton_step_h"]) <= 1e-12
+
+
+def _k1_route_grads(cuda, dtype, impl):
+    """Gradients through every K1 route a backward sweep passes, on the
+    world after one step (warm pH): the dual instance on the env cache's
+    constants, the constants route (constants kernel, then the dual
+    instance), the surface pair (bracket-in instance) and the env cache's
+    stand-in, each from leaves; and whether every output has a grad_fn."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False, env=env)
+    b = warm.bgc
+    out, attached = {}, True
+    args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                            b.ph_prev_alt_3d, env)
+    lv = [t.clone().requires_grad_() for t in (*args[:4], *args[-1])]
+    a, alt = co3_terms_dual_coeffs(*lv[:4], *args[4:6],
+                                   tcarb.CarbCoeffs(*lv[4:]), impl=impl)
+    attached &= all(o.grad_fn is not None for o in (*a, *alt))
+    out["dual"] = torch.autograd.grad(sum(o.sum() for o in (*a, *alt)), lv,
+                                      allow_unused=True)
+    args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                            b.ph_prev_alt_3d)
+    lv = [t.clone().requires_grad_() for t in args[:7]]
+    coeffs, a, alt, sat = dual_sat_and_coeffs(*lv, *args[7:], with_sat=True,
+                                              seed=False, impl=impl)
+    attached &= all(o.grad_fn is not None
+                    for o in (*coeffs, *a, *alt, *sat))
+    out["constants"] = torch.autograd.grad(
+        sum(o.sum() for o in (*a, *alt, *sat)), lv, allow_unused=True)
+    tr = b.tracers.clone().requires_grad_()
+    sf = bgc_surface_fluxes(tr, forcing, b.surface_ph, b.surface_ph_alt,
+                            params.bgc, carbonate_impl=impl)
+    attached &= sf.net_flux.grad_fn is not None
+    out["surface"] = torch.autograd.grad(sf.net_flux.sum(), tr)
+    temp = forcing.potential_temperature.clone().requires_grad_()
+    from ocean_bgc_tpu_torch.ops.carbonate import carbonate_coeffs
+    cf = carbonate_coeffs(grid.cell_center_depth * 0.01, temp,
+                          forcing.salinity, True)
+    n = cf.k1.shape
+    h = solve_htotal_brackets(
+        cf, torch.full(n, 2000.0 * 1e-3 / 1.026, dtype=dtype, device=cuda),
+        torch.full(n, 2300.0 * 1e-3 / 1.026, dtype=dtype, device=cuda),
+        torch.zeros(n, dtype=dtype, device=cuda),
+        torch.zeros(n, dtype=dtype, device=cuda),
+        torch.full(n, 1e-9, dtype=dtype, device=cuda),
+        torch.full(n, 1e-6, dtype=dtype, device=cuda), impl=impl)
+    attached &= h.grad_fn is not None
+    out["stand-in"] = torch.autograd.grad(h.sum(), temp)
+    return out, attached
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_routes_backward_on_the_kernel_match_plain_routes(cuda, dtype):
+    """Every K1 route is differentiable on the card: no kernel output is
+    detached while its inputs require grad, and each route's gradient on
+    the kernel equals its plain route's (the forwards are bitwise equal
+    and the routes share their backward) within 1e-12 of the largest."""
+    c0 = _k1_counts()
+    got, attached = _k1_route_grads(cuda, dtype, "kernel")
+    c1 = _k1_counts()
+    want, attached_plain = _k1_route_grads(cuda, dtype, "torch")
+    assert attached and attached_plain
+    assert c1[0] > c0[0] and c1[1] > c0[1] and c1[2] > c0[2]
+    for route in got:
+        for g, w in zip(got[route], want[route]):
+            if w is None:
+                assert g is None, route
+                continue
+            assert torch.isfinite(g).all(), route
+            scale = w.abs().max()
+            assert (g - w).abs().max() <= 1e-12 * scale, route
+
+
+def test_kernels_refuse_grad_without_a_backward(cuda):
+    """A K1 launch outside its autograd Function, and K2, refuse inputs
+    that require grad instead of detaching them."""
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
+    x = torch.ones(64, dtype=torch.float64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cc._launch((x,) * 21, x.dtype)
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=6, ncol=64, seed=4,
+                                           device=cuda)
+    tr = state.bgc.tracers.clone().requires_grad_()
+    with pytest.raises(ValueError, match="forward-only"):
+        fused_interior_step(tr, grid, forcing, state.bgc.ph_prev_3d,
+                            state.bgc.ph_prev_alt_3d, params.bgc)
+
+
+def test_adjoint_sweep_on_the_card(cuda):
+    """parameter_sensitivities on the card: the kernel route equals the
+    plain route within 1e-12, and the sweep launches the bracket-in
+    instance 1 + 2 * steps times and the dual instance 2 * steps (the
+    forward's and remat's recompute)."""
+    from ocean_bgc_tpu_torch.models.adjoint import parameter_sensitivities
+    from ocean_bgc_tpu_torch.state import BGCTracers as BT
+
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=12, ncol=256, seed=4,
+                                           ragged=True, device=cuda)
+    paths = ("bgc.parm_kappa_nitrif", "bgc.autotrophs[0].PCref")
+
+    def functional(f):
+        return (f.bgc.tracers[:, BT.NO3].square().mean()
+                + f.bgc.tracers[0, BT.DIC].mean()
+                + f.bgc.ph_prev_3d.mean())
+
+    c0 = _k1_counts()
+    got = parameter_sensitivities(params, paths, state, grid, forcing,
+                                  3600.0, 3, functional)
+    c1 = _k1_counts()
+    want = parameter_sensitivities(params, paths, state, grid, forcing,
+                                   3600.0, 3, functional,
+                                   carbonate_impl="torch")
+    assert [y - x for x, y in zip(c0, c1)] == [6, 0, 7, 0, 0]
+    for p in paths:
+        assert abs(got[p] - want[p]) <= 1e-12 * abs(want[p]), p
