@@ -4,6 +4,21 @@
 
 Phases (any failure raises and exits nonzero; there is no CPU fallback):
 
+0. at the start, three child processes for the long-horizon gates
+   (:func:`gate_child`; joined after phase 10, their runs overlapping the
+   phases between): the NumPy oracle's 1000 steps of the deep ragged
+   world (``tests/test_torch_deep_world.py``), the port's 1000 f64 steps
+   of it on the card with its 1-ulp kicked copy as extra columns, then
+   held to the oracle's under tests/test_trajectory.py's chaos
+   yardstick, with the bottom-branch pin and the t=0 branch firing; and
+   the f32 gates on the card (``tests/test_torch_fp32_*.py``): the
+   envelope over 720 steps at 6 x 8 and the no-drift gate, the deep
+   world's branches under f32, its 96-step envelope and the flush
+   range audit, and (measured, not gated) the envelope of 32 f32 runs
+   kicked in their last bits; each gate's worst mismatch over its bound
+   and wall time are printed.  Every time the script prints (not the
+   phases' wall times) is taken with these children paused, their queued
+   work on the card finished first (:func:`gates_paused`);
 1. build every CUDA kernel of the port from ``ocean_bgc_tpu_torch/csrc``
    (one ``nvcc`` each, all started together);
 2. one f64 step of a small world against the scalar NumPy/SciPy oracle
@@ -101,19 +116,38 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    a 10-field ``diag_filter``), each kernel's time beside its plain
    version's and its bound, each kernel's registers and spills from the
    build log, and where each step's time goes (the default path's and
-   the diags-on step's breakdowns at f64 only).
+   the diags-on step's breakdowns at f64 only);
+12. multi-device (``parallel/``; :func:`md_phase`), the 60 x 8192 ragged
+   world at f64 and f32, each rank a child process: (a) one NCCL rank,
+   (b) two Gloo ranks sharing cuda:0 — the sharded step with diagnostics,
+   health and ``local_diags``, the sharded fused step and the f64 forced
+   run, their history shards stitched and gated against the unsharded
+   step here (the kernels' pH fields bitwise, every field within 1e-12 /
+   1e-5 of its scale, the bitwise share printed, health totals exact,
+   global sums within 1e-12 / 1e-5 of their budgets), each rank's
+   launches equal to the unsharded step's and its collectives one per
+   step with diagnostics, none otherwise, and the ranks' ms/step and
+   ``all_reduce`` ms; (c) ``run_model --sharded`` under
+   ``torch.distributed.run`` with one NCCL rank, its summary, checkpoint
+   shards (restored whole and onto two ranks' blocks) and history shards
+   against the same run unsharded here, bitwise; (d)
+   ``entry.dryrun_multichip(2)`` with its default placement, on the card.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+``python3 chip_smoke.py --gate NAME ...`` and ``--rank-worker CONFIG``
+are its own child processes.  The line before the last is
+``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -199,6 +233,60 @@ def log(*args):
     print(*args, flush=True)
 
 
+# the gate children (process, path of its ready marker), paused while
+# this process takes a time (their work would share the card and the
+# host's cores)
+GATE_CHILDREN = []
+# how long a paused child may take to finish its queued work on the card
+PAUSE_WAIT_S = 120
+_paused_depth = 0
+
+
+def _pause_self(signum, frame):
+    """A gate child's SIGUSR1 handler: finish this process's queued work
+    on the card, then stop (SIGSTOP) until the parent's SIGCONT."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    os.kill(os.getpid(), signal.SIGSTOP)
+
+
+def _is_stopped(pid):
+    with open(f"/proc/{pid}/stat") as f:
+        return f.read().rsplit(")", 1)[1].split()[0] in ("T", "t")
+
+
+@contextlib.contextmanager
+def gates_paused():
+    """Pause every running gate child for the duration and let them go on
+    after.  A child that has installed :func:`_pause_self` (its ready
+    marker exists) is asked to stop (SIGUSR1) and is waited for until it
+    has stopped, so that nothing it queued on the card is left running;
+    one that has not is still importing, has no work on the card, and is
+    stopped at once.  Nested uses pause once."""
+    global _paused_depth
+    running = [] if _paused_depth else [
+        p for p, _ in GATE_CHILDREN if p.poll() is None]
+    for p, ready in GATE_CHILDREN:
+        if p in running:
+            os.kill(p.pid, signal.SIGUSR1 if os.path.exists(ready)
+                    else signal.SIGSTOP)
+    _paused_depth += 1
+    try:
+        t0 = time.perf_counter()
+        for p in running:
+            while p.poll() is None and not _is_stopped(p.pid):
+                if time.perf_counter() - t0 > PAUSE_WAIT_S:
+                    raise AssertionError(f"gate child {p.pid} did not stop "
+                                         f"within {PAUSE_WAIT_S} s")
+                time.sleep(0.002)
+        yield
+    finally:
+        _paused_depth -= 1
+        for p in running:
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGCONT)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -217,17 +305,18 @@ def cuda_ms(fn, reps, warmup=2, rounds=5, device_only=False):
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(rounds):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(SLEEP_CYCLES)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / reps)
+    with gates_paused():
+        for _ in range(rounds):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            if device_only:
+                torch.cuda._sleep(SLEEP_CYCLES)
+            t0.record()
+            for _ in range(reps):
+                fn()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1) / reps)
     return statistics.median(times)
 
 
@@ -613,8 +702,8 @@ def device_busy_ms(fn):
     activity."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with gates_paused(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     total_us = sum(evt.time_range.elapsed_us() for evt in prof.events()
@@ -636,16 +725,17 @@ def main_path(dtype, params):
 
     # -- the main path, counted --
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = state0
-    states = []
-    for _ in range(10):
-        state, _ = step(state, grid, forcing, params, DT,
-                        compute_diags=False, env=env)
-        states.append(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with gates_paused():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = state0
+        states = []
+        for _ in range(10):
+            state, _ = step(state, grid, forcing, params, DT,
+                            compute_diags=False, env=env)
+            states.append(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["k1"]
     log(f"main path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
@@ -944,14 +1034,16 @@ def fused_path(dtype, params, ctx):
 
     # -- the fused path, counted --
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = state0
-    for _ in range(10):
-        state, _ = step(state, grid, forcing, params, DT,
-                        compute_diags=False, env=env, interior_impl="fused")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with gates_paused():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = state0
+        for _ in range(10):
+            state, _ = step(state, grid, forcing, params, DT,
+                            compute_diags=False, env=env,
+                            interior_impl="fused")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = read_counts()
     log(f"fused path {dtype}: 10 steps at {NLEV}x{NCOL} in {wall:.3f} s, "
         f"launches {counts}")
@@ -1255,14 +1347,15 @@ def default_call(dtype, params, ctx):
 
     # -- the default call, counted --
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, states = state0, []
-    for _ in range(10):
-        state, diags = step(state, grid, forcing, params, DT)
-        states.append(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with gates_paused():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, states = state0, []
+        for _ in range(10):
+            state, diags = step(state, grid, forcing, params, DT)
+            states.append(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["coeffs"]
     log(f"default call {dtype}: 10 steps at {NLEV}x{NCOL} (diagnostics on, "
@@ -1364,8 +1457,8 @@ def device_kernels_ms(fn):
     activity."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with gates_paused(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = {}
@@ -1651,85 +1744,87 @@ def host_api_phase(params, world, env):
         return ", ".join(f"{k[:60]} {v:.4f} ms"
                          for k, v in sorted(k1.items())) or "not measured"
 
-    for name, args in (("BGC_SourceSink", warm_kw),
-                       ("BGC_SurfaceFluxes", swarm_kw),
-                       ("DMS_SourceSink", kw["DMS_SourceSink"]),
-                       ("DMS_SurfaceFluxes", kw["DMS_SurfaceFluxes"]),
-                       ("MACROS_SourceSink", kw["MACROS_SourceSink"])):
-        fn = getattr(api, name)
-        prm = {"BGC": p, "DMS": params.dms, "MACROS": params.macros}[
-            name.split("_")[0]]
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(**args)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        kernels = device_kernels_ms(lambda: fn(**args))
-        parts = api.PARTS[name]
-        split = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ins = parts.ingest(dev, None, **args)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out = parts.compute(ins, prm)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            parts.egress(out, None)
-            t3 = time.perf_counter()
-            split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
-        ing, comp, egr = (statistics.median(x) for x in zip(*split))
-        busy = sum(kernels.values())
-        log(f"  {name} (warm): wall {statistics.median(walls):.3f} ms "
-            f"(rounds {', '.join(f'{w:.1f}' for w in walls)}); device busy "
-            f"(kernels and copies) "
-            + (f"{busy:.3f} ms" if busy > 0 else "not measured")
-            + f"; ingest {ing:.3f} ms, compute {comp:.3f} ms, egress "
-            f"{egr:.3f} ms")
-        if name.startswith("BGC"):
-            log(f"    K1 in it (profiler): {k1_text(kernels)}")
-    log(f"    K1 in a cold BGC_SourceSink (profiler): " + k1_text(
-        device_kernels_ms(lambda: api.BGC_SourceSink(**ss_kw))))
+    with gates_paused():
+        for name, args in (("BGC_SourceSink", warm_kw),
+                           ("BGC_SurfaceFluxes", swarm_kw),
+                           ("DMS_SourceSink", kw["DMS_SourceSink"]),
+                           ("DMS_SurfaceFluxes", kw["DMS_SurfaceFluxes"]),
+                           ("MACROS_SourceSink", kw["MACROS_SourceSink"])):
+            fn = getattr(api, name)
+            prm = {"BGC": p, "DMS": params.dms, "MACROS": params.macros}[
+                name.split("_")[0]]
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(**args)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            kernels = device_kernels_ms(lambda: fn(**args))
+            parts = api.PARTS[name]
+            split = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ins = parts.ingest(dev, None, **args)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = parts.compute(ins, prm)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                parts.egress(out, None)
+                t3 = time.perf_counter()
+                split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                              (t3 - t2) * 1e3))
+            ing, comp, egr = (statistics.median(x) for x in zip(*split))
+            busy = sum(kernels.values())
+            log(f"  {name} (warm): wall {statistics.median(walls):.3f} ms "
+                f"(rounds {', '.join(f'{w:.1f}' for w in walls)}); device "
+                f"busy (kernels and copies) "
+                + (f"{busy:.3f} ms" if busy > 0 else "not measured")
+                + f"; ingest {ing:.3f} ms, compute {comp:.3f} ms, egress "
+                f"{egr:.3f} ms")
+            if name.startswith("BGC"):
+                log(f"    K1 in it (profiler): {k1_text(kernels)}")
+        log(f"    K1 in a cold BGC_SourceSink (profiler): " + k1_text(
+            device_kernels_ms(lambda: api.BGC_SourceSink(**ss_kw))))
 
-    # -- the BGC tracer block's ingest, part by part, and the same block
-    # copied as the host holds it and transposed on the card --
-    blk = ss_kw["BGC_tracers"]
+        # -- the BGC tracer block's ingest, part by part, and the same block
+        # copied as the host holds it and transposed on the card --
+        blk = ss_kw["BGC_tracers"]
 
-    def med(fn):
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
+        def med(fn):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
 
-    def staged(a):
-        buf = torch.empty(a.shape, dtype=torch.float64, pin_memory=True)
-        buf.copy_(torch.from_numpy(a))
-        return buf
+        def staged(a):
+            buf = torch.empty(a.shape, dtype=torch.float64, pin_memory=True)
+            buf.copy_(torch.from_numpy(a))
+            return buf
 
-    def on_card():
-        return staged(blk).to(dev, non_blocking=True).permute(
-            1, 2, 0).contiguous()
+        def on_card():
+            return staged(blk).to(dev, non_blocking=True).permute(
+                1, 2, 0).contiguous()
 
-    packed = host_layout.pack_tracer_block(blk)
-    pinned = staged(packed)
-    same = torch.equal(on_card(), pinned.to(dev))
-    t_pack = med(lambda: host_layout.pack_tracer_block(blk))
-    t_stage = med(lambda: staged(packed))
-    t_copy = med(lambda: pinned.to(dev, non_blocking=True))
-    log(f"  BGC tracer block ingest ({blk.nbytes / 1e6:.1f} MB): transpose "
-        f"(host_layout) {t_pack:.3f} ms, copy into pinned memory "
-        f"{t_stage:.3f} ms, to the card {t_copy:.3f} ms; the host's block "
-        f"staged, copied and transposed on the card {med(on_card):.3f} ms, "
-        f"bitwise the same tensor {same}")
-    if not same:
-        raise AssertionError("a transpose on the card differs from the "
-                             "host's")
+        packed = host_layout.pack_tracer_block(blk)
+        pinned = staged(packed)
+        same = torch.equal(on_card(), pinned.to(dev))
+        t_pack = med(lambda: host_layout.pack_tracer_block(blk))
+        t_stage = med(lambda: staged(packed))
+        t_copy = med(lambda: pinned.to(dev, non_blocking=True))
+        log(f"  BGC tracer block ingest ({blk.nbytes / 1e6:.1f} MB): "
+            f"transpose (host_layout) {t_pack:.3f} ms, copy into pinned "
+            f"memory {t_stage:.3f} ms, to the card {t_copy:.3f} ms; the "
+            f"host's block staged, copied and transposed on the card "
+            f"{med(on_card):.3f} ms, bitwise the same tensor {same}")
+        if not same:
+            raise AssertionError("a transpose on the card differs from the "
+                                 "host's")
 
 
 def probe_phase():
@@ -1779,18 +1874,12 @@ def oracle_check(params):
     tests/test_trajectory.py: rtol 2e-4 (atol 1e-10) for DIC, DIC_ALT_CO2,
     O2 and ALK, which carry the pH solve's tolerance, 5e-7 (atol 1e-18)
     for the other tracers, DMS and MACROS."""
-    import types
-
     import numpy as np
     from ocean_bgc_tpu_torch.models.coupled import step
     from ocean_bgc_tpu_torch.ops.bgc import precompute_env
     from ocean_bgc_tpu_torch.state import BGCTracers as T
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
-    # tests/ has no __init__.py, so an installed package named "tests"
-    # would take precedence over it: bind the name to this checkout's
-    tests_pkg = types.ModuleType("tests")
-    tests_pkg.__path__ = [os.path.join(HERE, "tests")]
-    sys.modules["tests"] = tests_pkg
+    bind_tests()
     from tests.oracle.coupled_ref import coupled_step_ref
     state, grid, forcing = synthetic_world(nlev=6, ncol=4, seed=31,
                                            ragged=False)
@@ -2002,10 +2091,11 @@ def run_driver(label, argv, want_counts=None):
     from ocean_bgc_tpu_torch import run_model
     buf = io.StringIO()
     reset_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = run_model.main([*argv, "--quiet"])
-    wall = time.perf_counter() - t0
+    with gates_paused():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_model.main([*argv, "--quiet"])
+        wall = time.perf_counter() - t0
     counts = read_counts()
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     log(f"driver, {label}: rc {rc}, {wall:.1f} s; summary {summary}; "
@@ -2117,15 +2207,16 @@ def forced_runs(params, world, series_path):
     state, grid, _ = world
     series, _ = load_forcing_series(series_path)
     for interp, env_mode in (("linear", "interp"), ("hold", "hold")):
-        t0 = time.perf_counter()
-        final, _ = run_forced(state, grid, series, params, DT, 6, 3 * DT,
-                              interp=interp, env_mode=env_mode)
-        torch.cuda.synchronize()
-        ok = all(bool(torch.isfinite(t).all()) for t in (
-            final.bgc.tracers, final.dms, final.macros))
-        log(f"run_forced (interp {interp!r}, env_mode {env_mode!r}), 6 f64 "
-            f"steps at {NLEV}x{NCOL}: {time.perf_counter() - t0:.2f} s, "
-            f"finite {ok}")
+        with gates_paused():
+            t0 = time.perf_counter()
+            final, _ = run_forced(state, grid, series, params, DT, 6, 3 * DT,
+                                  interp=interp, env_mode=env_mode)
+            torch.cuda.synchronize()
+            ok = all(bool(torch.isfinite(t).all()) for t in (
+                final.bgc.tracers, final.dms, final.macros))
+            log(f"run_forced (interp {interp!r}, env_mode {env_mode!r}), 6 "
+                f"f64 steps at {NLEV}x{NCOL}: "
+                f"{time.perf_counter() - t0:.2f} s, finite {ok}")
         if not ok:
             raise AssertionError(f"run_forced ({env_mode}) is not finite")
 
@@ -2196,13 +2287,14 @@ def big_step(params):
     state_gb = sum(t.numel() * t.element_size() for t in (
         state.bgc.tracers, state.dms, state.macros)) / 1e9
     for impl in ("auto", "fused"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out, _ = step(state, grid, forcing, params, DT, compute_diags=False,
-                      env=env, interior_impl=impl)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with gates_paused():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, _ = step(state, grid, forcing, params, DT,
+                          compute_diags=False, env=env, interior_impl=impl)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         ok = all(torch.isfinite(t).all().item() for t in (
             out.bgc.tracers, out.dms, out.macros, out.bgc.ph_prev_3d))
         log(f"f64 step (interior_impl={impl!r}) at {NLEV}x{NCOL_BIG}: "
@@ -2229,21 +2321,22 @@ def chunked_step(params, state, grid, forcing):
     def peak_above(base):
         return (torch.cuda.max_memory_allocated() - base) / 1e9
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    want, _ = step(state, grid, forcing, params, DT, compute_diags=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = peak_above(base)
-    host = host_world_like(state, grid, forcing)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    got = step_chunked(*host, params, DT, chunk=CHUNK)
-    wall_chunked = time.perf_counter() - t0
+    with gates_paused():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        want, _ = step(state, grid, forcing, params, DT, compute_diags=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = peak_above(base)
+        host = host_world_like(state, grid, forcing)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = step_chunked(*host, params, DT, chunk=CHUNK)
+        wall_chunked = time.perf_counter() - t0
     peak_chunked = peak_above(base)
     differ, total, where = 0, 0, []
     pairs = [(f, getattr(got.bgc, f), getattr(want.bgc, f)) for f in (
@@ -2359,10 +2452,11 @@ def _wall_ms(fn, reps=5):
     """Median wall ms of ``fn`` (which synchronises) after one warm-up."""
     fn()
     times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
+    with gates_paused():
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -2420,10 +2514,11 @@ def adjoint_phase(params, card):
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    sens = sweep(world)
-    torch.cuda.synchronize()
-    wall_kernel = time.perf_counter() - t0
+    with gates_paused():
+        t0 = time.perf_counter()
+        sens = sweep(world)
+        torch.cuda.synchronize()
+        wall_kernel = time.perf_counter() - t0
     counts = read_counts()
     peak_kernel = torch.cuda.max_memory_allocated() / 1e9
     want = expected(k1=2 * ADJ_STEPS, brackets=1 + 2 * ADJ_STEPS)
@@ -2432,9 +2527,10 @@ def adjoint_phase(params, card):
     if counts != want:
         raise AssertionError(f"the sweep's K1 launches {counts} != {want}")
     reset_counts()
-    t0 = time.perf_counter()
-    sens_plain = sweep(world, carbonate_impl="torch")
-    wall_plain = time.perf_counter() - t0
+    with gates_paused():
+        t0 = time.perf_counter()
+        sens_plain = sweep(world, carbonate_impl="torch")
+        wall_plain = time.perf_counter() - t0
     counts = read_counts()
     if counts != expected(brackets=1):
         raise AssertionError(f"the plain route's sweep launched {counts}")
@@ -2471,16 +2567,17 @@ def adjoint_phase(params, card):
                        device=state.bgc.tracers.device, requires_grad=True)
     over = override_params(params, {
         p: get_param(params, p) * theta[i] for i, p in enumerate(ADJ_PATHS)})
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    j = functional(run_diff(state, grid, forcing, over, DT, ADJ_STEPS))
-    torch.cuda.synchronize()
-    t_fwd = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    torch.autograd.grad(j, theta)
-    torch.cuda.synchronize()
-    t_bwd = time.perf_counter() - t0
+    with gates_paused():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        j = functional(run_diff(state, grid, forcing, over, DT, ADJ_STEPS))
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.autograd.grad(j, theta)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t0
     peak_timed = torch.cuda.max_memory_allocated() / 1e9
     del j, over, theta
     k1b = k1_backward_ms(world, params)
@@ -2573,6 +2670,628 @@ def adjoint_phase(params, card):
     log(f"adjoint phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# The long-horizon gates (tests/test_torch_trajectory.py and its siblings at
+# the horizons the card affords), each in a child process that overlaps the
+# phases above: the oracle's 1000 deep steps on the CPU, the port's on the
+# card, the f32 gates on the card.
+# ---------------------------------------------------------------------------
+
+GATE_STEPS = dict(deep=1000, f32=720, deep_f32=96)
+GATES = ("oracle", "deep64", "f32")
+# kicked f32 runs of the deep world that measure the envelope's robustness
+ENSEMBLE = 32
+# the gates must be joined by this many seconds after the script started
+GATE_DEADLINE_S = 1000
+# a child's longest wait for the parent's build
+BUILD_WAIT_S = 900
+
+
+def bind_tests():
+    """tests/ has no __init__.py, so an installed package named "tests"
+    would take precedence over it: bind the name to this checkout's."""
+    import types
+    if getattr(sys.modules.get("tests"), "__path__", None) != [
+            os.path.join(HERE, "tests")]:
+        tests_pkg = types.ModuleType("tests")
+        tests_pkg.__path__ = [os.path.join(HERE, "tests")]
+        sys.modules["tests"] = tests_pkg
+
+
+def start_gates(tmp):
+    """Start the three gate children (see :func:`gate_child`); the two on
+    the card wait for ``<tmp>/built``.  Returns {name: (process, path,
+    log file, start time)}."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=HERE)
+    procs = {}
+    for name in GATES:
+        out = os.path.join(tmp, name)
+        logf = open(out + ".log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--gate",
+             name, out, os.path.join(tmp, "built")], cwd=HERE, env=env,
+            stdout=logf, stderr=subprocess.STDOUT), out, logf,
+            time.perf_counter())
+    return procs
+
+
+def stop(procs):
+    """Terminate every child still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def gate_child(name, out, built):
+    """One gate child.  "oracle": tests/oracle's 1000 steps of the deep
+    ragged world (NumPy, no card).  "deep64": the deep world's bottom-branch
+    pin and its t=0 branch firing on the card, then the port's 1000 f64
+    steps with the 1-ulp kicked copy as extra columns.  "f32": the f32
+    envelope (720 steps at 6 x 8) and the no-drift gate, then the deep f32
+    gates (branches, the 96-step envelope, the range audit).  Writes its
+    results to ``out`` (.npz) and ``out.json``; an AssertionError exits 1.
+    Pauses on SIGUSR1 (:func:`gates_paused`) once ``out.ready`` exists."""
+    signal.signal(signal.SIGUSR1, _pause_self)
+    open(out + ".ready", "w").close()
+    torch.set_num_threads(1)
+    bind_tests()
+    import numpy as np
+    from tests import test_torch_deep_world as deep
+    from tests import test_torch_fp32_deep as f32deep
+    from tests import test_torch_fp32_trajectory as f32traj
+    from tests import test_torch_trajectory as traj
+    from ocean_bgc_tpu_torch.utils.synthetic import _synthetic_world_numpy
+
+    t0 = time.perf_counter()
+    if name != "oracle":
+        while not os.path.exists(built):
+            if time.perf_counter() - t0 > BUILD_WAIT_S or os.getppid() == 1:
+                raise SystemExit(f"gate {name}: no build to wait for")
+            time.sleep(0.5)
+    waited = time.perf_counter() - t0
+    res = {"waited_s": waited}
+    if name == "oracle":
+        np.savez(out, **traj.oracle_run(deep.deep_ragged_world_numpy(),
+                                        GATE_STEPS["deep"]))
+    elif name == "deep64":
+        t = time.perf_counter()
+        res["bottom_branches"] = deep.bottom_branches_gate(device="cuda")
+        deep.deep_branches_at_start(device="cuda")
+        res["branches_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        got, kicked = traj.port_run(deep.deep_ragged_world_numpy(),
+                                    GATE_STEPS["deep"], kick=traj.ULP_KICK,
+                                    device="cuda")
+        res["run_s"] = time.perf_counter() - t
+        np.savez(out, kicked=kicked, **got)
+    else:
+        t = time.perf_counter()
+        res["envelope_6x8"] = f32traj.f32_envelope(
+            _synthetic_world_numpy(nlev=6, ncol=8, seed=41, ragged=False),
+            GATE_STEPS["f32"], device="cuda")
+        res["envelope_6x8_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["drift_early_late"] = f32traj.drift_gate(GATE_STEPS["f32"],
+                                                     device="cuda")
+        res["drift_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["deep_bsi_ratio"] = f32deep.f32_branches(device="cuda")
+        runs = f32deep.deep_runs(GATE_STEPS["deep_f32"], device="cuda")
+        res["deep_envelope"] = f32deep.deep_envelope(runs)
+        res["deep_audit_decades"] = math.log10(f32deep.range_audit(runs))
+        res["deep_s"] = time.perf_counter() - t
+        # how robust the envelope is at this horizon (a measurement, not
+        # a gate): the same gate for f32 runs kicked in their last bits
+        t = time.perf_counter()
+        res["deep_ensemble"] = f32deep.kicked_ensemble(
+            GATE_STEPS["deep_f32"], ENSEMBLE, device="cuda")
+        res["deep_ensemble_s"] = time.perf_counter() - t
+    res["wall_s"] = time.perf_counter() - t0
+    with open(out + ".json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def join_gates(procs, deadline_s):
+    """Wait for the gate children, fail on any that failed, hold the
+    port's 1000 deep steps to the oracle's (the chaos-yardstick branch of
+    tests/test_trajectory.py), and log each gate's worst mismatch over its
+    bound and its wall time."""
+    import numpy as np
+    bind_tests()
+    from tests import test_torch_trajectory as traj
+    results = {}
+    for name, (proc, out, logf, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline_s - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            stop([p for p, *_ in procs.values()])
+            raise AssertionError(f"gate {name} ran past the script's "
+                                 f"deadline")
+        logf.close()
+        with open(out + ".log") as f:
+            text = f.read()
+        if rc != 0:
+            stop([p for p, *_ in procs.values()])
+            raise AssertionError(f"gate {name} failed (exit {rc}):\n"
+                                 f"{text[-6000:]}")
+        with open(out + ".json") as f:
+            results[name] = json.load(f)
+        results[name]["joined_s"] = time.perf_counter() - t0
+    with np.load(procs["deep64"][1] + ".npz") as f:
+        got = {k: f[k] for k in f.files}
+    with np.load(procs["oracle"][1] + ".npz") as f:
+        want = {k: f[k] for k in f.files}
+    kicked = got.pop("kicked")
+    for k, v in list(got.items()) + list(want.items()):
+        if not np.isfinite(v).all():
+            raise AssertionError(f"non-finite {k} after the deep run")
+    worst = traj.oracle_gate(got, want, GATE_STEPS["deep"], kicked)
+    r, d, o = results["f32"], results["deep64"], results["oracle"]
+    log(f"gate: deep world, {GATE_STEPS['deep']} f64 steps on the card vs "
+        f"the oracle (chaos yardstick): worst mismatch / bound {worst:.4g} "
+        f"(limit 1); port run {d['run_s']:.1f} s, oracle {o['wall_s']:.1f} "
+        f"s")
+    log(f"gate: deep bottom branches (one step vs the oracle): worst "
+        f"mismatch / tolerance {d['bottom_branches']:.4g}; t=0 branch "
+        f"firing held; {d['branches_s']:.1f} s")
+    log(f"gate: f32 envelope, {GATE_STEPS['f32']} steps at 6x8: worst "
+        f"mismatch / bound {r['envelope_6x8']:.4g} (limit 1), "
+        f"{r['envelope_6x8_s']:.1f} s")
+    early, late = r["drift_early_late"]
+    log(f"gate: f32 no drift, {GATE_STEPS['f32']} steps: max|Jint_Ctot| "
+        f"{early:.4g} at step 4, {late:.4g} at the end (limits 1 and 50x "
+        f"the early + 1e-6), {r['drift_s']:.1f} s")
+    log(f"gate: deep f32, {GATE_STEPS['deep_f32']} steps: envelope worst "
+        f"mismatch / bound {r['deep_envelope']:.4g} (limit 1); branches "
+        f"held (bSi burial fractions' ratio {r['deep_bsi_ratio']:.3g}, limit "
+        f"> 3); range audit: smallest nonzero f64 flux "
+        f"{r['deep_audit_decades']:.2f} decades above the f32 flush "
+        f"threshold (limit 12), no flush; {r['deep_s']:.1f} s")
+    ens = sorted(r["deep_ensemble"])
+    log(f"deep f32 envelope over {len(ens)} f32 runs whose initial tracers "
+        f"differ by k 2^-24 (k = 0 the gate's run; a measurement, not a "
+        f"gate): {sum(x > 1.0 for x in ens)} of {len(ens)} above their "
+        f"bound, median {statistics.median(ens):.4g}, max {ens[-1]:.4g}; "
+        f"{r['deep_ensemble_s']:.1f} s")
+    log("gate children's wall times (s): " + ", ".join(
+        f"{n} {v['wall_s']:.1f} (waited {v['waited_s']:.1f} for the "
+        f"build, joined at {v['joined_s']:.1f})" for n, v in
+        results.items()))
+
+
+# ---------------------------------------------------------------------------
+# The multi-device phase: each rank a child process.
+# ---------------------------------------------------------------------------
+
+MD_LOCAL = ("pco2surf", "NITRIF", "POC_FLUX_IN",
+            "health_solver_nonconverged_cells")
+# the state fields every rank writes, and those the kernels write per cell
+# or per lane (K1's pH, the surface pair's)
+MD_FIELDS = ("tracers", "ph_prev_3d", "ph_prev_alt_3d", "surface_ph",
+             "surface_ph_alt", "dms", "macros")
+MD_KERNEL_FIELDS = ("ph_prev_3d", "ph_prev_alt_3d", "surface_ph",
+                    "surface_ph_alt")
+MD_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+MD_DTYPES = (torch.float64, torch.float32)
+
+
+def state_fields(state):
+    b = state.bgc
+    return dict(tracers=b.tracers, ph_prev_3d=b.ph_prev_3d,
+                ph_prev_alt_3d=b.ph_prev_alt_3d, surface_ph=b.surface_ph,
+                surface_ph_alt=b.surface_ph_alt, dms=state.dms,
+                macros=state.macros)
+
+
+def md_series(forcing):
+    """Three forcing records: T +0, +0.5, -0.5 C."""
+    import dataclasses
+
+    from ocean_bgc_tpu_torch.models.forcing_series import stack_forcings
+    return stack_forcings([dataclasses.replace(
+        forcing, potential_temperature=forcing.potential_temperature + dt)
+        for dt in (0.0, 0.5, -0.5)])
+
+
+def md_rank(cfg):
+    """One rank of the multi-device phase (``cfg``: its rank, the rank
+    count, the coordinator's address, backend, device and output
+    directory): at each dtype the sharded step with diagnostics, health and
+    ``local_diags`` and the sharded fused step on its block of the 60 x
+    8192 ragged world, each launch and collective counted, its blocks
+    written as history shards (and as a plain file, to check the
+    stitching); the f64 forced run and checkpoint shards; the card's times
+    of each step and of the stacked all_reduce."""
+    from ocean_bgc_tpu_torch.params import ModelParams
+    from ocean_bgc_tpu_torch.parallel import distributed as dist
+    from ocean_bgc_tpu_torch.parallel.sharding import (
+        all_reduce_sum, make_mesh, make_sharded_forced_run,
+        make_sharded_step, shard_columns, shard_world)
+    from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
+    from ocean_bgc_tpu_torch.utils.history import write_history_shards
+    from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+    import numpy as np
+
+    dist.initialize(cfg["address"], cfg["world"], cfg["rank"],
+                    backend=cfg["backend"], device=cfg["device"])
+    mesh = make_mesh()
+    params = ModelParams()
+    out = cfg["out"]
+    rec = {"backend": cfg["backend"], "device": str(mesh.device)}
+
+    def counted(label, fn, *args):
+        reset_counts()
+        before = all_reduce_sum.calls
+        result = fn(*args)
+        torch.cuda.synchronize()
+        rec[label] = dict(launches=read_counts(),
+                          collectives=all_reduce_sum.calls - before)
+        return result
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    for dtype in MD_DTYPES:
+        name = str(dtype).split(".")[-1]
+        state, grid, forcing = shard_world(*synthetic_world(
+            nlev=NLEV, ncol=NCOL, seed=SEED, ragged=True, dtype=dtype,
+            device=mesh.device), mesh)
+        diag = make_sharded_step(mesh, params, DT, compute_diags=True,
+                                 health=True, local_diags=MD_LOCAL)
+        new, gsum, local = counted(f"diags_{name}", diag, state, grid,
+                                   forcing)
+        write_history_shards(os.path.join(out, f"diags_{name}"), {
+            **state_fields(new), **local,
+            **{f"global_{k}": v for k, v in gsum.items()}}, mesh=mesh)
+        np.savez(os.path.join(out, f"block_{name}_p{mesh.rank}.npz"),
+                 **{k: v.cpu().numpy() for k, v in local.items()})
+        if dtype == torch.float64:
+            ckpt.save(os.path.join(out, "ck"), new, step=1, mesh=mesh)
+        fused = make_sharded_step(mesh, params, DT, interior_impl="fused")
+        new, _ = counted(f"fused_{name}", fused, state, grid, forcing)
+        write_history_shards(os.path.join(out, f"fused_{name}"),
+                             state_fields(new), mesh=mesh)
+        rec[f"diags_{name}_ms"] = wall_ms(
+            lambda: diag(state, grid, forcing), 3)
+        rec[f"fused_{name}_ms"] = wall_ms(
+            lambda: fused(state, grid, forcing), 5)
+        sums = list(gsum.values())
+        rec[f"all_reduce_{name}_ms"] = wall_ms(
+            lambda: all_reduce_sum(sums, mesh), 20)
+        if dtype == torch.float64:
+            whole = synthetic_world(nlev=NLEV, ncol=NCOL, seed=SEED,
+                                    ragged=True, device=mesh.device)
+            series = shard_columns(md_series(whole[2]), mesh, NCOL)
+            del whole
+            forced = make_sharded_forced_run(mesh, params, DT, 2,
+                                             RECORD_DT, interp="hold")
+            new = counted("forced", forced, state, grid, series)
+            write_history_shards(os.path.join(out, "forced"),
+                                 state_fields(new), mesh=mesh)
+        del state, grid, forcing, new
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.shutdown()
+    return 0
+
+
+def spawn_ranks(label, n, backend, device, out):
+    """Run ``n`` ranks of :func:`md_rank` as child processes and wait for
+    them; a rank's failure stops the others and raises with its output."""
+    from ocean_bgc_tpu_torch.parallel.distributed import _free_port
+    os.makedirs(out, exist_ok=True)
+    address = f"localhost:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            cfg = dict(address=address, world=n, rank=r, backend=backend,
+                       device=device, out=out)
+            logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--rank-worker", json.dumps(cfg)], cwd=HERE, env=env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() - t0 > 600:
+                break
+            time.sleep(0.2)
+    finally:
+        stop(procs)
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                text = f.read()
+            raise AssertionError(f"{label}: rank {r} failed (exit "
+                                 f"{p.returncode}):\n{text[-6000:]}")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, wall
+
+
+def md_compare(label, got, want, dtype, kernel_fields=MD_KERNEL_FIELDS):
+    """The stitched fields against the unsharded step's: the kernels'
+    per-cell outputs bitwise, every field within MD_TOL of its scale (per
+    tracer for the tracer block).  Returns the share of values that are
+    bitwise equal."""
+    import numpy as np
+    equal = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        w = w.cpu().numpy()
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label}: {k} is {g.dtype}{g.shape}, "
+                                 f"want {w.dtype}{w.shape}")
+        same = g == w
+        equal += int(same.sum())
+        total += same.size
+        if k in kernel_fields and not same.all():
+            raise AssertionError(f"{label}: the kernels' {k} differs in "
+                                 f"{int((~same).sum())} cells")
+        axes = (0, 2) if k == "tracers" else None
+        scale = np.abs(w.astype(np.float64)).max(axis=axes, keepdims=True)
+        err = float((np.abs(g.astype(np.float64) - w)
+                     / (scale + 1e-300)).max())
+        worst = max(worst, err)
+    if not worst <= MD_TOL[dtype]:
+        raise AssertionError(f"{label}: a field differs by {worst:.3g} of "
+                             f"its scale (limit {MD_TOL[dtype]})")
+    return equal / total, worst
+
+
+def md_check(label, recs, out, ref):
+    """Gate one configuration's ranks against the parent's unsharded
+    step (``ref``): the stitched states, local diagnostics, global sums
+    and health totals; the history blocks; every rank's launches equal to
+    the unsharded step's and its collectives one per step with
+    diagnostics and health, none otherwise."""
+    import numpy as np
+
+    from ocean_bgc_tpu_torch.parallel.sharding import (GLOBAL_SUM_DIAGS,
+                                                       HEALTH_DIAGS)
+    from ocean_bgc_tpu_torch.utils.history import stitch_history_shards
+    for dtype in MD_DTYPES:
+        name = str(dtype).split(".")[-1]
+        r = ref[name]
+        got = stitch_history_shards(os.path.join(out, f"diags_{name}"))
+        share, worst = md_compare(f"{label} diags {name}", got,
+                                  state_fields(r["diags_state"]), dtype)
+        fshare, fworst = md_compare(
+            f"{label} fused {name}",
+            stitch_history_shards(os.path.join(out, f"fused_{name}")),
+            state_fields(r["fused_state"]), dtype)
+        lshare, lworst = md_compare(
+            f"{label} local diags {name}", {k: got[k] for k in MD_LOCAL},
+            {k: r["diags"][k] for k in MD_LOCAL}, dtype, kernel_fields=())
+        for k in HEALTH_DIAGS:
+            if float(got[f"global_{k}"]) != float(r["diags"][k]):
+                raise AssertionError(f"{label} {name}: {k} total "
+                                     f"{got[f'global_{k}']}, unsharded "
+                                     f"{float(r['diags'][k])}")
+        sums = []
+        for k in GLOBAL_SUM_DIAGS:
+            ref_k = r["diags"][k.replace("Jint_", "Jint_100m_")]
+            budget = float(ref_k.double().abs().sum())
+            err = abs(float(got[f"global_{k}"])
+                      - float(r["diags"][k].double().sum()))
+            sums.append(err / budget)
+        if not max(sums) <= MD_TOL[dtype]:
+            raise AssertionError(f"{label} {name}: global sums differ by "
+                                 f"{max(sums):.3g} of their budgets")
+        blocks = []
+        for i in range(len(recs)):
+            with np.load(os.path.join(out, f"block_{name}_p{i}.npz")) as f:
+                blocks.append({k: f[k] for k in f.files})
+        for k in MD_LOCAL:
+            if k in HEALTH_DIAGS:
+                continue
+            cat = np.concatenate([b[k] for b in blocks], axis=-1)
+            if not np.array_equal(cat, got[k]):
+                raise AssertionError(f"{label} {name}: the history shards "
+                                     f"of {k} do not stitch to the blocks")
+        for i, rec in enumerate(recs):
+            for step_name, calls in (("diags", 1), ("fused", 0)):
+                got_rec = rec[f"{step_name}_{name}"]
+                if got_rec["launches"] != r[f"{step_name}_launches"]:
+                    raise AssertionError(
+                        f"{label} rank {i} {step_name} {name}: launches "
+                        f"{got_rec['launches']}, unsharded "
+                        f"{r[f'{step_name}_launches']}")
+                if got_rec["collectives"] != calls:
+                    raise AssertionError(
+                        f"{label} rank {i} {step_name} {name}: "
+                        f"{got_rec['collectives']} collectives, want {calls}")
+        log(f"multi-device {label} {name}: diags step bitwise share "
+            f"{share:.6f}, worst {worst:.3g} of scale; fused step bitwise "
+            f"share {fshare:.6f}, worst {fworst:.3g}; local diags bitwise "
+            f"share {lshare:.6f}, worst {lworst:.3g}; global sums worst "
+            f"{max(sums):.3g} of their budgets (limit {MD_TOL[dtype]}); "
+            f"health totals exact; history shards stitch bitwise; launches "
+            f"per rank {recs[0][f'diags_{name}']['launches']} (diags), "
+            f"{recs[0][f'fused_{name}']['launches']} (fused), as unsharded; "
+            f"collectives 1 / 0")
+    forced = stitch_history_shards(os.path.join(out, "forced"))
+    fshare, fworst = md_compare(f"{label} forced", forced,
+                                state_fields(ref["forced_state"]),
+                                torch.float64)
+    for i, rec in enumerate(recs):
+        if rec["forced"]["collectives"] != 0:
+            raise AssertionError(f"{label} rank {i}: the forced run made "
+                                 f"{rec['forced']['collectives']} "
+                                 f"collectives")
+    log(f"multi-device {label} forced run (2 held-record steps, f64): "
+        f"bitwise share {fshare:.6f}, worst {fworst:.3g}; collectives 0; "
+        f"launches per rank {recs[0]['forced']['launches']}")
+
+
+def md_reference(params):
+    """The unsharded step with diagnostics and health, the fused step and
+    the forced run on the whole world, each with its launches counted."""
+    from ocean_bgc_tpu_torch.models.coupled import step
+    from ocean_bgc_tpu_torch.models.forcing_series import run_forced
+    from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+    ref = {}
+    for dtype in MD_DTYPES:
+        name = str(dtype).split(".")[-1]
+        state, grid, forcing = synthetic_world(
+            nlev=NLEV, ncol=NCOL, seed=SEED, ragged=True, dtype=dtype)
+        reset_counts()
+        new, diags = step(state, grid, forcing, params, DT, health=True)
+        torch.cuda.synchronize()
+        r = dict(diags_state=new, diags=diags, diags_launches=read_counts())
+        reset_counts()
+        r["fused_state"], _ = step(state, grid, forcing, params, DT,
+                                   compute_diags=False,
+                                   interior_impl="fused")
+        torch.cuda.synchronize()
+        r["fused_launches"] = read_counts()
+        if dtype == torch.float64:
+            ref["forced_state"], _ = run_forced(
+                state, grid, md_series(forcing), params, DT, 2, RECORD_DT,
+                interp="hold")
+        ref[name] = r
+    return ref
+
+
+def md_run_model(tmp, params):
+    """Configuration (c): ``run_model --sharded`` under
+    ``torch.distributed.run`` with one NCCL rank, at f64 and f32, then its
+    checkpoint shards restored here (whole, and as the blocks of two
+    ranks) and its history shards stitched, each against the same run
+    unsharded in this process (bitwise: one rank holds every column)."""
+    import numpy as np
+
+    from ocean_bgc_tpu_torch import run_model
+    from ocean_bgc_tpu_torch.parallel.distributed import ColumnMesh
+    from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
+    from ocean_bgc_tpu_torch.utils.history import stitch_history_shards
+    env = dict(os.environ, PYTHONPATH=HERE)
+    common = ["--nlev", str(NLEV), "--ncol", str(NCOL), "--seed",
+              str(SEED), "--steps", "4", "--history-every", "2",
+              "--history-fields", ",".join(PROD_FILTER),
+              "--checkpoint-every", "2", "--health"]
+    for fp32 in (False, True):
+        name = "float32" if fp32 else "float64"
+        prec = ["--fp32"] if fp32 else []
+        out = os.path.join(tmp, f"rm_{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "ocean_bgc_tpu_torch.run_model",
+             "--sharded", *common, *prec, "--out", out, "--quiet"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"run_model --sharded {name} failed "
+                                 f"(exit {proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        plain = run_driver(f"unsharded twin of run_model --sharded "
+                           f"{name}", [*common, *prec, "--out",
+                                       os.path.join(tmp, f"rm1_{name}")])
+        for k in ("columns", "max_abs_Jint_Ctot", "finite",
+                  *HEALTH_TOTALS):
+            if summary[k] != plain[k]:
+                raise AssertionError(f"run_model --sharded {name}: {k} "
+                                     f"{summary[k]}, unsharded {plain[k]}")
+        got, n = ckpt.restore(os.path.join(out, "ck_final"))
+        want, _ = ckpt.restore(plain["final_checkpoint"])
+        if n != 4 or not all(torch.equal(a, b) for a, b in zip(
+                state_fields(got).values(), state_fields(want).values())):
+            raise AssertionError(f"run_model --sharded {name}: its "
+                                 f"restored checkpoint differs from the "
+                                 f"unsharded run's")
+        for r in range(2):
+            mesh = ColumnMesh(rank=r, world_size=2,
+                              device=torch.device("cuda", 0))
+            block, _ = ckpt.restore(os.path.join(out, "ck_000002"),
+                                    mesh=mesh)
+            whole, _ = ckpt.restore(os.path.join(tmp, f"rm1_{name}",
+                                                 "ck_000002.npz"))
+            lo, hi = r * NCOL // 2, (r + 1) * NCOL // 2
+            if not all(torch.equal(a, b[..., lo:hi]) for a, b in zip(
+                    state_fields(block).values(),
+                    state_fields(whole).values())):
+                raise AssertionError(f"run_model --sharded {name}: rank "
+                                     f"{r}'s block of its checkpoint "
+                                     f"differs")
+        hist = stitch_history_shards(os.path.join(out, "hist_000004"))
+        with np.load(os.path.join(tmp, f"rm1_{name}",
+                                  "hist_000004.npz")) as f:
+            for k, v in hist.items():
+                if not np.array_equal(v, f[k]):
+                    raise AssertionError(f"run_model --sharded {name}: "
+                                         f"history {k} differs")
+        log(f"multi-device (c) run_model --sharded {name} (torch.distributed"
+            f".run, 1 NCCL rank, 4 steps): {wall:.1f} s with the launcher, "
+            f"{summary['columns_per_s']} columns/s; summary = the unsharded "
+            f"run's; ck_final restored bitwise, its step-2 shards restored "
+            f"onto 2 ranks bitwise, history ({len(hist)} fields) stitched "
+            f"bitwise")
+
+
+def md_phase(params, tmp):
+    """The multi-device phase: the 60 x 8192 ragged world at f64 and f32
+    (a) on one NCCL rank, (b) on two Gloo ranks sharing cuda:0, (c)
+    through ``run_model --sharded`` under torch.distributed.run; each rank
+    a child process, every result gated against the unsharded step
+    here."""
+    t0 = time.perf_counter()
+    ref = md_reference(params)
+    log(f"multi-device: unsharded launches, diags step "
+        f"{ref['float64']['diags_launches']}, fused step "
+        f"{ref['float64']['fused_launches']}")
+    times = {}
+    for label, n, backend in (("(a) 1 NCCL rank", 1, "nccl"),
+                              ("(b) 2 Gloo ranks on cuda:0", 2, "gloo")):
+        out = os.path.join(tmp, f"md_{n}")
+        recs, wall = spawn_ranks(label, n, backend, "cuda:0", out)
+        md_check(label, recs, out, ref)
+        times[n] = recs
+        for dtype in MD_DTYPES:
+            name = str(dtype).split(".")[-1]
+            log(f"multi-device {label} {name}: ms/step per rank, diags + "
+                f"health step " + ", ".join(
+                    f"{r[f'diags_{name}_ms']:.3f}" for r in recs)
+                + "; fused step " + ", ".join(
+                    f"{r[f'fused_{name}_ms']:.3f}" for r in recs)
+                + "; stacked all_reduce of the 8 sums " + ", ".join(
+                    f"{r[f'all_reduce_{name}_ms']:.4f}" for r in recs)
+                + f" ms ({NCOL // n} columns per rank)")
+        log(f"multi-device {label}: ranks' wall {wall:.1f} s")
+    md_run_model(tmp, params)
+    # (d) the driver's dry run with its default placement: on the cards,
+    # never on the CPU (two Gloo ranks share a lone card)
+    from ocean_bgc_tpu_torch.entry import dryrun_multichip, rank_placement
+    placed = [rank_placement(r, 2, torch.cuda.device_count())
+              for r in range(2)]
+    t = time.perf_counter()
+    dryrun_multichip(2)
+    log(f"multi-device (d) entry.dryrun_multichip(2), default placement "
+        f"{placed}: OK in {time.perf_counter() - t:.1f} s")
+    log(f"multi-device phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -2581,12 +3300,41 @@ def main():
     from ocean_bgc_tpu_torch.ops import _kernels
     from ocean_bgc_tpu_torch.params import ModelParams
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR)
+    # the long-horizon gates overlap every phase below
+    gates = start_gates(tmp.name)
+    GATE_CHILDREN.extend((p, out + ".ready") for p, out, *_ in
+                         gates.values())
+    try:
+        kernels = phases(_kernels, card, tmp.name)
+        join_gates(gates, t_start + GATE_DEADLINE_S)
+        md_phase(ModelParams(), tmp.name)
+    finally:
+        stop([p for p, *_ in gates.values()])
+    tmp.cleanup()
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
+
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phases(_kernels, card, tmp):
+    """The build (then the gate children on the card may start) and
+    phases 2-10; returns the kernels' entries of the JSON line."""
+    from ocean_bgc_tpu_torch.params import ModelParams
 
     t0 = time.perf_counter()
     report = _kernels.build()
+    open(os.path.join(tmp, "built"), "w").close()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.2f} s; ptxas:")
@@ -2596,7 +3344,6 @@ def main():
     params = ModelParams()
     oracle_check(params)
     kernels = []
-    tmp = tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR)
     files = None
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split('.')[-1]
@@ -2610,9 +3357,9 @@ def main():
         t0 = time.perf_counter()
         seeded = check_seeded(dtype, ctx["world"], ctx["env"], ctx["warm"])
         if files is None:     # the f64 world, loaded at f32 with --fp32
-            files = write_driver_files(tmp.name, ctx["world"])
+            files = write_driver_files(tmp, ctx["world"])
         f64 = dtype == torch.float64
-        counts = driver_phase(dtype, tmp.name, files, f64_only=f64)
+        counts = driver_phase(dtype, tmp, files, f64_only=f64)
         if f64:
             forced_runs(params, ctx["world"], files[1])
             seed_qualification(params, ctx)
@@ -2651,15 +3398,12 @@ def main():
         source="ocean_bgc_tpu_torch/csrc/probe_patterns.cu",
         replaces="scripts/probe_mosaic.py:35", library_ms=None, **p))
     big_step(params)
-    tmp.cleanup()
-
-    log(card)
-    log(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gate"]:
+        sys.exit(gate_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(md_rank(json.loads(sys.argv[2])))
     sys.exit(main())

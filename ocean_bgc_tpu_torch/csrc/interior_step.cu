@@ -245,19 +245,37 @@ __device__ __forceinline__ T safe_div(T num, T den) {
   return den != T(0) ? num / den : T(0);
 }
 
+// The ecosystem's exp, log and pow (ops/numerics.py: exp, log, pow),
+// where the pH solve's m_exp and m_log are not: at float64 as they are, at
+// float32 evaluated at float64 and rounded once, as the plain version
+// evaluates them (the single-precision functions are not correctly
+// rounded).  e_pow's base is a double, as a Python scalar is to torch.pow.
+__device__ __forceinline__ float e_exp(float x) {
+  return static_cast<float>(exp(static_cast<double>(x)));
+}
+__device__ __forceinline__ double e_exp(double x) { return exp(x); }
+__device__ __forceinline__ float e_log(float x) {
+  return static_cast<float>(log(static_cast<double>(x)));
+}
+__device__ __forceinline__ double e_log(double x) { return log(x); }
+template <typename T>
+__device__ __forceinline__ T e_pow(double base, T x) {
+  return static_cast<T>(pow(base, static_cast<double>(x)));
+}
+
 // ops/numerics.py::morel_kpar: the PAR attenuation coefficient (1/cm)
 // from chlorophyll, exp(log(a) + p log(chl)) with one shared log
 template <typename T>
 __device__ __forceinline__ T morel_kpar(T chl) {
-  const T log_chl = m_log(chl);
-  return m_exp(chl < T(MOREL_BREAK) ? T(LOG_MOREL_A1) + log_chl * T(MOREL_P1)
+  const T log_chl = e_log(chl);
+  return e_exp(chl < T(MOREL_BREAK) ? T(LOG_MOREL_A1) + log_chl * T(MOREL_P1)
                                     : T(LOG_MOREL_A2) + log_chl * T(MOREL_P2));
 }
 
 // the sedimentary denitrification's 0.99 ** (O2 - NO3)
-// (ops/particulates.py, torch.pow with a scalar base)
+// (ops/particulates.py, numerics.pow with a scalar base)
 template <typename T>
-__device__ __forceinline__ T sed_pow(T x) { return m_pow(T(0.99), x); }
+__device__ __forceinline__ T sed_pow(T x) { return e_pow(0.99, x); }
 
 // ---- PAR attenuation of a cell, which the level scan of PAR reads and
 // the kinetics repeat ----------------------------------------------------
@@ -292,7 +310,7 @@ __device__ __forceinline__ T attenuation(const T (&a_chl)[kNumAuto], T dz,
   for (int g = 0; g < kNumAuto; ++g) total_chl = total_chl + a_chl[g];
   const T kpar = morel_kpar(clamp_min(total_chl, T(0.02)));
   kpar_dz = kpar * dz;
-  return m_exp(-kpar_dz);
+  return e_exp(-kpar_dz);
 }
 
 // ---- the per-cell ecosystem kinetics (ops/bgc.py::ecosystem_kinetics,
@@ -446,7 +464,7 @@ __device__ __forceinline__ Kinetics<T> ecosystem_kinetics(
       pcmax = temp > tmax ? T(0) : pcmax;
     }
     const T light_lim =
-        T(1) - m_exp(((K.thetaC[g] * T(-1.0 * alphaPI)) * par_avg) /
+        T(1) - e_exp(((K.thetaC[g] * T(-1.0 * alphaPI)) * par_avg) /
                      (pcmax + T(EPSTINV)));
     const T pcphoto = pcmax * light_lim;
     const T pc = pcphoto * a_c[g];
@@ -711,7 +729,7 @@ __device__ __forceinline__ ParticleOut<T> particulate_level_update(
                 (T(1) + div_scalar((T(40) - o2_loc) * T(3.3 - 1.0), 35.0))
           : (o2_loc < T(5) ? T(poc_diss0 * 3.3) : T(poc_diss0));
   poc_diss = d.scalelength * poc_diss;
-  const T decay_poc_e = m_exp(-dz / poc_diss);
+  const T decay_poc_e = e_exp(-dz / poc_diss);
 
   // ballast out-fluxes (BGC_mod.F90:2349-2365)
   const T caco3_s_out =
@@ -875,7 +893,7 @@ __device__ __forceinline__ void assemble_tendencies(
   const bool taper_sel = K.par_in > T(par_lim);
   const T par_for_log =
       taper_sel ? clamp_min(K.par_out, T(1e-37)) : T(par_lim);
-  const T taper = m_log(div_scalar(par_for_log, par_lim)) / (-K.kpar_dz);
+  const T taper = e_log(div_scalar(par_for_log, par_lim)) / (-K.kpar_dz);
   nitrif = taper_sel ? nitrif * taper : nitrif;
   nitrif = K.par_out < T(par_lim) ? nitrif : T(0);
 

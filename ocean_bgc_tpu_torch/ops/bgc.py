@@ -46,8 +46,11 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     subsurface_of,
 )
 from ocean_bgc_tpu_torch.ops.numerics import (
+    exp,
     fill_like,
+    log,
     morel_kpar,
+    pow,
     safe_div,
     z_sqrt_z,
 )
@@ -119,7 +122,7 @@ def _par_field(par_surf_row, total_chl, dz, active):
     chl = torch.clamp_min(total_chl, 0.02)
     kpar = morel_kpar(chl)
     kpar_dz = kpar * dz
-    att = torch.exp(-kpar_dz)
+    att = exp(-kpar_dz)
     # inactive cells pass PAR through unchanged
     att_eff = torch.where(active, att, 1.0)
     cum = torch.cumprod(att_eff, dim=0)
@@ -539,7 +542,7 @@ def ecosystem_kinetics(
             pcmax = pcmax * _minimum(1.0, (tmax - temp) / (tmax - topt))
             pcmax = torch.where(temp > tmax, 0.0, pcmax)
 
-        light_lim = 1.0 - torch.exp(
+        light_lim = 1.0 - exp(
             (-1.0 * au.alphaPI * thetaC[g] * par_avg)
             / (pcmax + c.EPSTINV))
         pcphoto = pcmax * light_lim
@@ -801,7 +804,7 @@ def assemble_tendencies(
     par_for_log = torch.where(taper_sel,
                               _maximum(kin.par_out, 1e-37),
                               params.parm_nitrif_par_lim)
-    taper = (torch.log(par_for_log / params.parm_nitrif_par_lim)
+    taper = (log(par_for_log / params.parm_nitrif_par_lim)
              / (-kin.kpar_dz))
     nitrif = torch.where(taper_sel, nitrif * taper, nitrif)
     nitrif = torch.where(kin.par_out < params.parm_nitrif_par_lim,
@@ -963,7 +966,7 @@ def compute_restoring(forcing: BGCForcing, tr: torch.Tensor,
 
 def q10_tfunc(temp):
     """The ecosystem's Q10 temperature response (BGC_mod.F90:1041)."""
-    return c.Q_10 ** ((temp - c.TREF) / 10.0)
+    return pow(c.Q_10, (temp - c.TREF) / 10.0)
 
 
 def _standin_ts(grid: ColumnGrid, forcing: BGCForcing):

@@ -18,7 +18,12 @@ from typing import Dict, Tuple
 import torch
 
 from ocean_bgc_tpu_torch.constants import EPSC, F_QSW_PAR_DMS
-from ocean_bgc_tpu_torch.ops.numerics import morel_kpar, pow_floor0, safe_div
+from ocean_bgc_tpu_torch.ops.numerics import (
+    exp,
+    morel_kpar,
+    pow_floor0,
+    safe_div,
+)
 from ocean_bgc_tpu_torch.params import DMSParams
 from ocean_bgc_tpu_torch.state import DMSTracers as DT
 
@@ -83,7 +88,7 @@ def dms_source_sink(
     chl = torch.clamp_min(total_chl, 0.02)
     kpar = morel_kpar(chl)
     kpar_dz = kpar * dz
-    att = torch.exp(-kpar_dz)
+    att = exp(-kpar_dz)
     cum = torch.cumprod(att, dim=0)
     par_in = par_surf[None, :] * torch.cat([torch.ones_like(cum[:1]),
                                             cum[:-1]], dim=0)
@@ -201,7 +206,7 @@ def dms_source_sink(
         # UV: 1% of surface PAR, attenuated by DOC (DMS_mod.F90:509-510,
         # 531-536), the same exclusive cumulative product as PAR's
         kuv_dz = (0.01e-2 * doc + 0.04e-4) * dz
-        att_uv = torch.exp(-kuv_dz)
+        att_uv = exp(-kuv_dz)
         cum_uv = torch.cumprod(att_uv, dim=0)
         uv_in = ((par_surf * 0.01)[None, :]
                  * torch.cat([torch.ones_like(cum_uv[:1]), cum_uv[:-1]],

@@ -1,6 +1,7 @@
-"""Shared numerical primitives: the Morel PAR attenuation fit, the guarded
-division and the powers whose plain derivative is not finite at 0
-(counterpart of ``ocean_bgc_tpu/ops/numerics.py``).
+"""Shared numerical primitives: the ecosystem's transcendental functions,
+the Morel PAR attenuation fit, the guarded division and the powers whose
+plain derivative is not finite at 0 (counterpart of
+``ocean_bgc_tpu/ops/numerics.py``).
 
 Each ``torch.autograd.Function`` here computes its forward with exactly
 the expression the forward-only code used (the step's outputs stay
@@ -23,14 +24,45 @@ _MOREL_P1 = 0.3536
 _MOREL_P2 = 0.4562
 
 
+def _f64(v):
+    return v.double() if torch.is_tensor(v) else v
+
+
+def _single(*args) -> bool:
+    return any(torch.is_tensor(a) and a.dtype == torch.float32
+               for a in args)
+
+
+# The ecosystem's exp, log and pow (everything but the pH solve and the
+# equilibrium constants, which K1's kernels hold): float64 as torch
+# evaluates them; float32 evaluated at float64 and rounded once.  The
+# card's single-precision exp and pow are not correctly rounded (up to 2
+# ulp), and in the deep world's nitrogen-limited surface cells their
+# error took kicked f32 runs out of the f64 run's f32-epsilon envelope
+# about three times as often on the card as on the CPU (PERF.md).
+def exp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x.double()).float() if _single(x) else torch.exp(x)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x.double()).float() if _single(x) else torch.log(x)
+
+
+def pow(x, y) -> torch.Tensor:
+    """``x ** y`` for a tensor and a number or two tensors."""
+    if _single(x, y):
+        return torch.pow(_f64(x), _f64(y)).float()
+    return torch.pow(x, y)
+
+
 def morel_kpar(chl: torch.Tensor) -> torch.Tensor:
     """PAR attenuation coefficient (1/cm) from total chlorophyll, as
     ``exp(log(a) + p*log(chl))`` with one shared log (callers floor chl
     at 0.02)."""
-    log_chl = torch.log(chl)
-    return torch.exp(torch.where(chl < _MOREL_BREAK,
-                                 _LOG_MOREL_A1 + _MOREL_P1 * log_chl,
-                                 _LOG_MOREL_A2 + _MOREL_P2 * log_chl))
+    log_chl = log(chl)
+    return exp(torch.where(chl < _MOREL_BREAK,
+                           _LOG_MOREL_A1 + _MOREL_P1 * log_chl,
+                           _LOG_MOREL_A2 + _MOREL_P2 * log_chl))
 
 
 def _to_shape(grad, shape):
@@ -101,7 +133,7 @@ def z_sqrt_z(z: torch.Tensor) -> torch.Tensor:
 class _PowFloor0(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, b):
-        out = x ** b
+        out = pow(x, b)
         ctx.save_for_backward(x, out, *((b,) if torch.is_tensor(b) else ()))
         ctx.b = None if torch.is_tensor(b) else b
         return out

@@ -44,7 +44,7 @@ from ocean_bgc_tpu_torch.constants import (
     TFUNCS_Q10,
     TREF,
 )
-from ocean_bgc_tpu_torch.ops.numerics import fill_like, safe_div
+from ocean_bgc_tpu_torch.ops.numerics import exp, fill_like, pow, safe_div
 from ocean_bgc_tpu_torch.params import BGCParams
 
 # QA mass ratios (rho = 0.05 * mass / POC mass, BGC_mod.F90:2054-2064)
@@ -162,17 +162,17 @@ def precompute_dissolution(temp, cell_thickness, cell_bottom_depth,
     the expressions :func:`particulate_level_update` uses in-step."""
     dz = cell_thickness
     scalelength = _scalelength(cell_bottom_depth, params)
-    tfuncs = TFUNCS_Q10 ** ((temp - TREF) / 10.0)
+    tfuncs = pow(TFUNCS_Q10, (temp - TREF) / 10.0)
     sio2_diss = scalelength * params.parm_SiO2_diss / tfuncs
     caco3_diss = scalelength * params.parm_CaCO3_diss
     dust_diss = scalelength * DUST_DISS
     return DissolutionCache(
         scalelength=scalelength,
-        decay_hard=torch.exp(-dz / DECAY_HARD_SCALE),
-        decay_hard_dust=torch.exp(-dz / DECAY_HARD_DUST_SCALE),
-        decay_caco3=torch.exp(-dz / caco3_diss), caco3_diss=caco3_diss,
-        decay_sio2=torch.exp(-dz / sio2_diss), sio2_diss=sio2_diss,
-        decay_dust=torch.exp(-dz / dust_diss))
+        decay_hard=exp(-dz / DECAY_HARD_SCALE),
+        decay_hard_dust=exp(-dz / DECAY_HARD_DUST_SCALE),
+        decay_caco3=exp(-dz / caco3_diss), caco3_diss=caco3_diss,
+        decay_sio2=exp(-dz / sio2_diss), sio2_diss=sio2_diss,
+        decay_dust=exp(-dz / dust_diss))
 
 
 def particulate_level_update(
@@ -204,15 +204,15 @@ def particulate_level_update(
     # dissolution length scales (BGC_mod.F90:2288-2338)
     if diss is None:
         scalelength = _scalelength(cell_bottom_depth, params)
-        decay_hard = torch.exp(-dz / DECAY_HARD_SCALE)
-        decay_hard_dust = torch.exp(-dz / DECAY_HARD_DUST_SCALE)
-        tfuncs = TFUNCS_Q10 ** ((temp - TREF) / 10.0)
+        decay_hard = exp(-dz / DECAY_HARD_SCALE)
+        decay_hard_dust = exp(-dz / DECAY_HARD_DUST_SCALE)
+        tfuncs = pow(TFUNCS_Q10, (temp - TREF) / 10.0)
         sio2_diss = scalelength * params.parm_SiO2_diss / tfuncs
         caco3_diss = scalelength * params.parm_CaCO3_diss
         dust_diss = scalelength * DUST_DISS
-        decay_sio2 = torch.exp(-dz / sio2_diss)
-        decay_caco3 = torch.exp(-dz / caco3_diss)
-        decay_dust = torch.exp(-dz / dust_diss)
+        decay_sio2 = exp(-dz / sio2_diss)
+        decay_caco3 = exp(-dz / caco3_diss)
+        decay_dust = exp(-dz / dust_diss)
     else:
         scalelength = diss.scalelength
         decay_hard = diss.decay_hard
@@ -230,7 +230,7 @@ def particulate_level_update(
                     fill_like(o2_loc, params.parm_POC_diss)))
 
     poc_diss = scalelength * poc_diss
-    decay_poc_e = torch.exp(-dz / poc_diss)
+    decay_poc_e = exp(-dz / poc_diss)
 
     # ballast out-fluxes: analytic solution of constant-source linear-decay
     # ODE across the cell (BGC_mod.F90:2349-2365)
@@ -314,7 +314,7 @@ def particulate_level_update(
         0.0)
     sed_denitrif = torch.where(
         bot_poc,
-        dzr * poc_flux * (0.06 + 0.19 * torch.pow(0.99, o2_loc - no3_loc)),
+        dzr * poc_flux * (0.06 + 0.19 * pow(0.99, o2_loc - no3_loc)),
         0.0)
     sed_denitrif = torch.where(no3_loc < 5.0, 0.0, sed_denitrif)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ocean_bgc_tpu_torch.constants import T0_KELVIN
+from ocean_bgc_tpu_torch.ops.numerics import exp, log
 
 
 def schmidt_o2(sst):
@@ -39,8 +40,8 @@ def o2sat(sst, sss):
     b_0, b_1, b_2, b_3 = -6.24523e-3, -7.37614e-3, -1.03410e-2, -8.17083e-3
     c_0 = -4.88682e-7
 
-    ts = torch.log(((T0_KELVIN + 25.0) - sst) / (T0_KELVIN + sst))
-    o2sat_mll = torch.exp(
+    ts = log(((T0_KELVIN + 25.0) - sst) / (T0_KELVIN + sst))
+    o2sat_mll = exp(
         a_0 + ts * (a_1 + ts * (a_2 + ts * (a_3 + ts * (a_4 + ts * a_5))))
         + sss * ((b_0 + ts * (b_1 + ts * (b_2 + ts * b_3))) + sss * c_0))
     return o2sat_mll / 0.0223916  # ml/l -> mmol/m^3

@@ -25,7 +25,7 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     warm_brackets_h,
     x0_seed_enabled,
 )
-from ocean_bgc_tpu_torch.ops.numerics import sqrt_abs
+from ocean_bgc_tpu_torch.ops.numerics import pow, sqrt_abs
 from ocean_bgc_tpu_torch.ops.schmidt import (
     dmssat,
     o2sat,
@@ -167,9 +167,9 @@ def dms_surface_fluxes(
     wind = sqrt_abs(wind_speed_squared_10m) * 0.01
 
     a, e2, e3 = 0.31, 2.85, 0.612
-    xkw_w92 = a * (660.0 / sc) ** 0.5 * wind * wind
-    xkw_lm86 = (e2 * (600.0 / sc) ** 0.5 * (wind - 3.6)
-                + e3 * (600.0 / sc) ** (0.667))
+    xkw_w92 = a * pow(660.0 / sc, 0.5) * wind * wind
+    xkw_lm86 = (e2 * pow(600.0 / sc, 0.5) * (wind - 3.6)
+                + e3 * pow(600.0 / sc, 0.667))
 
     f_lm86 = 0.5 * (wind - 3.6)
     xkw_blend = (1.0 - f_lm86) * xkw_w92 + f_lm86 * xkw_lm86

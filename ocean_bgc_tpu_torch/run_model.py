@@ -7,6 +7,17 @@ an optional forcing series, optional checkpointed initial state, stepping
 history, and a summary with throughput and the carbon conservation
 residual.  Runs on the CUDA device unless ``--device cpu``.
 
+``--sharded`` splits the columns over the ranks of a
+``torch.distributed`` group, one contiguous block per rank
+(``parallel/``): launched as ``python -m torch.distributed.run
+--nproc_per_node N -m ocean_bgc_tpu_torch.run_model --sharded ...`` (NCCL
+on CUDA, one card per rank; Gloo with ``--device cpu``), or without a
+launcher as one rank.  Each rank steps its block with no collective and
+writes its history and checkpoint shards (``hist_<step>/hist_p<rank>.npz``,
+``ck_<step>/ck_p<rank>.npz``); ``--restore`` reads shards written at any
+rank count, or a single file.  Rank 0 prints the summary, reduced over
+ranks.
+
 Examples::
 
     python -m ocean_bgc_tpu_torch.run_model --steps 240 --ncol 4096
@@ -15,6 +26,8 @@ Examples::
     python -m ocean_bgc_tpu_torch.run_model --world w.nc \\
         --forcing-series s.nc --interp hold --solver-seed --steps 24 \\
         --history-every 12 --checkpoint-every 12 --health
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m ocean_bgc_tpu_torch.run_model --sharded --ncol 32768 --steps 24
 """
 
 from __future__ import annotations
@@ -39,8 +52,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--integrator", choices=("euler", "rk2", "rk4"),
                    default="euler")
     p.add_argument("--sharded", action="store_true",
-                   help="shard columns over all visible devices (not "
-                        "ported yet: ROADMAP queue 1 item 13)")
+                   help="split the columns over the ranks of a "
+                        "torch.distributed group (launch under python -m "
+                        "torch.distributed.run; without a launcher, one "
+                        "rank)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' "
                         "runs the kernels' plain versions)")
@@ -92,9 +107,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.sharded:
-        raise SystemExit("--sharded is not ported yet: the multi-device "
-                         "slice is ROADMAP queue 1 item 13")
+    if args.sharded and (args.netcdf_history or args.save_world):
+        raise SystemExit("--sharded writes per-rank .npz shards; "
+                         "--netcdf-history and --save-world write one file "
+                         "and are not available with it")
     if args.history_fields and not args.history_every > 0:
         raise SystemExit("--history-fields requires --history-every N "
                          "(without history output there are no "
@@ -104,9 +120,21 @@ def main(argv=None) -> int:
     before = os.environ.get("OBGC_X0_SEED")
     if args.solver_seed:
         os.environ["OBGC_X0_SEED"] = "1"
+    own_group = False
     try:
+        if args.sharded:
+            import torch.distributed as tdist
+
+            from ocean_bgc_tpu_torch.parallel import distributed as dist
+            if not tdist.is_initialized():
+                # the launcher's environment, or one rank
+                dist.initialize(device=None if args.device == "cuda"
+                                else args.device)
+                own_group = True
         return _run(args)
     finally:
+        if own_group:
+            dist.shutdown()
         if args.solver_seed:
             if before is None:
                 os.environ.pop("OBGC_X0_SEED", None)
@@ -127,7 +155,21 @@ def _run(args) -> int:
     from ocean_bgc_tpu_torch.utils.history import TavgState, write_history
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.sharded:
+        from ocean_bgc_tpu_torch.parallel.distributed import global_mesh
+        from ocean_bgc_tpu_torch.parallel.sharding import (
+            all_reduce_sum,
+            shard_columns,
+            shard_world,
+        )
+        from ocean_bgc_tpu_torch.utils.history import write_history_shards
+        mesh = global_mesh()
+        device = mesh.device
+        if mesh.rank != 0:
+            args.quiet = True
+    else:
+        device = resolve_device(args.device)
     params = ModelParams()
     if args.config:
         from ocean_bgc_tpu_torch.utils.config import params_from_toml
@@ -145,10 +187,16 @@ def _run(args) -> int:
         state, grid, forcing = synthetic_world(
             nlev=args.nlev, ncol=args.ncol, seed=args.seed, dtype=dtype,
             device=device)
+    total_columns = state.bgc.ncol
+    if mesh is not None:
+        state, grid, forcing = shard_world(state, grid, forcing, mesh)
+        if not args.quiet:
+            print(f"sharded over {mesh.world_size} rank(s), "
+                  f"{state.bgc.ncol} columns each")
 
     start_step = 0
     if args.restore:
-        state, n = ckpt.restore(args.restore, device=device)
+        state, n = ckpt.restore(args.restore, device=device, mesh=mesh)
         held = state.bgc.tracers.dtype
         if held != dtype:
             raise SystemExit(f"{args.restore} holds {held} tracers, but this "
@@ -169,6 +217,8 @@ def _run(args) -> int:
             args.forcing_series, dtype=dtype if args.fp32 else None,
             device=device)
         nrec = num_records(series)
+        if mesh is not None:
+            series = shard_columns(series, mesh, total_columns)
         if not args.quiet:
             print(f"forcing series <- {args.forcing_series} "
                   f"({nrec} records, {record_dt:.0f} s apart, "
@@ -215,7 +265,18 @@ def _run(args) -> int:
                 tavg = TavgState.create(diags)
             tavg = tavg.accumulate(diags)
             if (i + 1) % args.history_every == 0:
-                if args.netcdf_history:
+                if mesh is not None:
+                    # scalars (the health counters' means) are the ranks'
+                    # totals: one all_reduce per history write
+                    means = tavg.means()
+                    scalars = [k for k, v in means.items() if v.ndim == 0]
+                    if scalars:
+                        means.update(zip(scalars, all_reduce_sum(
+                            [means[k] for k in scalars], mesh)))
+                    path = write_history_shards(
+                        os.path.join(args.out, f"hist_{i + 1:06d}"), means,
+                        mesh=mesh)
+                elif args.netcdf_history:
                     from ocean_bgc_tpu_torch.io.model_io import (
                         save_history_netcdf)
                     path = save_history_netcdf(
@@ -232,7 +293,7 @@ def _run(args) -> int:
                     print(f"history -> {path}")
         if args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             path = ckpt.save(os.path.join(args.out, f"ck_{i + 1:06d}"),
-                             state, step=i + 1)
+                             state, step=i + 1, mesh=mesh)
             if not args.quiet:
                 print(f"checkpoint -> {path}")
     if device.type == "cuda":
@@ -240,7 +301,7 @@ def _run(args) -> int:
     elapsed = time.perf_counter() - t0
 
     final_ck = ckpt.save(os.path.join(args.out, "ck_final"), state,
-                         step=start_step + args.steps)
+                         step=start_step + args.steps, mesh=mesh)
     if args.save_world:
         from ocean_bgc_tpu_torch.io.model_io import save_world
         save_world(args.save_world, state, grid, forcing,
@@ -250,21 +311,35 @@ def _run(args) -> int:
     # the summary needs only the conservation residual
     _, final_diags = step(state, grid, forcing_now, params, args.dt,
                           compute_diags=True, diag_filter=("Jint_Ctot",))
-    jint = float(final_diags["Jint_Ctot"].abs().max())
-    ncol = state.bgc.ncol
+    jint = final_diags["Jint_Ctot"].abs().max()
+    finite = torch.isfinite(state.bgc.tracers).all()
+    if mesh is not None:
+        # the summary over ranks: the largest residual and elapsed time,
+        # every block finite, the health totals summed
+        import torch.distributed as tdist
+        worst = torch.stack([jint.to(torch.float64),
+                             (~finite).to(torch.float64),
+                             jint.new_full((), elapsed, dtype=torch.float64)])
+        tdist.all_reduce(worst, op=tdist.ReduceOp.MAX, group=mesh.group)
+        jint, finite, elapsed = worst[0], worst[1] == 0, float(worst[2])
+        if args.health:
+            health_tot = dict(zip(health_tot, all_reduce_sum(
+                [torch.as_tensor(v, device=device).to(torch.float64)
+                 for v in health_tot.values()], mesh)))
     summary = {
         "steps": args.steps,
-        "columns": ncol,
-        "columns_per_s": round(ncol * args.steps / elapsed, 1),
+        "columns": total_columns,
+        "columns_per_s": round(total_columns * args.steps / elapsed, 1),
         "elapsed_s": round(elapsed, 2),
         "final_checkpoint": final_ck,
-        "max_abs_Jint_Ctot": jint,
-        "finite": bool(torch.isfinite(state.bgc.tracers).all()),
+        "max_abs_Jint_Ctot": float(jint),
+        "finite": bool(finite),
     }
     if args.health:
         summary.update({f"{k}_total": float(v)
                         for k, v in health_tot.items()})
-    print(json.dumps(summary))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(summary))
     return 0
 
 

@@ -8,13 +8,18 @@ PH_PREV_3D / PH_PREV_ALT_CO2_3D / surface_pH / surface_pH_alt_co2, with
 pH == 0 meaning "no previous solution"); arrays keep their types, so a
 resume is bitwise.
 
-The JAX package's orbax directories and its sharded restore
-(``mesh=``) wait for the multi-device slice (ROADMAP queue 1 item 13);
-both raise here.
+A multi-device run saves per-rank shards (``save(..., mesh=...)``): a
+directory of ``ck_p<rank>.npz`` files, each with the rank's column block
+and its offset.  These stand in for the JAX package's orbax directories,
+which the port does not read.  ``restore(path, mesh=...)`` gives a rank
+its block of any checkpoint: shards written at any rank count, or the
+single file; without ``mesh`` it gives the whole state.  Every route is
+bitwise: no arithmetic touches the data.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Optional
 
@@ -43,41 +48,119 @@ def _flatten(state: CoupledState):
     }
 
 
-def save(path: str, state: CoupledState, *,
-         step: Optional[int] = None) -> str:
-    """Write a ``.npz`` checkpoint (the suffix is added if missing);
-    returns the path written."""
+SHARD_TAG = "ck"
+
+
+def save(path: str, state: CoupledState, *, step: Optional[int] = None,
+         mesh=None) -> str:
+    """Write a checkpoint; returns the path written.
+
+    Without ``mesh``: one ``.npz`` file (the suffix is added if missing),
+    the layout both packages read.  With ``mesh`` (a
+    ``parallel.distributed.ColumnMesh``; every rank calls it with its
+    block of the state): the directory ``path`` (a ``.npz`` suffix
+    dropped) gets this rank's ``ck_p<rank>.npz``, holding its block, its
+    first column, the global width, the rank count and the step."""
     flat = {k: to_numpy(v) for k, v in _flatten(state).items()}
     if step is not None:
         flat["__step__"] = np.asarray(step)
-    path = path if path.endswith(".npz") else path + ".npz"
-    np.savez(path, **flat)
+    if mesh is None:
+        path = path if path.endswith(".npz") else path + ".npz"
+        np.savez(path, **flat)
+        return path
+    from ocean_bgc_tpu_torch.parallel.distributed import host_local_columns
+    from ocean_bgc_tpu_torch.utils.history import remove_stale_shards
+
+    path = path[:-len(".npz")] if path.endswith(".npz") else path
+    width = flat["tracers"].shape[-1]
+    total = width * mesh.world_size
+    lo, _ = host_local_columns(total, mesh)
+    os.makedirs(path, exist_ok=True)
+    remove_stale_shards(path, SHARD_TAG, mesh)
+    np.savez(os.path.join(path, f"{SHARD_TAG}_p{mesh.rank}.npz"),
+             __col0__=np.asarray(lo), __ncol__=np.asarray(total),
+             __nranks__=np.asarray(mesh.world_size), **flat)
     return path
 
 
-def restore(path: str, *, device=None, mesh=None):
-    """Read a ``.npz`` checkpoint of either package; returns (state,
-    step-or-None).  ``device`` defaults to CUDA.  An orbax checkpoint (a
-    directory) and a sharded restore (``mesh``) raise: neither is ported
-    (ROADMAP queue 1 item 13)."""
-    if mesh is not None:
-        raise ValueError("sharded restore (mesh=...) is not ported: the "
-                         "multi-device slice (ROADMAP queue 1 item 13) has "
-                         "not been done")
-    if os.path.isdir(path):
-        raise ValueError(f"{path} is a directory, an orbax checkpoint; the "
-                         f"port reads only the portable .npz layout (write "
-                         f"it with the JAX package's save(..., "
+def _shard_files(path: str):
+    """The shard files of a directory checkpoint, in rank order, checked
+    to be one per rank of the run that wrote them; ``(files, ncol)``."""
+    files = glob.glob(os.path.join(path, f"{SHARD_TAG}_p*.npz"))
+    if not files:
+        raise ValueError(f"{path} is a directory without {SHARD_TAG}_p*.npz "
+                         f"shards (an orbax checkpoint?); the port reads "
+                         f"its own shards and the portable .npz layout "
+                         f"(write it with the JAX package's save(..., "
                          f"use_orbax=False))")
+    heads = {}
+    for p in files:
+        with np.load(p) as f:
+            heads[p] = (int(f["__col0__"]), int(f["__ncol__"]),
+                        int(f["__nranks__"]), f["tracers"].shape[-1])
+    ncol, nranks = next(iter(heads.values()))[1:3]
+    if len(files) != nranks or any(h[1:3] != (ncol, nranks)
+                                   for h in heads.values()):
+        raise ValueError(f"{path}: {len(files)} shard files that disagree "
+                         f"on the run that wrote them")
+    files.sort(key=lambda p: heads[p][0])
+    col = 0
+    for p in files:
+        if heads[p][0] != col:
+            raise ValueError(f"{path}: no shard holds column {col}")
+        col += heads[p][3]
+    if col != ncol:
+        raise ValueError(f"{path}: shards hold {col} of {ncol} columns")
+    return [(p, heads[p][0], heads[p][0] + heads[p][3]) for p in files], ncol
+
+
+def _read(path: str, mesh):
+    """The flat checkpoint (``_FIELDS``, ``__step__``) as NumPy arrays:
+    the columns of ``mesh``'s rank, or all of them."""
+    from ocean_bgc_tpu_torch.parallel.distributed import host_local_columns
+
+    if os.path.isdir(path):
+        files, ncol = _shard_files(path)
+        lo, hi = (host_local_columns(ncol, mesh) if mesh is not None
+                  else (0, ncol))
+        parts, step = {k: [] for k in _FIELDS}, None
+        for p, a, b in files:
+            if b <= lo or a >= hi:
+                continue
+            with np.load(p) as f:
+                for k in _FIELDS:
+                    parts[k].append(f[k][..., max(lo, a) - a:min(hi, b) - a])
+                if "__step__" in f.files:
+                    step = f["__step__"]
+        flat = {k: np.concatenate(v, axis=-1) for k, v in parts.items()}
+        if step is not None:
+            flat["__step__"] = step
+        return flat
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"
-    dev = resolve_device(device)
     with np.load(path) as f:
         flat = {k: f[k] for k in f.files}
-    step = flat.pop("__step__", None)
     missing = set(_FIELDS) - set(flat)
     if missing:
         raise KeyError(f"{path}: not a checkpoint, missing {sorted(missing)}")
+    if mesh is not None:
+        lo, hi = host_local_columns(flat["tracers"].shape[-1], mesh)
+        flat.update({k: flat[k][..., lo:hi] for k in _FIELDS})
+    return flat
+
+
+def restore(path: str, *, device=None, mesh=None):
+    """Read a checkpoint; returns (state, step-or-None).
+
+    ``path``: a ``.npz`` file of either package, or a directory of
+    per-rank shards (:func:`save` with ``mesh``) written at any rank
+    count.  ``mesh``: a ``ColumnMesh``; the state comes back as that
+    rank's column block, on its device.  Without it the whole state comes
+    back on ``device`` (CUDA by default).  A directory without shards (the
+    JAX package's orbax layout) raises."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    flat = _read(path, mesh)
+    step = flat.pop("__step__", None)
     t = {k: from_numpy(flat[k], dev) for k in _FIELDS}
     state = CoupledState(
         bgc=BGCState(tracers=t["tracers"], ph_prev_3d=t["ph_prev_3d"],

@@ -102,11 +102,13 @@ def test_cuda_device_requested_without_card_raises():
         synthetic_world(nlev=2, ncol=4)
 
 
-def _forbidden_imports(path):
-    """(line, module) of every import of jax or of the JAX package.
+def _forbidden_imports(path, module_level=False):
+    """(line, module) of every import of jax or of the JAX package (with
+    ``module_level``, of those the module runs when it is imported).
     ``ocean_bgc_tpu_torch`` shares the package's prefix and is allowed."""
     bad = []
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in tree.body if module_level else ast.walk(tree):
         if isinstance(node, ast.Import):
             mods = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
@@ -126,11 +128,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # chip_smoke.py's check against the scalar oracle imports these
     files += sorted((REPO / "tests" / "oracle").glob("*.py"))
     assert len(files) > 15
-    assert {"diag.py", "history.py", "cuda_carbonate.py"} <= {
-        f.name for f in files}
+    assert {"diag.py", "history.py", "cuda_carbonate.py", "sharding.py",
+            "distributed.py", "entry.py"} <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): _forbidden_imports(f)
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_gate_files_import_no_jax_when_imported():
+    """``chip_smoke.py`` runs the long-horizon gates of these test files
+    on the card, and the two-rank test runs its file as the ranks'
+    script, where there is no JAX: importing them imports none of it
+    (their tests that compare with JAX import it inside the test)."""
+    files = [REPO / "tests" / f"test_torch_{n}.py" for n in (
+        "trajectory", "deep_world", "fp32_trajectory", "fp32_deep",
+        "distributed")]
+    offenders = {f.name: _forbidden_imports(f, module_level=True)
+                 for f in files}
+    assert {k: v for k, v in offenders.items() if v} == {}
+    assert _forbidden_imports(files[-1]) != []    # its JAX test's imports
 
 
 def test_import_guard_catches_each_form(tmp_path):

@@ -23,6 +23,7 @@ from ocean_bgc_tpu_torch.ops.bgc import (
 )
 from ocean_bgc_tpu_torch.ops import carbonate as tcarb
 from ocean_bgc_tpu_torch.ops import cuda_step as cs
+from ocean_bgc_tpu_torch.ops import numerics
 from ocean_bgc_tpu_torch.ops.carbonate import solver_xacc
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     _ph_brackets,
@@ -311,13 +312,14 @@ def test_interior_kernel_matches_plain_version(cuda, dtype, use_env, rest):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_special_cased_torch_sites_match(cuda, dtype):
     """The kernel's device functions where PyTorch's CUDA ops special-case
-    their arguments: 0.99 ** x (torch.pow with a scalar base, the
-    sedimentary denitrification) and the Morel PAR attenuation
-    (ops/numerics.py::morel_kpar), against the torch ops on the card."""
+    their arguments: 0.99 ** x (ops/numerics.py::pow with a scalar base,
+    the sedimentary denitrification) and the Morel PAR attenuation
+    (ops/numerics.py::morel_kpar), against the port's functions on the
+    card (at f32 both evaluated at f64 and rounded once)."""
     gen = torch.Generator().manual_seed(3)
     x = (torch.rand(100_000, generator=gen, dtype=torch.float64) * 700
          - 350).to(dtype=dtype, device=cuda)
-    assert torch.equal(site_test_hook(x, "sed_pow"), torch.pow(0.99, x))
+    assert torch.equal(site_test_hook(x, "sed_pow"), numerics.pow(0.99, x))
     chl = (torch.rand(100_000, generator=gen, dtype=torch.float64) * 5
            + 0.02).to(dtype=dtype, device=cuda)
     assert torch.equal(site_test_hook(chl, "morel_kpar"),

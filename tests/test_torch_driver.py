@@ -163,7 +163,8 @@ def test_run_model_runs_resumes_and_refuses_sharding(tmp_path, capsys,
     filtered fields; the world it saves loads in the JAX package; a
     resume from the step-2 checkpoint gives the 4-step run's state
     bitwise; the seed flag is the caller's again after the run; RK2 runs;
-    ``--sharded`` raises."""
+    ``--sharded`` without a launcher runs as one rank, bitwise the
+    unsharded run."""
     monkeypatch.delenv("OBGC_X0_SEED", raising=False)
     state, grid, series, _ = _forced_world(nlev=6, ncol=16)
     save_world(str(tmp_path / "w.nc"), state, grid,
@@ -198,8 +199,22 @@ def test_run_model_runs_resumes_and_refuses_sharding(tmp_path, capsys,
     rk2 = _main(capsys, "--nlev", "4", "--ncol", "8", "--steps", "1",
                 "--integrator", "rk2", "--out", str(tmp_path / "c"))
     assert rk2["finite"]
-    with pytest.raises(SystemExit, match="queue 1 item 13"):
-        run_model.main(["--sharded", "--device", "cpu"])
+    # --sharded without a launcher: one rank of its own group, torn down
+    # after the run, the whole world bitwise the unsharded run
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    small = ("--nlev", "4", "--ncol", "8", "--steps", "2")
+    sharded = _main(capsys, *small, "--sharded", "--checkpoint-every", "1",
+                    "--health", "--out", str(tmp_path / "d"))
+    assert not torch.distributed.is_initialized()
+    plain = _main(capsys, *small, "--health", "--out", str(tmp_path / "e"))
+    assert sharded["columns"] == 8 and sharded["finite"]
+    assert os.path.isdir(sharded["final_checkpoint"])
+    a, n = ckpt.restore(sharded["final_checkpoint"], device="cpu")
+    b, _ = ckpt.restore(plain["final_checkpoint"], device="cpu")
+    assert n == 2 and _equal_states(a, b)
+    for k in health:
+        assert sharded[k] == plain[k], k
 
 
 @pytest.mark.parametrize("first,then", [((), ("--fp32",)),

@@ -23,6 +23,7 @@ from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 from ocean_bgc_tpu_torch.io import model_io as tio
 from ocean_bgc_tpu_torch.io import netcdf3 as tnc
 from ocean_bgc_tpu_torch.models import forcing_series as tfs
+from ocean_bgc_tpu_torch.parallel.distributed import ColumnMesh
 from ocean_bgc_tpu_torch.utils import checkpoint as tckpt
 from ocean_bgc_tpu_torch.utils import config as tconfig
 from ocean_bgc_tpu_torch.utils import history as thist
@@ -121,14 +122,15 @@ def test_world_files_cross_between_packages(tmp_path):
 
 def test_checkpoints_cross_between_packages(tmp_path):
     """The ``.npz`` layout: a JAX checkpoint restores into the port bitwise
-    with its step and types, and the reverse; an orbax directory and a
-    sharded restore raise."""
+    with its step and types, and the reverse; an orbax directory raises;
+    a JAX checkpoint restores onto two ranks (``mesh``) as their blocks,
+    bitwise."""
     js, _, _, (ts, _, _) = _world()
     ts32 = type(ts)(**{
         "bgc": dataclasses.replace(ts.bgc, tracers=ts.bgc.tracers.float()),
         "dms": ts.dms, "macros": ts.macros})
-    path = jckpt.save(str(tmp_path / "j"), js, step=5, use_orbax=False)
-    s, n = tckpt.restore(path, device="cpu")
+    jpath = jckpt.save(str(tmp_path / "j"), js, step=5, use_orbax=False)
+    s, n = tckpt.restore(jpath, device="cpu")
     assert n == 5
     _assert_same(_np(s), _np(js))
     path = tckpt.save(str(tmp_path / "t"), ts32, step=7)
@@ -142,8 +144,19 @@ def test_checkpoints_cross_between_packages(tmp_path):
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match="orbax"):
         tckpt.restore(str(tmp_path / "orbax"), device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 13"):
-        tckpt.restore(path, device="cpu", mesh=object())
+    whole, _ = tckpt.restore(jpath, device="cpu")
+    ncol = whole.bgc.ncol
+    for rank in range(2):
+        mesh = ColumnMesh(rank=rank, world_size=2, device=torch.device("cpu"))
+        block, n = tckpt.restore(jpath, mesh=mesh)
+        cols = slice(rank * ncol // 2, (rank + 1) * ncol // 2)
+
+        def cut(d):
+            return {k: cut(v) if isinstance(v, dict) else v[..., cols]
+                    for k, v in d.items()}
+
+        assert n == 5
+        _assert_same(_np(block), cut(_np(whole)))
 
 
 def test_params_from_toml_matches_jax(tmp_path):
