@@ -79,9 +79,14 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    f64 and f32 on the same world: each seeded variant of K1 (the dual
    instance on the env cache's constants and on the constants kernel's,
    and the bracket-in instance) against its seeded plain version on
-   cold, warm and off-window inputs (every output bitwise equal), its
-   time, bound and iterations per warm problem beside the unseeded ones;
-   then
+   cold, warm, off-window and mixed inputs (every output bitwise equal),
+   the f32 dual instance at the parked-tail caps 0, 1, its default and
+   MAXIT; its time in its default schedule, one lane per thread in the
+   fastest blocks of a sweep of block sizes (and of caps, at f32 for the
+   dual instance) and in 256-thread blocks, in turns, the step counts'
+   quantiles beside each schedule's modelled lane-steps per problem, an
+   empty kernel's launch as the floor, bound and iterations per warm
+   problem beside the unseeded ones; then
    ``python -m ocean_bgc_tpu_torch.run_model`` through ``run_model.main``
    on the world written as a NetCDF world file and a 3-record forcing
    series (T +0, +0.5, -0.5 C, 8 h apart): 24 held-record steps with the
@@ -352,7 +357,8 @@ def expected(**nonzero):
 
 def ptxas_lines(log_text):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` log: its name
-    (demangled where c++filt is found), registers and spill bytes."""
+    (demangled where c++filt is found), registers, spill bytes and static
+    shared memory."""
     rows, name, spill = [], None, ("?", "?")
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -366,7 +372,8 @@ def ptxas_lines(log_text):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name is not None:
-            rows.append((name, m[1], *spill))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, m[1], *spill, smem[1] if smem else "0"))
             name, spill = None, ("?", "?")
     names = [r[0] for r in rows]
     cxxfilt = shutil.which("c++filt")
@@ -378,7 +385,8 @@ def ptxas_lines(log_text):
     names = [n.replace("obgc::(anonymous namespace)::", "").split("(")[0]
              for n in names]
     return [f"    {n}: {r[1]} registers, {r[2]} B spill stores, {r[3]} B "
-            f"spill loads" for n, r in zip(names, rows)]
+            f"spill loads, {r[4]} B static shared memory"
+            for n, r in zip(names, rows)]
 
 
 def k1_inputs(state, grid, forcing, env):
@@ -1933,6 +1941,49 @@ def iteration_stats(stats, warm):
     return it.mean().item(), torch.quantile(it, 0.99).item()
 
 
+def quantiles_text(iters):
+    """p50 / p90 / p99 / max of the per-problem step counts ``iters``."""
+    it = iters.double().reshape(-1)
+    q = torch.quantile(it, torch.tensor([0.5, 0.9, 0.99], dtype=it.dtype,
+                                        device=it.device)).tolist()
+    return (f"p50 {q[0]:.0f}, p90 {q[1]:.0f}, p99 {q[2]:.0f}, max "
+            f"{it.max().item():.0f}")
+
+
+def issued_per_problem(iters, cap, threads):
+    """Lane-steps a schedule issues per problem (Newton-or-bisection
+    steps only; a warp issues 32 lane-steps per step of its slowest
+    lane), from the plain version's per-lane step counts ``iters`` (one
+    tensor per problem of a lane, lanes in launch order) on blocks of
+    ``threads``: with ``cap`` >= MAXIT each warp runs as long as its lane
+    with the most steps; with a smaller one each lane runs its problems
+    up to ``cap`` steps each, and each block's parked problems, with the
+    rest of their lanes, run in its first warps, one per thread in lane
+    order."""
+    its = [i.reshape(-1).long() for i in iters]
+    n = its[0].numel()
+    first = torch.zeros_like(its[0])
+    rest = torch.zeros_like(its[0])
+    parked = torch.zeros_like(its[0], dtype=torch.bool)
+    for it in its:
+        rest += torch.where(parked, it, 0)
+        now = ~parked & (it > cap)
+        first += torch.where(parked, 0, it.clamp(max=cap))
+        rest += torch.where(now, it - cap, 0)
+        parked |= now
+    blocks = -(-n // threads)
+    pad = blocks * threads - n
+    first, rest = (torch.nn.functional.pad(t, (0, pad))
+                   for t in (first, rest))
+    parked = torch.nn.functional.pad(parked, (0, pad))
+    issued = 32 * first.view(-1, 32).max(1).values.sum().item()
+    key = (~parked).long().view(blocks, threads) * threads + torch.arange(
+        threads, device=first.device)
+    dense = rest.view(blocks, threads).gather(1, key.argsort(dim=1))
+    issued += 32 * dense.view(blocks, -1, 32).max(2).values.sum().item()
+    return issued / (len(its) * n)
+
+
 def compare(label, got, want):
     """Raise unless ``got`` and ``want`` (sequences of tensors) are
     bitwise equal and finite; returns the max abs error (0)."""
@@ -1947,34 +1998,109 @@ def compare(label, got, want):
     return err
 
 
+# the parked-tail caps at which check_seeded holds the seeded f32 dual
+# instance bitwise (besides its default and MAXIT), those it times, and
+# the block sizes it times every seeded instance at
+SEEDED_CHECK_CAPS = (0, 1)
+SEEDED_SWEEP_CAPS = (0, 1, 2, 3, 4, 6)
+SEEDED_SWEEP_THREADS = (32, 64, 128, 256)
+
+
+def in_turns(label, fns, reps=20):
+    """Device ms per call of each of ``fns`` ({name: fn}), each timed
+    behind the device sleep, in turns a, b, ..., b, a; the mean of each
+    one's two turns.  Logs every turn."""
+    order = list(fns) + list(fns)[::-1]
+    with gates_paused():
+        times = [(k, cuda_ms(fns[k], reps=reps, device_only=True))
+                 for k in order]
+    log(f"{label}, in turns: " + ", ".join(f"{k} {t:.4f}"
+                                           for k, t in times) + " ms")
+    return {k: statistics.mean(t for j, t in times if j == k) for k in fns}
+
+
+def seeded_sweep(label, fn, iters, threads0, cap0=None):
+    """Device ms per call of ``fn(threads=)`` one lane per thread at each
+    sweep block size, and, where the instance parks (``cap0``, its
+    default cap; ``fn`` then takes ``cap=`` too), at each sweep cap in
+    the default blocks of ``threads0`` and at ``cap0`` at each block
+    size; each logged beside the modelled lane-steps per problem
+    (:func:`issued_per_problem` on the plain version's counts
+    ``iters``).  Returns the block size of the fastest one-lane launch."""
+    from ocean_bgc_tpu_torch.constants import MAXIT
+    one = {} if cap0 is None else dict(cap=MAXIT)
+    arms = {"one lane per thread": (MAXIT, one)}
+    if cap0 is not None:
+        arms[f"cap {cap0}"] = (cap0, dict(cap=cap0))
+    with gates_paused():
+        caps = [(c, cuda_ms(lambda c=c: fn(cap=c), reps=20,
+                            device_only=True),
+                 issued_per_problem(iters, c, threads0))
+                for c in (*SEEDED_SWEEP_CAPS, MAXIT)] if cap0 is not None else []
+        rows = {arm: [(t, cuda_ms(lambda t=t, kw=kw: fn(threads=t, **kw),
+                                  reps=20, device_only=True),
+                       issued_per_problem(iters, c, t))
+                      for t in SEEDED_SWEEP_THREADS]
+                for arm, (c, kw) in arms.items()}
+    if caps:
+        log(f"{label} sweep, {threads0}-thread blocks: " + ", ".join(
+            f"cap {c} {t:.4f} ms (model {m:.3f})" for c, t, m in caps))
+    for arm, row in rows.items():
+        log(f"{label} sweep, {arm}: " + ", ".join(
+            f"{k} threads {t:.4f} ms (model {m:.3f})" for k, t, m in row))
+    return min(rows["one lane per thread"], key=lambda r: r[1])[0]
+
+
 def check_seeded(dtype, world, env, warm_state):
-    """Driver phase, part 1: K1's seeded variants against their
-    seeded plain versions on cold, warm and off-window inputs (bitwise,
-    every output), then each one's time per launch on the warm inputs
-    (queued behind a device sleep), its plain version's time, its bound
-    (operations from the seeded plain version's iteration counts), and
-    the iterations per warm problem, seeded against unseeded; the
+    """Driver phase, part 1: K1's seeded variants against their seeded
+    plain versions on cold, warm, off-window and mixed inputs (bitwise,
+    every output), the f32 dual instance at the parked-tail caps 0, 1,
+    its default and MAXIT, the bracket-in instance also in 256-thread
+    blocks; then on the warm inputs each one's time per launch in its
+    default schedule, one lane per thread in the fastest blocks of a
+    sweep of block sizes (and caps, where it parks) and in 256-thread
+    blocks, in turns behind a device sleep, the step counts' quantiles
+    and the lane-steps each schedule issues per problem (from the plain
+    version's counts), its plain version's time, its bound (operations
+    from the seeded plain version's iteration counts), and the
+    iterations per warm problem, seeded against unseeded; the
     coefficient-and-saturation route (the constants kernel, then the
-    seeded dual instance) too.  Returns {"dual", "brackets": the kernel
-    entry's numbers}."""
+    seeded dual instance) on env-off inputs too, and an empty kernel's
+    launch as the floor beside the surface pair.  Returns {"dual",
+    "brackets": the kernel entry's numbers}."""
+    import ctypes
     import dataclasses
 
+    from ocean_bgc_tpu_torch.constants import MAXIT
+    from ocean_bgc_tpu_torch.ops import _kernels
     from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
     from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs
     from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
     state, grid, forcing = world
     name = str(dtype).split(".")[-1]
-    off = dataclasses.replace(warm_state, bgc=dataclasses.replace(
-        warm_state.bgc, surface_ph=off_window(warm_state.bgc.surface_ph),
-        surface_ph_alt=off_window(warm_state.bgc.surface_ph_alt),
-        ph_prev_3d=off_window(warm_state.bgc.ph_prev_3d),
-        ph_prev_alt_3d=off_window(warm_state.bgc.ph_prev_alt_3d)))
-    cases = (("cold", state), ("warm", warm_state), ("off-window", off))
+    # the dual instance parks at f32 only
+    cap0 = cc.dual_cap(dtype)
+    parks = cap0 < MAXIT
+    caps = sorted({*SEEDED_CHECK_CAPS, cap0, MAXIT}) if parks else [MAXIT]
+
+    def moved(st, surface, interior):
+        b = st.bgc
+        return dataclasses.replace(st, bgc=dataclasses.replace(
+            b, surface_ph=surface(b.surface_ph),
+            surface_ph_alt=off_window(b.surface_ph_alt),
+            ph_prev_3d=interior(b.ph_prev_3d),
+            ph_prev_alt_3d=off_window(b.ph_prev_alt_3d)))
+    off = moved(warm_state, off_window, off_window)
+    # the ambient problem warm and the ALT_CO2 one off its window, so
+    # that ALT_CO2 problems park after their lane's ambient one is done
+    mixed = moved(warm_state, lambda x: x, lambda x: x)
+    cases = (("cold", state), ("warm", warm_state), ("off-window", off),
+             ("mixed", mixed))
     res = {}
 
     def report(key, label, ms, plain_ms, bnd, seeded_it, plain_it, err):
         bound_ms, bound_by, nbytes, ops = bnd[:4]
-        log(f"{label} {name} warm: {ms:.4f} ms/launch, plain "
+        log(f"{label} {name} warm: {ms:.4f} ms/launch (default), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.4f} Gop); iterations per "
             f"warm problem: seeded mean {seeded_it[0]:.3f}, p99 "
@@ -1983,74 +2109,144 @@ def check_seeded(dtype, world, env, warm_state):
         res[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
 
+    def timed(label, fn, iters, shape, cap, extra=None):
+        """The sweep, then in turns the default schedule (``cap``, or
+        one lane per thread where None), one lane per thread in the
+        sweep's fastest blocks and in 256-thread blocks (and ``extra``);
+        logs the default schedule, the step quantiles and the modelled
+        lane-steps per problem of the default and of one lane per
+        thread beside the measured times.  Returns the turns' means."""
+        blocks, threads = shape
+        one = {} if cap is None else dict(cap=MAXIT)
+        best = seeded_sweep(label, fn, iters, threads, cap)
+        turns = in_turns(label, dict(
+            default=fn, one=lambda: fn(threads=best, **one),
+            wide=lambda: fn(threads=256, **one), **(extra or {})))
+        c = MAXIT if cap is None else cap
+        m_one = issued_per_problem(iters, MAXIT, best)
+        m_dflt = issued_per_problem(iters, c, threads)
+        log(f"{label}: default "
+            f"{'one lane per thread' if cap is None else f'cap {cap}'}, "
+            f"{blocks} blocks of {threads} threads; steps per problem "
+            f"{quantiles_text(torch.cat([i.reshape(-1) for i in iters]))}; "
+            f"lane-steps issued per problem: default {m_dflt:.3f}, one lane "
+            f"per thread in {best}-thread blocks {m_one:.3f} (model ratio "
+            f"{m_dflt / m_one:.3f}); measured in turns: default "
+            f"{turns['default']:.4f} ms, one lane per thread in the "
+            f"sweep's fastest blocks ({best} threads) {turns['one']:.4f} ms "
+            f"(ratio {turns['default'] / turns['one']:.3f}), one lane per "
+            f"thread in 256-thread blocks {turns['wide']:.4f} ms")
+        return turns
+
     # the cached-constants (dual) instance
     for label, st in cases:
         args = k1_inputs(st, grid, forcing, env)
+        fields = (*args[:6], *args[6])
+        want = cc.co3_terms_dual_coeffs_torch(*args, seed=True)
+        want = (*want[0], *want[1])
         got = cc.co3_terms_dual_coeffs(*args, seed=True, impl="kernel")
         torch.cuda.synchronize()
-        want = cc.co3_terms_dual_coeffs_torch(*args, seed=True)
-        err = compare(f"K1 seeded {name} {label}", (*got[0], *got[1]),
-                      (*want[0], *want[1]))
+        err = compare(f"K1 seeded {name} {label}", (*got[0], *got[1]), want)
+        for cap in caps:
+            compare(f"K1 seeded {name} {label} cap {cap}",
+                    cc._launch(fields, dtype, True, cap=cap), want)
     args = k1_inputs(warm_state, grid, forcing, env)
     fields = (*args[:6], *args[6])
-    ms = cuda_ms(lambda: cc._launch(fields, dtype, True), reps=20,
-                 device_only=True)
+    stats = cc.co3_terms_dual_coeffs_torch(*args, with_stats=True,
+                                           seed=True)[2]
+    turns = timed(f"K1 seeded {name} warm",
+                  lambda **kw: cc._launch(fields, dtype, True, **kw),
+                  [st["iters"] for st in stats],
+                  cc.seeded_schedule(fields[0]), cap0 if parks else None)
     plain_ms = cuda_ms(lambda: cc.co3_terms_dual_coeffs_torch(
         *args, seed=True), reps=1, warmup=1, rounds=3)
     warm = (args[4] != 0.0, args[5] != 0.0)
     its = [iteration_stats(cc.co3_terms_dual_coeffs_torch(
         *args, with_stats=True, seed=sd)[2], warm) for sd in (True, False)]
-    report("dual", "K1 seeded", ms, plain_ms, k1_bound(args, dtype, True),
-           *its, err)
+    report("dual", "K1 seeded", turns["default"], plain_ms,
+           k1_bound(args, dtype, True), *its, err)
 
-    # the coefficient-and-saturation route
+    # the coefficient-and-saturation route: the constants kernel, then
+    # the seeded dual instance on its constants
+    def route(sargs, **kw):
+        coeffs, sat = cc.carbonate_coeffs_sat(*sargs[:3], impl="kernel")
+        return (*cc._launch((*sargs[3:], *coeffs), dtype, True, **kw), *sat)
+
     for label, st in cases:
         b = st.bgc
         sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
                                  b.ph_prev_alt_3d)
+        want = cc.co3_terms_dual_sat_torch(*sargs, seed=True)
+        want = [x for part in want for x in part]
         got = cc.co3_terms_dual_sat(*sargs, seed=True, impl="kernel")
         torch.cuda.synchronize()
-        want = cc.co3_terms_dual_sat_torch(*sargs, seed=True)
         err = compare(f"K1 coefficient-and-saturation seeded {name} {label}",
-                      [x for part in got for x in part],
-                      [x for part in want for x in part])
+                      [x for part in got for x in part], want)
+        for cap in caps:
+            compare(f"K1 coefficient-and-saturation seeded {name} {label} "
+                    f"cap {cap}", route(sargs, cap=cap), want)
     b = warm_state.bgc
     sargs = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
                              b.ph_prev_alt_3d)
-    ms = cuda_ms(lambda: cc.co3_terms_dual_sat(*sargs, seed=True,
-                                               impl="kernel"), reps=20,
-                 device_only=True)
+    stats = cc.co3_terms_dual_sat_torch(*sargs, seed=True,
+                                        with_stats=True)[3]
+    turns = timed(f"K1 coefficient-and-saturation route seeded {name} warm",
+                  lambda **kw: route(sargs, **kw),
+                  [st["iters"] for st in stats],
+                  cc.seeded_schedule(sargs[3]), cap0 if parks else None)
     plain_ms = cuda_ms(lambda: cc.co3_terms_dual_sat_torch(
         *sargs, seed=True), reps=1, warmup=1, rounds=3)
     warm = (sargs[7] != 0.0, sargs[8] != 0.0)
     its = [iteration_stats(cc.co3_terms_dual_sat_torch(
         *sargs, seed=sd, with_stats=True)[3], warm) for sd in (True, False)]
-    report("sat", "K1 coefficient-and-saturation route seeded", ms,
-           plain_ms, sat_bound(sargs, dtype, True, seed=True), *its, err)
+    report("sat", "K1 coefficient-and-saturation route seeded",
+           turns["default"], plain_ms, sat_bound(sargs, dtype, True,
+                                                seed=True), *its, err)
 
     # the bracket-in instance, on the surface pair
+    def bracket_fields(largs):
+        return dict(dic=largs[1], x1=largs[5], x2=largs[6], x0=largs[7],
+                    ta=largs[2], pt=largs[3], sit=largs[4],
+                    **largs[0]._asdict())
+
     for label, st in cases:
         largs = surface_lanes(st, forcing, seed=True)
+        want = _solve_htotal_impl(*largs[:7], x0=largs[7])
         got = cc.solve_htotal_brackets(*largs[:7], seed=largs[7],
                                        impl="kernel")
         torch.cuda.synchronize()
-        want = _solve_htotal_impl(*largs[:7], x0=largs[7])
         err = compare(f"bracket-in K1 seeded {name} surface pair {label}",
                       (got,), (want,))
+        compare(f"bracket-in K1 seeded {name} surface pair {label}, "
+                f"256-thread blocks", (cc._launch_brackets(
+                    bracket_fields(largs), threads=256),), (want,))
     largs = surface_lanes(warm_state, forcing, seed=True)
-    fields = dict(dic=largs[1], x1=largs[5], x2=largs[6], x0=largs[7],
-                  ta=largs[2], pt=largs[3], sit=largs[4],
-                  **largs[0]._asdict())
-    ms = cuda_ms(lambda: cc._launch_brackets(fields), reps=20,
-                 device_only=True)
+    fields = bracket_fields(largs)
+    n = largs[1].numel()
+    shape = cc.seeded_schedule(largs[1])
+    lib = _kernels.load("carbonate_dual")
+    lib.obgc_empty_launch.argtypes = [ctypes.c_uint, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.obgc_empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    iters = [_solve_htotal_impl(*largs[:7], x0=largs[7],
+                                with_stats=True)[1]["iters"]]
+    turns = timed(f"bracket-in K1 seeded {name} surface pair warm",
+                  lambda **kw: cc._launch_brackets(fields, **kw), iters,
+                  shape, None,
+                  dict(floor=lambda: lib.obgc_empty_launch(*shape, stream)))
+    log(f"bracket-in K1 seeded {name} surface pair: {shape[0]} blocks of "
+        f"{shape[1]} threads ({n} lanes); launch floor (an empty kernel of "
+        f"that shape, timed alike) {turns['floor']:.4f} ms")
     plain_ms = cuda_ms(lambda: _solve_htotal_impl(*largs[:7], x0=largs[7]),
                        reps=1, warmup=1, rounds=3)
     warm = largs[7] > 0.0
     its = [iteration_stats((_solve_htotal_impl(
         *largs[:7], x0=largs[7] if sd else None, with_stats=True)[1],),
         (warm,)) for sd in (True, False)]
-    report("brackets", "bracket-in K1 seeded (surface pair)", ms, plain_ms,
-           bracket_bound(largs, dtype), *its, err)
+    report("brackets", "bracket-in K1 seeded (surface pair)",
+           turns["default"], plain_ms, bracket_bound(largs, dtype), *its,
+           err)
     return res
 
 

@@ -27,8 +27,10 @@
 //
 // Design.  Each lane freezes on its own convergence in the reference too
 // (ocean_bgc_tpu/ops/carbonate.py:416-425), so a lane may be solved by
-// any thread.  Both instances run carbonate_solve.cuh's lanes, one per
-// thread.  The TPU kernel's 128-lane tiles, padding and stacked/
+// any thread, and a problem may be finished by another thread than the
+// one that started it.  Both instances run carbonate_solve.cuh's lanes,
+// one per thread (the seeded variants handing their slow problems on,
+// below).  The TPU kernel's 128-lane tiles, padding and stacked/
 // sequential dual choice have no counterpart here.  Templated on
 // float/double with the solver tolerance chosen per type as the plain
 // version chooses it (1e-10 at f64, 1e-13 at f32).  The alkalinity
@@ -42,17 +44,19 @@
 // Bound.  The dual instance must read 21 fields per cell (DIC, ALK, PO4,
 // SiO3, the two previous pH fields, 15 constants) and write 8:
 // 29 * sizeof(T) bytes per cell, ~114 MB at f64 and ~57 MB at f32 for the
-// 60 x 8192 flagship world, ~0.034 / 0.017 ms at 3.35 TB/s.  Warm cells
-// converge in 2-3 steps at f64; at f32 a third of them take 14-24 (a
-// bisection tail near the f32 rounding of the residual), so with one lane
-// per thread most of a warp waits for its slowest lane, and the f32
-// launch runs at 8.6x its bound.  Refilling finished threads with
-// unstarted lanes from a device counter measured no faster on the H100
-// at either type, per problem or per residual evaluation (PERF.md, PR 3).
-// The bracket-in instance at the surface reads 3 fields per lane and 18
-// per column and writes one per lane (~1.7 MB at f64 for 8192 columns):
-// it is bound by its launch and its slowest lanes, not by the card's
-// rates.
+// 60 x 8192 flagship world, ~0.034 / 0.017 ms at 3.35 TB/s.  The
+// bracket-in instance at the surface reads 3 fields per lane and 18 per
+// column and writes one per lane (~1.7 MB at f64 for 8192 columns): it is
+// bound by its launch and its slowest lanes, not by the card's rates.
+//
+// The unseeded tail.  Warm cells converge in 2-3 steps at f64; at f32 a
+// third of them take 14-24 (a bisection tail near the f32 rounding of
+// the residual), so with one lane per thread most of a warp waits for its
+// slowest lane, and the f32 launch runs at 8.6x its bound.  There the
+// slow lanes are the bulk: refilling finished threads with unstarted
+// lanes from a device counter, per problem or per residual evaluation,
+// measured no faster on the H100 at either type (PERF.md), so the
+// unseeded variants keep one lane per thread, start to end.
 //
 // Seeded variants.  The TPU kernel's static x0_seed variant (launched
 // under OBGC_X0_SEED=1) starts each problem's iteration at the previous
@@ -68,10 +72,33 @@
 // ops/carbonate.py::warm_brackets_h(with_seed=True)).  The seed costs one
 // exp per problem and one per-lane field read, and saves residual
 // evaluations, so the bounds above still hold for it.
+//
+// The seeded tail is sparse: at f32 the seeded warm problem takes 1.85
+// steps on average but p99 18, and the env-off inputs' inactive cells
+// solve cold from the [6, 9] window, scattered through the warps; one
+// such problem holds its warp.  So the seeded f32 dual instance, below a
+// cap of MAXIT, runs the parked-tail schedule
+// (carbonate_solve.cuh::solve_lanes_parked): a problem still iterating
+// after ``cap`` steps is parked in shared memory, and the block's first
+// warps finish the parked problems densely.  At a cap of MAXIT or more it
+// runs the one-lane kernel.  Every problem runs the same steps in the
+// same order, so the outputs are bitwise the same at every cap.  On the
+// H100 parking pays on env-off inputs, whose cold inactive lanes are the
+// tail; on warm env-cache inputs its gain is within noise (PERF.md).  It
+// does not pay at f64, where the seeded warm problem takes one step and
+// the fixed work per problem (the residual at both bracket ends and at
+// the first iterate) dominates, nor on the surface pair, whose time is
+// its slowest lane's chain of steps; so only the f32 dual has a parked
+// kernel, held to the one-lane kernel's occupancy (64 registers) by its
+// launch bounds.  The seeded launches take their block size from the
+// caller (ops/cuda_carbonate.py::seeded_launch_shape), so that the
+// surface pair's 16,384 lanes spread over every SM (512 blocks of 32
+// threads instead of 64 of 256).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "carbonate_solve.cuh"
 
@@ -195,72 +222,138 @@ __global__ void __launch_bounds__(kThreads)
   solve_lanes<T, Src::kSeed>(src, n);
 }
 
+// Four blocks of kThreads to an SM: at most 64 registers, those of the
+// one-lane f32 kernel's occupancy.
 template <typename T, typename Src>
-int launch(const Src& src, int64_t n, cudaStream_t stream) {
-  const unsigned blocks = lane_blocks(kThreads, n);
-  lanes_kernel<T, Src><<<blocks, kThreads, 0, stream>>>(src, n);
+__global__ void __launch_bounds__(kThreads, 4)
+    parked_lanes_kernel(Src src, int64_t n, int cap) {
+  solve_lanes_parked<T>(src, n, cap);
+}
+
+// The schedule of a seeded launch (unread by an unseeded one, which
+// takes blocks of kThreads): the parked-tail cap, below MAXIT on the
+// seeded f32 dual's parked kernel, else one lane per thread start to end;
+// and the launch shape.
+struct Schedule {
+  int cap;
+  unsigned blocks;
+  int threads;
+};
+
+template <typename T, typename Src>
+int launch(const Src& src, int64_t n, const Schedule& sch,
+           cudaStream_t stream) {
+  if constexpr (!Src::kSeed) {
+    const unsigned blocks = lane_blocks(kThreads, n);
+    lanes_kernel<T, Src><<<blocks, kThreads, 0, stream>>>(src, n);
+  } else if constexpr (std::is_same_v<Src, DualLanes<float, true>>) {
+    if (sch.cap < cst::MAXIT) {
+      parked_lanes_kernel<T, Src>
+          <<<sch.blocks, sch.threads, park_bytes<T>(sch.threads), stream>>>(
+              src, n, sch.cap);
+    } else {
+      lanes_kernel<T, Src><<<sch.blocks, sch.threads, 0, stream>>>(src, n);
+    }
+  } else {
+    lanes_kernel<T, Src><<<sch.blocks, sch.threads, 0, stream>>>(src, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool Seed>
 int launch_dual(const void* const* ins, void* const* outs, int64_t n,
-                cudaStream_t stream) {
+                const Schedule& sch, cudaStream_t stream) {
   DualLanes<T, Seed> src;
   for (int j = 0; j < kNumIn; ++j) src.in[j] = static_cast<const T*>(ins[j]);
   for (int j = 0; j < kNumOut; ++j) src.out[j] = static_cast<T*>(outs[j]);
-  return launch<T>(src, n, stream);
+  return launch<T>(src, n, sch, stream);
 }
 
 template <typename T, bool Seed>
 int launch_brackets(void* const* fields, int64_t n, int64_t m,
-                    cudaStream_t stream) {
+                    const Schedule& sch, cudaStream_t stream) {
   BracketLanes<T, Seed> src;
   for (int j = 0; j < B_h; ++j) src.in[j] = static_cast<const T*>(fields[j]);
   src.h = static_cast<T*>(fields[B_h]);
   src.m = m;
-  return launch<T>(src, n, stream);
+  return launch<T>(src, n, sch, stream);
 }
+
+// Whether a seeded launch of ``n`` lanes takes its schedule: at least
+// one block of whole warps up to kThreads, and a cap of MAXIT or more or,
+// where the instance has a parked kernel (``parks``), a cap of at least 0
+// on a grid of a thread per lane (the parked kernel does not stride).
+bool valid(const Schedule& sch, bool parks, int64_t n) {
+  const bool shape = sch.blocks >= 1 && sch.threads >= 32 &&
+                     sch.threads <= kThreads && sch.threads % 32 == 0;
+  const bool parked = parks && sch.cap >= 0 &&
+                      static_cast<int64_t>(sch.blocks) * sch.threads >= n;
+  return shape && (sch.cap >= cst::MAXIT || parked);
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 }  // namespace obgc
 
 // Plain C interface for ctypes.  All floating arrays are contiguous and of
 // one type (double if ``is_double``, else float).  ``seed`` picks the
-// seeded variant.  Each launches on ``stream`` and returns
-// cudaGetLastError() (0 on success).
+// seeded variant, which runs on ``blocks`` blocks of ``threads`` (a
+// multiple of 32, at most 256); the unseeded variant does not read them.
+// Each launches on ``stream`` and returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a seeded schedule it does not
+// take.
 
 // The dual instance: ``ins`` holds 21 device pointers and ``outs`` 8,
-// each of ``n`` elements.
-extern "C" int obgc_carbonate_dual(int is_double, int seed,
+// each of ``n`` elements.  Its seeded f32 variant runs the parked-tail
+// schedule with ``cap`` (steps before a problem is parked; >= MAXIT
+// parks nothing; below MAXIT the grid must have a thread per lane); the
+// seeded f64 variant takes only a cap >= MAXIT.
+extern "C" int obgc_carbonate_dual(int is_double, int seed, int cap,
+                                   unsigned blocks, int threads,
                                    const void* const* ins, void* const* outs,
                                    long long n, void* stream) {
+  const obgc::Schedule sch{cap, blocks, threads};
+  if (seed && !obgc::valid(sch, !is_double, n)) return cudaErrorInvalidValue;
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return seed ? obgc::launch_dual<double, true>(ins, outs, n, s)
-                : obgc::launch_dual<double, false>(ins, outs, n, s);
+    return seed ? obgc::launch_dual<double, true>(ins, outs, n, sch, s)
+                : obgc::launch_dual<double, false>(ins, outs, n, sch, s);
   }
-  return seed ? obgc::launch_dual<float, true>(ins, outs, n, s)
-              : obgc::launch_dual<float, false>(ins, outs, n, s);
+  return seed ? obgc::launch_dual<float, true>(ins, outs, n, sch, s)
+              : obgc::launch_dual<float, false>(ins, outs, n, sch, s);
 }
 
 // The bracket-in instance: ``fields`` holds the obgc::BracketField
 // pointers (x0 may be null unless ``seed``); per-lane fields have ``n``
 // elements, shared ones ``m``, and ``m`` divides ``n``.
 extern "C" int obgc_solve_htotal_brackets(int is_double, int seed,
+                                          unsigned blocks, int threads,
                                           void* const* fields, long long n,
                                           long long m, void* stream) {
+  const obgc::Schedule sch{obgc::cst::MAXIT, blocks, threads};
+  if (seed && !obgc::valid(sch, false, n)) return cudaErrorInvalidValue;
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return seed ? obgc::launch_brackets<double, true>(fields, n, m, s)
-                : obgc::launch_brackets<double, false>(fields, n, m, s);
+    return seed ? obgc::launch_brackets<double, true>(fields, n, m, sch, s)
+                : obgc::launch_brackets<double, false>(fields, n, m, sch, s);
   }
-  return seed ? obgc::launch_brackets<float, true>(fields, n, m, s)
-              : obgc::launch_brackets<float, false>(fields, n, m, s);
+  return seed ? obgc::launch_brackets<float, true>(fields, n, m, sch, s)
+              : obgc::launch_brackets<float, false>(fields, n, m, sch, s);
 }
 
 extern "C" int obgc_brackets_num_fields() { return obgc::B_COUNT; }
+
+// An empty kernel on ``blocks`` blocks of ``threads``: the launch floor
+// that chip_smoke.py times beside the seeded launches.
+extern "C" int obgc_empty_launch(unsigned blocks, int threads,
+                                 void* stream) {
+  obgc::empty_kernel<<<blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" const char* obgc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -179,14 +179,29 @@ __device__ __forceinline__ bool not_bracketed(T flo, T fhi) {
   return (flo > T(0) && fhi > T(0)) || (flo < T(0) && fhi < T(0));
 }
 
-// One problem of ops/carbonate.py::_solve_htotal_impl, start to end in
-// one thread.  ``Seed``: the opt-in iteration seed (x0_seed_enabled) —
-// a problem with x0 > 0 starts at x0 clamped into its oriented bracket
-// instead of the midpoint; without it x0 is not read and the routine is
-// the unseeded one.
-template <typename T, bool Seed = false>
-__device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc,
-                          T x0 = T(0)) {
+// One problem of ops/carbonate.py::_solve_htotal_impl, cut at its steps
+// so that another thread may take the problem on between two of them
+// (solve_lanes_parked): its state between two Newton-or-bisection steps
+// (Newton), its start (newton_start: bracket growth, orientation, the
+// first iterate and its residual) and its steps (newton_steps).  A
+// problem's iterates are the same bits whichever thread takes which step.
+// ``Seed``: the opt-in iteration seed (x0_seed_enabled) — a problem with
+// x0 > 0 starts at x0 clamped into its oriented bracket instead of the
+// midpoint; without it x0 is not read and the routine is the unseeded
+// one.
+
+// The iterate, the oriented bracket (f(xlo) < 0), the last two steps,
+// the residual and slope at the iterate, and the steps taken.
+template <typename T>
+struct Newton {
+  T soln, xlo, xhi, dx, dxold, f, df;
+  int it;
+};
+
+// A problem up to its first step.
+template <typename T, bool Seed>
+__device__ __forceinline__ Newton<T> newton_start(const TalkTerms<T>& t, T x1,
+                                                  T x2, T x0) {
   T flo, fhi, unused;
   talk(t, x1, flo, unused);
   talk(t, x2, fhi, unused);
@@ -215,7 +230,24 @@ __device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc,
   T dx = dxold;
   T f, df;
   talk(t, soln, f, df);
-  for (int it = 0; it < cst::MAXIT; ++it) {
+  return Newton<T>{soln, xlo, xhi, dx, dxold, f, df, 0};
+}
+
+// The steps of problem ``s`` until its step is below ``xacc`` or stalls,
+// or it has taken ``stop`` steps in all (at most MAXIT); true once the
+// problem is done: converged, stalled or at MAXIT.  The state is iterated
+// in locals and stored back once: so written, solve_htotal's kernels
+// compile to the same SASS as one undivided loop, where iterating the
+// fields of ``s`` in place moved registers and slowed the f32 surface
+// pair by 4% (PERF.md).
+template <typename T>
+__device__ __forceinline__ bool newton_steps(const TalkTerms<T>& t,
+                                             Newton<T>& s, T xacc, int stop) {
+  T soln = s.soln, xlo = s.xlo, xhi = s.xhi, dx = s.dx, dxold = s.dxold;
+  T f = s.f, df = s.df;
+  int it = s.it;
+  bool done = false;
+  for (; it < stop; ++it) {
     // bisect when Newton would leave the bracket or converges too slowly
     const bool leave_bracket =
         ((soln - xhi) * df - f) * ((soln - xlo) * df - f) >= T(0);
@@ -228,7 +260,11 @@ __device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc,
     const bool stalled = bisect ? (xlo == soln_n) : (soln == soln_n);
     dx = bisect ? dx_bis : dx_newt;
     soln = soln_n;
-    if (stalled || m_abs(dx) < xacc) break;
+    if (stalled || m_abs(dx) < xacc) {
+      ++it;
+      done = true;
+      break;
+    }
     talk(t, soln, f, df);
     if (f < T(0)) {
       xlo = soln;
@@ -236,7 +272,17 @@ __device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc,
       xhi = soln;
     }
   }
-  return soln;
+  s = Newton<T>{soln, xlo, xhi, dx, dxold, f, df, it};
+  return done || it >= cst::MAXIT;
+}
+
+// One problem start to end in one thread.
+template <typename T, bool Seed = false>
+__device__ T solve_htotal(const TalkTerms<T>& t, T x1, T x2, T xacc,
+                          T x0 = T(0)) {
+  Newton<T> s = newton_start<T, Seed>(t, x1, x2, x0);
+  newton_steps(t, s, xacc, cst::MAXIT);
+  return s.soln;
 }
 
 // The 15 constants in CarbCoeffs order, constant j read as at(j).
@@ -276,16 +322,38 @@ __device__ __forceinline__ T ph_seed(T ph_prev) {
 // ---- lanes over the threads of a grid, one per thread
 //
 // A lane is one cell's problems (or one problem); each thread solves its
-// lane's problems start to end with solve_htotal, so a warp waits for its
-// slowest lane.  (Refill, where a thread whose lane is done takes the
-// next unstarted lane from a device counter, measured no faster on the
-// H100 at either type: PERF.md, PR 3.)
+// lane's problems, so a warp runs as long as its slowest lane.  Two
+// schedules:
+//
+// - One lane per thread (solve_lanes), every unseeded source and a
+//   seeded one at a cap of MAXIT or more: each thread solves its lane's
+//   problems start to end.  Unseeded, the slow problems are the bulk,
+//   not a tail: at f32 a third of warm problems take 14-24 steps (a
+//   bisection tail near the f32 rounding of the residual), so nearly
+//   every warp holds several and there is little idle time to reclaim.
+//   Refill (a thread whose lane is done takes the next unstarted lane
+//   from a device counter) and a per-step lane state machine measured no
+//   faster on the H100 at either type (PERF.md).
+// - The parked tail (solve_lanes_parked), the seeded f32 dual instance
+//   at a cap below MAXIT: a seeded warm problem mostly converges in one
+//   step, and the slow ones are sparse (f32: mean 1.85 steps per
+//   problem, p99 18; cold lanes and lanes whose bracket grows), yet one
+//   of them holds a whole warp.  Each problem runs up to ``cap`` steps in
+//   its own thread; one still iterating is parked in shared memory, and
+//   after the block's barrier the block's first warps resume the parked
+//   problems densely, one per thread, to the same stopping rule.  A
+//   problem is handed over once, and only if it reaches the cap.  The
+//   other seeded instances measured no faster parked (PERF.md) and keep
+//   one lane per thread.
 //
 // A lane source ``Src`` gives ``begin(i, s)``, which reads lane i's
 // inputs, sets up its first problem in s and returns true, or writes a
 // result that needs no solve and returns false; and ``finish(i, s)``,
 // which writes the root s.soln of problem s.part and returns true, or
-// sets up the lane's next problem in s and returns false.
+// sets up the lane's next problem in s and returns false.  A seeded
+// source sets each problem's seed s.x0, and its begin(i, s) may be
+// called again for a lane it set up (the parked schedule recomputes a
+// parked lane's terms from its inputs instead of storing them).
 
 template <typename T>
 struct Lane {
@@ -316,6 +384,113 @@ __device__ __forceinline__ void solve_lanes(const Src& src, int64_t n) {
         s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);
       }
     } while (!src.finish(lane, s));
+  }
+}
+
+// ---- the parked-tail schedule
+
+// Dynamic shared memory of a parked-schedule block of ``threads``: per
+// slot the Newton state's seven values, then per slot the parked lane's
+// offset in the block with its part (offset * 2 + part), then per slot
+// its steps taken.
+template <typename T>
+constexpr size_t park_bytes(int threads) {
+  return static_cast<size_t>(threads) * (7 * sizeof(T) + 2 * sizeof(int));
+}
+
+// Slot k's j-th Newton value, its lane, its steps, in ``smem`` laid out
+// as park_bytes says for blocks of ``slots`` threads.
+template <typename T>
+__device__ __forceinline__ T& park_value(unsigned char* smem, int slots,
+                                         int j, int k) {
+  return reinterpret_cast<T*>(smem)[j * slots + k];
+}
+template <typename T>
+__device__ __forceinline__ int& park_who(unsigned char* smem, int slots,
+                                         int k) {
+  return reinterpret_cast<int*>(smem + 7 * sizeof(T) * slots)[k];
+}
+template <typename T>
+__device__ __forceinline__ int& park_steps(unsigned char* smem, int slots,
+                                           int k) {
+  return reinterpret_cast<int*>(smem + 7 * sizeof(T) * slots)[slots + k];
+}
+
+// Solve lanes [0, n) of a seeded source, one per thread of a grid of at
+// least n threads, on the parked-tail schedule: a problem still iterating
+// after ``cap`` (< MAXIT) steps is parked, and resumed after the block's
+// barrier by the block's first threads, which then solve the rest of its
+// lane without a cap.  blockDim.x is a multiple of 32, and the block has
+// park_bytes<T>(blockDim.x) of dynamic shared memory.  (One round, not a
+// grid-stride loop: the loop's live values made the f32 kernel spill at
+// its 64 registers.)
+template <typename T, typename Src>
+__device__ __forceinline__ void solve_lanes_parked(const Src& src, int64_t n,
+                                                   int cap) {
+  extern __shared__ __align__(16) unsigned char park_smem[];
+  __shared__ int parked;
+  const T xacc = solver_xacc<T>();
+  const int threads = blockDim.x;
+  const int me = threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * threads;
+  if (me == 0) parked = 0;
+  __syncthreads();
+  // phase 1: this thread's lane, each problem up to ``cap`` steps
+  const int64_t lane = base + me;
+  Lane<T> s;
+  Newton<T> st;
+  bool park = false;
+  if (lane < n && src.begin(lane, s)) {
+    for (;;) {
+      st = newton_start<T, true>(s.t, s.x1, s.x2, s.x0);
+      park = !newton_steps(s.t, st, xacc, cap);
+      if (park) break;
+      s.soln = st.soln;
+      if (src.finish(lane, s)) break;
+    }
+  }
+  // a slot per parked problem: one add to the block's count per warp
+  const unsigned ballot = __ballot_sync(0xffffffffu, park);
+  int first = 0;
+  if ((me & 31) == 0 && ballot != 0u) {
+    first = atomicAdd(&parked, __popc(ballot));
+  }
+  first = __shfl_sync(0xffffffffu, first, 0);
+  if (park) {
+    const int k = first + __popc(ballot & ((1u << (me & 31)) - 1u));
+    park_value<T>(park_smem, threads, 0, k) = st.soln;
+    park_value<T>(park_smem, threads, 1, k) = st.xlo;
+    park_value<T>(park_smem, threads, 2, k) = st.xhi;
+    park_value<T>(park_smem, threads, 3, k) = st.dx;
+    park_value<T>(park_smem, threads, 4, k) = st.dxold;
+    park_value<T>(park_smem, threads, 5, k) = st.f;
+    park_value<T>(park_smem, threads, 6, k) = st.df;
+    park_who<T>(park_smem, threads, k) = me * 2 + s.part;
+    park_steps<T>(park_smem, threads, k) = st.it;
+  }
+  __syncthreads();
+  // phase 2: the parked problems, one per thread of the first warps,
+  // each with the rest of its lane
+  if (me < parked) {
+    const int who = park_who<T>(park_smem, threads, me);
+    const int64_t plane = base + (who >> 1);
+    src.begin(plane, s);   // the lane's terms again, from its inputs
+    s.part = who & 1;
+    st.soln = park_value<T>(park_smem, threads, 0, me);
+    st.xlo = park_value<T>(park_smem, threads, 1, me);
+    st.xhi = park_value<T>(park_smem, threads, 2, me);
+    st.dx = park_value<T>(park_smem, threads, 3, me);
+    st.dxold = park_value<T>(park_smem, threads, 4, me);
+    st.f = park_value<T>(park_smem, threads, 5, me);
+    st.df = park_value<T>(park_smem, threads, 6, me);
+    st.it = park_steps<T>(park_smem, threads, me);
+    newton_steps(s.t, st, xacc, cst::MAXIT);
+    s.soln = st.soln;
+    while (!src.finish(plane, s)) {
+      st = newton_start<T, true>(s.t, s.x1, s.x2, s.x0);
+      newton_steps(s.t, st, xacc, cst::MAXIT);
+      s.soln = st.soln;
+    }
   }
 }
 

@@ -47,18 +47,27 @@ its ``seed`` argument: every problem's iteration starts at the previous
 root, clamped into its bracket, instead of the bracket midpoint.  The
 dual instance recovers the seed from the pH window
 (:func:`_ph_brackets`), the bracket-in instance takes it per lane.  A
-wrapper counts its seeded launches apart, in ``.seeded_launches``.
+wrapper counts its seeded launches apart, in ``.seeded_launches``.  The
+seeded f32 dual instance runs the parked-tail schedule
+(``csrc/carbonate_solve.cuh::solve_lanes_parked``: a problem still
+iterating after :data:`PARK_CAP` steps is handed to the block's first
+warps, which finish the block's slow problems densely); the other seeded
+instances run one lane per thread.  Every seeded launch takes its blocks
+from :func:`seeded_launch_shape`.  Neither changes a bit of the
+outputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ocean_bgc_tpu_torch.constants import (
     DEL_PH,
     MASS_TO_VOL,
+    MAXIT,
     PHHI_3D_INIT,
     PHLO_3D_INIT,
 )
@@ -84,6 +93,28 @@ BRACKET_FIELDS = ("dic", "x1", "x2", "x0", "ta", "pt", "sit",
 # csrc/carbonate_coeffs.cu (tests/test_torch_carbonate.py holds the two
 # equal).
 COEFF_OUTPUTS = (*CarbCoeffs._fields, "sat_calc", "sat_arag")
+# The seeded kernels' schedule.  PARK_CAP: the Newton-or-bisection steps
+# a problem of the seeded f32 dual instance takes in its own thread
+# before it is parked (MAXIT or more: one lane per thread, start to end);
+# the other seeded instances have no parked kernel.  SEEDED_MAX_WARPS:
+# per type, the warps of a block at most; SEEDED_BLOCKS_PER_SM: blocks
+# are small enough that a grid of many lanes gives each SM at least this
+# many (seeded_launch_shape).  Chosen from chip_smoke.py's sweep
+# (PERF.md).
+PARK_CAP = 2
+SEEDED_MAX_WARPS = {torch.float64: 1, torch.float32: 8}
+SEEDED_BLOCKS_PER_SM = 2
+# The ctypes signatures of csrc/carbonate_dual.cu's two solve entry
+# points (tests/test_torch_lane_schedule.py holds them to the source):
+# is_double, seed, the dual's cap, blocks, threads, then the pointers and
+# sizes.
+DUAL_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                 ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                 ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
+                 ctypes.c_void_p)
+BRACKETS_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                     ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)
 
 
 def _speciate(h, dic, coeffs):
@@ -166,22 +197,73 @@ def _check_kernel_inputs(kernel, ref, fields):
                 f"contiguous={t.is_contiguous()}")
 
 
-def _launch(fields, out_dtype, seed=False):
+def seeded_launch_shape(n, sms, max_warps):
+    """``(blocks, threads)`` of a seeded launch of ``n`` lanes on a card
+    of ``sms`` SMs, one thread per lane: blocks of whole warps, at most
+    ``max_warps`` of them, and as few as give :data:`SEEDED_BLOCKS_PER_SM`
+    blocks per SM where ``n`` allows (one warp a block below that).  From
+    ``32 * sms`` lanes on, every SM gets a block."""
+    warps = max(1, min(max_warps, n // (32 * sms * SEEDED_BLOCKS_PER_SM)))
+    return _blocks(n, 32 * warps), 32 * warps
+
+
+def _blocks(n, threads):
+    """Blocks of ``threads`` for ``n`` lanes, one thread per lane (the
+    kernel strides past a grid of 2**31 - 1 blocks)."""
+    return min(max(1, -(-n // threads)), 2**31 - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dual_cap(dtype, cap=None):
+    """The seeded dual instance's parked-tail cap at ``dtype``:
+    :data:`PARK_CAP` at f32 and MAXIT (one lane per thread) at f64, or
+    ``cap`` where given; a cap below MAXIT is refused at f64, which has
+    no parked kernel."""
+    if cap is None:
+        return PARK_CAP if dtype == torch.float32 else MAXIT
+    if cap < 0:
+        raise ValueError(f"the parked-tail cap must be at least 0, got "
+                         f"{cap}")
+    if cap < MAXIT and dtype != torch.float32:
+        raise ValueError(f"the parked-tail schedule is built at f32 only; "
+                         f"a {dtype} cap must be at least MAXIT, got {cap}")
+    return cap
+
+
+def seeded_schedule(ref, threads=None):
+    """``(blocks, threads)`` of a seeded launch on ``ref``'s lanes:
+    :func:`seeded_launch_shape` on ``ref``'s card, or blocks of
+    ``threads`` where given."""
+    n = ref.numel()
+    if threads is None:
+        return seeded_launch_shape(n, _sm_count(ref.device.index),
+                                   SEEDED_MAX_WARPS[ref.dtype])
+    return _blocks(n, threads), threads
+
+
+def _launch(fields, out_dtype, seed=False, cap=None, threads=None):
+    """Launch the dual instance on ``fields`` (its 21 inputs); ``cap``
+    and ``threads`` override a seeded launch's schedule (:func:`dual_cap`,
+    :func:`seeded_schedule`)."""
     _kernels.refuse_grad("carbonate_dual", fields)
+    ref = fields[0]
+    # an unseeded launch reads no schedule
+    sched = ((dual_cap(out_dtype, cap), *seeded_schedule(ref, threads))
+             if seed else (MAXIT, 1, 32))
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_carbonate_dual
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
-                   ctypes.c_void_p]
+    fn.argtypes = DUAL_ARGTYPES
     fn.restype = ctypes.c_int
-    ref = fields[0]
     outs = [torch.empty_like(ref) for _ in range(8)]
     ins_p = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
     outs_p = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in outs))
     stream = torch.cuda.current_stream(ref.device).cuda_stream
-    code = fn(int(out_dtype == torch.float64), int(seed), ins_p, outs_p,
-              ref.numel(), stream)
+    code = fn(int(out_dtype == torch.float64), int(seed), *sched, ins_p,
+              outs_p, ref.numel(), stream)
     _kernels.check(lib, code, "carbonate_dual launch")
     return outs
 
@@ -435,29 +517,29 @@ def dual_sat_and_coeffs(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
     return coeffs, a, b, sat
 
 
-def _launch_brackets(fields):
+def _launch_brackets(fields, threads=None):
     """Launch the bracket-in instance on ``fields`` (by
     :data:`BRACKET_FIELDS` name, inputs only; the seeded variant where
-    ``fields`` holds ``x0``); returns H per lane."""
+    ``fields`` holds ``x0``); returns H per lane.  ``threads`` overrides
+    a seeded launch's block size (:func:`seeded_schedule`)."""
     _kernels.refuse_grad("solve_htotal_brackets", fields)
+    dic = fields["dic"]
+    seed = "x0" in fields
+    sched = seeded_schedule(dic, threads) if seed else (1, 32)
     lib = _kernels.load("carbonate_dual")
     fn = lib.obgc_solve_htotal_brackets
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = BRACKETS_ARGTYPES
     fn.restype = ctypes.c_int
     if lib.obgc_brackets_num_fields() != len(BRACKET_FIELDS):
         raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
                            "disagree on the bracket-in argument layout")
-    dic = fields["dic"]
     h = torch.empty_like(dic)
     ptrs = {**fields, "h": h}
-    seed = "x0" in fields
     arr = (ctypes.c_void_p * len(BRACKET_FIELDS))(
         *(ptrs[k].data_ptr() if k in ptrs else None for k in BRACKET_FIELDS))
     stream = torch.cuda.current_stream(dic.device).cuda_stream
-    code = fn(int(dic.dtype == torch.float64), int(seed), arr, dic.numel(),
-              fields["ta"].numel(), stream)
+    code = fn(int(dic.dtype == torch.float64), int(seed), *sched, arr,
+              dic.numel(), fields["ta"].numel(), stream)
     _kernels.check(lib, code, "solve_htotal_brackets launch")
     return h
 

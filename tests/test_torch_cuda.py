@@ -4,7 +4,8 @@ cache, and its bracket-in instance for the surface pair and the
 stand-in, each also seeded) and the production and default steps with
 it, K2 (the whole interior) and the fused step, P (the probe), the
 host-coupling API, the env staleness guard and ``solver_health`` on the
-kernels, and K1's routes under autograd with the adjoint's sweep.  Needs an NVIDIA GPU with the CUDA
+kernels, K1's routes under autograd with the adjoint's sweep, and the
+seeded K1 kernels at every parked-tail cap and block size.  Needs an NVIDIA GPU with the CUDA
 toolkit (nvcc); skips without one.  Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 
@@ -583,6 +584,147 @@ def test_seeded_variants_match_plain_versions(cuda, dtype):
     assert (co3_terms_dual_coeffs.seeded_launches,
             solve_htotal_brackets.seeded_launches) == (seeded[0] + 6,
                                                        seeded[1] + 3)
+
+
+def _parking_inputs(cuda, dtype, nlev, ncol, n=None):
+    """Seeded K1 inputs whose problems park at every stage of the
+    parked-tail schedule, from a ragged world one step warm (its first
+    ``n`` cells of the top level as a (1, n) world where given): by cell
+    index mod 6, cold lanes (the 0 pH sentinel, no seed), warm lanes,
+    off-window lanes (both brackets grow), lanes whose ambient problem is
+    warm and whose ALT_CO2 one is off its window (it parks after the
+    lane's ambient one is done), acidic lanes (alkalinity 300 mmol/m^3,
+    pH ~5.2: at f32 they end on stalls, and some run to MAXIT) and lanes
+    with a NaN alkalinity (their residual is NaN, so they run to MAXIT
+    with finite outputs); from 512 cells on the first 256 are cold, so
+    that a block parks every lane.  Returns the nine inputs of
+    co3_terms_dual_sat and the env cache's constants of the same cells."""
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=nlev, ncol=ncol, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    warm, _ = step(state, grid, forcing, params, 3600.0,
+                   compute_diags=False, env=env)
+    b = warm.bgc
+    sargs = list(carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                  b.ph_prev_alt_3d))
+    coeffs = list(carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
+                                   b.ph_prev_alt_3d, env)[6])
+    if n is not None:
+        sargs = [x[:1, :n] for x in sargs]
+        coeffs = [x[:1, :n] for x in coeffs]
+    sargs = [x.contiguous() for x in sargs]
+    ph = sargs[7]
+    kind = torch.arange(ph.numel(), device=cuda).view(ph.shape) % 6
+    off = _off_window(ph)
+    zero = torch.zeros_like(ph)
+    pa = torch.where(kind == 0, zero, torch.where(kind == 2, off, ph))
+    pb = torch.where(kind == 0, zero, torch.where((kind == 2) | (kind == 3),
+                                                  off, ph))
+    if ph.numel() >= 512:
+        pa.view(-1)[:256] = 0.0
+        pb.view(-1)[:256] = 0.0
+    ta = torch.where(kind == 4, 300.0, sargs[4])
+    ta = torch.where(kind == 5, float("nan"), ta)
+    sargs[4], sargs[7], sargs[8] = ta, pa.contiguous(), pb.contiguous()
+    return sargs, tcarb.CarbCoeffs(*(k.contiguous() for k in coeffs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("size", [(60, 8192), (7, 37), (2, 257, 1),
+                                  (2, 257, 31), (2, 257, 33),
+                                  (2, 257, 257)])
+def test_parked_schedule_matches_plain_versions(cuda, dtype, size):
+    """K1's seeded kernels against their seeded plain versions, bitwise
+    on every output: the dual instance at f32 on the parked-tail schedule
+    at the caps 0 to 3 and the default, and at both types at MAXIT (one
+    lane per thread), on the env cache's constants and on the constants
+    kernel's (the env-off route, co3_terms_dual_sat); the dual instance
+    and the bracket-in instance (on the same cells as lanes) in the
+    default blocks and in 256-thread blocks; inputs from
+    :func:`_parking_inputs`.  Each public call is one seeded launch; the
+    unseeded instances' outputs stay their plain versions'; the C entry
+    point refuses a parked launch short of a thread per lane, and a
+    parked cap at f64."""
+    from ocean_bgc_tpu_torch.constants import MAXIT
+    from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
+    sargs, coeffs = _parking_inputs(cuda, dtype, *size)
+    n = sargs[3].numel()
+    dual_args = (*sargs[3:], coeffs)
+    fields = (*sargs[3:], *coeffs)
+    want = cc.co3_terms_dual_coeffs_torch(*dual_args, seed=True)
+    want = want[0] + want[1]
+    want_sat = cc.co3_terms_dual_sat_torch(*sargs, seed=True)
+    want_sat = want_sat[0] + want_sat[1] + want_sat[2]
+    m = [x.reshape(-1) for x in tcarb._to_mass_units(*sargs[3:7])]
+    x1, x2, x0 = (x.reshape(-1) for x in _ph_brackets(sargs[7], seed=True))
+    flat = tcarb.CarbCoeffs(*(k.reshape(-1) for k in coeffs))
+    want_h, stats = tcarb._solve_htotal_impl(flat, *m, x1, x2, x0=x0,
+                                             with_stats=True)
+    bfields = dict(dic=m[0], x1=x1, x2=x2, x0=x0, ta=m[1], pt=m[2],
+                   sit=m[3], **flat._asdict())
+    if n >= 33:
+        # the inputs reach every stage: ALT_CO2 problems that park after
+        # their lane's ambient one, bracket growth, lanes at MAXIT and (at
+        # 512 cells or more) a block of cold lanes
+        _, _, dstats = cc.co3_terms_dual_coeffs_torch(*dual_args, seed=True,
+                                                      with_stats=True)
+        ia, ib = (st["iters"].reshape(-1) for st in dstats)
+        assert any(((ia <= c) & (ib > c)).any() for c in (1, 2, 3))
+        assert (stats["grows"] > 0).any() and (stats["iters"] == MAXIT).any()
+        if n >= 512:
+            assert (ia[:256] > 1).all() and (ib[:256] > 1).all()
+    caps = ({0, 1, 2, 3, cc.PARK_CAP} if dtype == torch.float32 else set())
+    for cap in sorted({*caps, MAXIT}):
+        got = cc._launch(fields, dtype, True, cap=cap)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), cap
+        k, sat = cc.carbonate_coeffs_sat(*sargs[:3], impl="kernel")
+        got = (*cc._launch((*sargs[3:], *k), dtype, True, cap=cap), *sat)
+        assert all(torch.equal(x, y) for x, y in zip(got, want_sat)), cap
+    for threads in (None, 256):
+        got = cc._launch(fields, dtype, True, threads=threads)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), threads
+        got = cc._launch_brackets(bfields, threads=threads)
+        assert torch.equal(got, want_h), threads
+    assert all(torch.isfinite(x).all() for x in want)
+    counts = _k1_counts()
+    got = cc.co3_terms_dual_coeffs(*dual_args, seed=True, impl="kernel")
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1], want))
+    got = cc.co3_terms_dual_sat(*sargs, seed=True, impl="kernel")
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1] + got[2],
+                                                 want_sat))
+    got = cc.solve_htotal_brackets(flat, *m, x1, x2, seed=x0,
+                                   impl="kernel")
+    assert torch.equal(got, want_h)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(counts, _k1_counts())) == (
+        0, 1, 0, 2, 1)
+    got = cc.co3_terms_dual_coeffs(*dual_args, impl="kernel")
+    plain = cc.co3_terms_dual_coeffs_torch(*dual_args)
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1],
+                                                 plain[0] + plain[1]))
+    got = cc.solve_htotal_brackets(flat, *m, x1, x2, impl="kernel")
+    assert torch.equal(got, tcarb._solve_htotal_impl(flat, *m, x1, x2))
+    if dtype == torch.float32 and n > 256:
+        # the parked kernel does not stride: a grid short of a thread per
+        # lane is refused, as is a parked cap at f64
+        import ctypes
+
+        from ocean_bgc_tpu_torch.ops import _kernels
+        lib = _kernels.load("carbonate_dual")
+        fn = lib.obgc_carbonate_dual
+        fn.argtypes, fn.restype = cc.DUAL_ARGTYPES, ctypes.c_int
+        outs = [torch.empty_like(fields[0]) for _ in range(8)]
+        ins_p = (ctypes.c_void_p * 21)(*(t.data_ptr() for t in fields))
+        outs_p = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in outs))
+        stream = torch.cuda.current_stream().cuda_stream
+        for is_double, cap, blocks in ((0, 0, 1), (1, 0, -(-n // 256))):
+            assert fn(is_double, 1, cap, blocks, 256, ins_p, outs_p, n,
+                      stream) != 0, (is_double, cap, blocks)
+        assert fn(0, 1, 0, -(-n // 256), 256, ins_p, outs_p, n, stream) == 0
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(outs, want))
 
 
 def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
