@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits nonzero; there is no CPU fallback):
 
-0. at the start, three child processes for the long-horizon gates
+0. at the start, four child processes for the long-horizon gates
    (:func:`gate_child`; joined after phase 10, their runs overlapping the
    phases between): the NumPy oracle's 1000 steps of the deep ragged
    world (``tests/test_torch_deep_world.py``), the port's 1000 f64 steps
@@ -15,7 +15,12 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    envelope over 720 steps at 6 x 8 and the no-drift gate, the deep
    world's branches under f32, its 96-step envelope and the flush
    range audit, and (measured, not gated) the envelope of 32 f32 runs
-   kicked in their last bits; each gate's worst mismatch over its bound
+   kicked in their last bits; and the fused interior's gates:
+   ``scripts/qualify_fused.py``'s 96 f32 steps of its 60 x 256 ragged
+   world (seed 5, no env cache) against the default interior within 30
+   times the envelope of a (1 + 1.2e-7) kick + 1% of scale, and the deep
+   world's 1000 f64 steps with the fused interior held to the oracle's
+   as the default run is; each gate's worst mismatch over its bound
    and wall time are printed.  Every time the script prints (not the
    phases' wall times) is taken with these children paused, their queued
    work on the card finished first (:func:`gates_paused`);
@@ -109,8 +114,11 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    the calibration twin experiment at 6 x 8 (PCref within 3%), the f32
    sweep, the seconds per forward and backward step, K1's backwards'
    share and the peak memory;
-9. P, the probe (``ocean_bgc_tpu_torch/probe.py``), against its plain
-   version;
+9. P, the probe (``ocean_bgc_tpu_torch/probe.py``), one launch on its
+   path, against its plain version at the probe's 12 x 5 x 128 and at
+   1, 12 and 60 levels by 1, 31, 33, 257 and 8192 columns (kmax over
+   0..nlev), its launch shape (more than one block), and its time in
+   each tile in turns beside the launch floor;
 10. one f64 step of each path at 60 x 131072 columns (diagnostics off),
    and one step of that world streamed through the card in chunks of
    32768 columns (``models/chunked.py::step_chunked``) against the
@@ -382,8 +390,8 @@ def ptxas_lines(log_text):
                              capture_output=True, text=True, timeout=60)
         if out.returncode == 0:
             names = out.stdout.splitlines()
-    names = [n.replace("obgc::(anonymous namespace)::", "").split("(")[0]
-             for n in names]
+    names = [n.replace("obgc::", "").replace("(anonymous namespace)::", "")
+             .split("(")[0] for n in names]
     return [f"    {n}: {r[1]} registers, {r[2]} B spill stores, {r[3]} B "
             f"spill loads, {r[4]} B static shared memory"
             for n, r in zip(names, rows)]
@@ -1835,9 +1843,18 @@ def host_api_phase(params, world, env):
                                  "host's")
 
 
+# P's shapes besides the probe's (levels, columns; kmax over 0..nlev) and
+# the tiles (columns a block) timed at the probe's shape
+PROBE_NLEVS, PROBE_NCOLS = (1, 12, 60), (1, 31, 33, 257, 8192)
+PROBE_TILES = (1, 2, 4, 8, 16, 32)
+
+
 def probe_phase():
-    """Phase 5: P on its own path (probe.run), counted, then against its
-    plain version; returns its kernel entry's numbers."""
+    """Phase 9: P on its own path (probe.run), counted, then against its
+    plain version at the probe's shape and at every shape of PROBE_NLEVS
+    x PROBE_NCOLS; its launch shape, and its time in each tile of
+    PROBE_TILES in turns beside the launch floor (an empty kernel of the
+    default launch's shape); returns its kernel entry's numbers."""
     from ocean_bgc_tpu_torch import probe
     probe.probe_patterns.launches = 0
     out, tend, checksum = probe.run()
@@ -1847,12 +1864,35 @@ def probe_phase():
     want = probe.probe_patterns_torch(*args)
     rel = probe.max_rel_err((out, tend), want)
     err = max((g - w).abs().max().item() for g, w in zip((out, tend), want))
-    log(f"P: launches {launches}, checksum {checksum:.6g}, max error / "
+    tile, blocks, threads = probe.launch_shape(probe.NLEV, probe.C)
+    log(f"P: launches {launches}, {blocks} blocks of {threads} threads "
+        f"({tile} columns a block), checksum {checksum:.6g}, max error / "
         f"scale {rel:.3g} (limit {probe.RTOL:g}), max abs error {err:.3g}")
-    if launches != 1 or not rel <= probe.RTOL:
-        raise AssertionError("P disagrees with its plain version")
-    ms = cuda_ms(lambda: probe.probe_patterns(*args), reps=20,
-                 device_only=True)
+    if launches != 1 or not rel <= probe.RTOL or blocks < 2:
+        raise AssertionError("P disagrees with its plain version, or runs "
+                             "in one block")
+    worst = 0.0
+    for nlev in PROBE_NLEVS:
+        for seed, ncol in enumerate(PROBE_NCOLS):
+            shaped = probe.shaped_inputs(nlev, ncol, seed=seed)
+            before = probe.probe_patterns.launches
+            r = probe.max_rel_err(probe.probe_patterns(*shaped),
+                                  probe.probe_patterns_torch(*shaped))
+            worst = max(worst, r)
+            if probe.probe_patterns.launches != before + 1 or not (
+                    r <= probe.RTOL):
+                raise AssertionError(f"P at {nlev} x {ncol}: max error / "
+                                     f"scale {r:.3g}")
+    log(f"P at {PROBE_NLEVS} levels x {PROBE_NCOLS} columns (kmax over "
+        f"0..nlev): worst max error / scale {worst:.3g} (limit "
+        f"{probe.RTOL:g}), one launch each")
+    fns = {f"tile {t}": lambda t=t: probe._launch(*args, tile=t)
+           for t in PROBE_TILES}
+    fns["floor"] = empty_launch(blocks, threads)
+    turns = in_turns(f"P at {probe.NLEV}x{probe.NTR}x{probe.C}, blocks of "
+                     f"each tile's columns, and the launch floor (an empty "
+                     f"kernel of {blocks} blocks of {threads} threads)", fns)
+    ms, floor_ms = turns[f"tile {probe.TILE}"], turns["floor"]
     plain_ms = cuda_ms(lambda: probe.probe_patterns_torch(*args), reps=1,
                        warmup=1, rounds=3)
     tr, temp, kmax = args
@@ -1869,10 +1909,14 @@ def probe_phase():
     nbytes = sum(t.numel() * t.element_size()
                  for t in (tr, temp, kmax, out, tend))
     bound_ms, bound_by = bound(nbytes, ops, torch.float32)
-    log(f"P: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.2e} ms ({nbytes} B, {ops} op)")
+    log(f"P: {ms:.4f} ms/launch in {tile}-column tiles, launch floor "
+        f"{floor_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.2e} "
+        f"ms by {bound_by} (by bytes {bound(nbytes, 0, torch.float32)[0]:.2e}"
+        f" ms, {nbytes} B; by operations "
+        f"{bound(0, ops, torch.float32)[0]:.2e} ms, {ops} op)")
     return dict(launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                floor_ms=floor_ms)
 
 
 def oracle_check(params):
@@ -2006,6 +2050,21 @@ SEEDED_SWEEP_CAPS = (0, 1, 2, 3, 4, 6)
 SEEDED_SWEEP_THREADS = (32, 64, 128, 256)
 
 
+def empty_launch(blocks, threads):
+    """A function that launches an empty kernel of ``blocks`` blocks of
+    ``threads`` on the current stream: the launch floor of a kernel of
+    that shape, timed as the kernel is."""
+    import ctypes
+
+    from ocean_bgc_tpu_torch.ops import _kernels
+    lib = _kernels.load("carbonate_dual")
+    lib.obgc_empty_launch.argtypes = [ctypes.c_uint, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.obgc_empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.obgc_empty_launch(blocks, threads, stream)
+
+
 def in_turns(label, fns, reps=20):
     """Device ms per call of each of ``fns`` ({name: fn}), each timed
     behind the device sleep, in turns a, b, ..., b, a; the mean of each
@@ -2068,11 +2127,9 @@ def check_seeded(dtype, world, env, warm_state):
     seeded dual instance) on env-off inputs too, and an empty kernel's
     launch as the floor beside the surface pair.  Returns {"dual",
     "brackets": the kernel entry's numbers}."""
-    import ctypes
     import dataclasses
 
     from ocean_bgc_tpu_torch.constants import MAXIT
-    from ocean_bgc_tpu_torch.ops import _kernels
     from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
     from ocean_bgc_tpu_torch.ops.bgc import carbonate_inputs
     from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
@@ -2224,17 +2281,12 @@ def check_seeded(dtype, world, env, warm_state):
     fields = bracket_fields(largs)
     n = largs[1].numel()
     shape = cc.seeded_schedule(largs[1])
-    lib = _kernels.load("carbonate_dual")
-    lib.obgc_empty_launch.argtypes = [ctypes.c_uint, ctypes.c_int,
-                                      ctypes.c_void_p]
-    lib.obgc_empty_launch.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
     iters = [_solve_htotal_impl(*largs[:7], x0=largs[7],
                                 with_stats=True)[1]["iters"]]
     turns = timed(f"bracket-in K1 seeded {name} surface pair warm",
                   lambda **kw: cc._launch_brackets(fields, **kw), iters,
                   shape, None,
-                  dict(floor=lambda: lib.obgc_empty_launch(*shape, stream)))
+                  dict(floor=empty_launch(*shape)))
     log(f"bracket-in K1 seeded {name} surface pair: {shape[0]} blocks of "
         f"{shape[1]} threads ({n} lanes); launch floor (an empty kernel of "
         f"that shape, timed alike) {turns['floor']:.4f} ms")
@@ -2874,7 +2926,7 @@ def adjoint_phase(params, card):
 # ---------------------------------------------------------------------------
 
 GATE_STEPS = dict(deep=1000, f32=720, deep_f32=96)
-GATES = ("oracle", "deep64", "f32")
+GATES = ("oracle", "deep64", "f32", "fused")
 # kicked f32 runs of the deep world that measure the envelope's robustness
 ENSEMBLE = 32
 # the gates must be joined by this many seconds after the script started
@@ -2895,8 +2947,8 @@ def bind_tests():
 
 
 def start_gates(tmp):
-    """Start the three gate children (see :func:`gate_child`); the two on
-    the card wait for ``<tmp>/built``.  Returns {name: (process, path,
+    """Start the gate children (see :func:`gate_child`); those on the
+    card wait for ``<tmp>/built``.  Returns {name: (process, path,
     log file, start time)}."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=HERE)
     procs = {}
@@ -2925,8 +2977,12 @@ def gate_child(name, out, built):
     pin and its t=0 branch firing on the card, then the port's 1000 f64
     steps with the 1-ulp kicked copy as extra columns.  "f32": the f32
     envelope (720 steps at 6 x 8) and the no-drift gate, then the deep f32
-    gates (branches, the 96-step envelope, the range audit).  Writes its
-    results to ``out`` (.npz) and ``out.json``; an AssertionError exits 1.
+    gates (branches, the 96-step envelope, the range audit).  "fused":
+    scripts/qualify_fused.py's qualification of the fused interior (96 f32
+    steps of its 60 x 256 world against the default interior), then the
+    deep world's 1000 f64 steps with the fused interior and its 1-ulp
+    kicked copy as extra columns.  Writes its results to ``out`` (.npz)
+    and ``out.json``; an AssertionError exits 1.
     Pauses on SIGUSR1 (:func:`gates_paused`) once ``out.ready`` exists."""
     signal.signal(signal.SIGUSR1, _pause_self)
     open(out + ".ready", "w").close()
@@ -2961,6 +3017,18 @@ def gate_child(name, out, built):
                                     device="cuda")
         res["run_s"] = time.perf_counter() - t
         np.savez(out, kicked=kicked, **got)
+    elif name == "fused":
+        t = time.perf_counter()
+        res["qualify"] = traj.fused_qualification(
+            _synthetic_world_numpy(**traj.QUALIFY_WORLD),
+            traj.QUALIFY_STEPS, device="cuda")
+        res["qualify_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        got, kicked = traj.port_run(deep.deep_ragged_world_numpy(),
+                                    GATE_STEPS["deep"], kick=traj.ULP_KICK,
+                                    device="cuda", interior_impl="fused")
+        res["run_s"] = time.perf_counter() - t
+        np.savez(out, kicked=kicked, **got)
     else:
         t = time.perf_counter()
         res["envelope_6x8"] = f32traj.f32_envelope(
@@ -2991,9 +3059,9 @@ def gate_child(name, out, built):
 
 def join_gates(procs, deadline_s):
     """Wait for the gate children, fail on any that failed, hold the
-    port's 1000 deep steps to the oracle's (the chaos-yardstick branch of
-    tests/test_trajectory.py), and log each gate's worst mismatch over its
-    bound and its wall time."""
+    port's 1000 deep steps, with each interior, to the oracle's (the
+    chaos-yardstick branch of tests/test_trajectory.py), and log each
+    gate's worst mismatch over its bound and its wall time."""
     import numpy as np
     bind_tests()
     from tests import test_torch_trajectory as traj
@@ -3015,20 +3083,34 @@ def join_gates(procs, deadline_s):
         with open(out + ".json") as f:
             results[name] = json.load(f)
         results[name]["joined_s"] = time.perf_counter() - t0
-    with np.load(procs["deep64"][1] + ".npz") as f:
-        got = {k: f[k] for k in f.files}
     with np.load(procs["oracle"][1] + ".npz") as f:
         want = {k: f[k] for k in f.files}
-    kicked = got.pop("kicked")
-    for k, v in list(got.items()) + list(want.items()):
-        if not np.isfinite(v).all():
-            raise AssertionError(f"non-finite {k} after the deep run")
-    worst = traj.oracle_gate(got, want, GATE_STEPS["deep"], kicked)
+    worst = {}
+    for name in ("deep64", "fused"):
+        with np.load(procs[name][1] + ".npz") as f:
+            got = {k: f[k] for k in f.files}
+        kicked = got.pop("kicked")
+        for k, v in list(got.items()) + list(want.items()):
+            if not np.isfinite(v).all():
+                raise AssertionError(f"non-finite {k} after the {name} "
+                                     f"deep run")
+        worst[name] = traj.oracle_gate(got, want, GATE_STEPS["deep"],
+                                       kicked)
     r, d, o = results["f32"], results["deep64"], results["oracle"]
+    fu = results["fused"]
     log(f"gate: deep world, {GATE_STEPS['deep']} f64 steps on the card vs "
-        f"the oracle (chaos yardstick): worst mismatch / bound {worst:.4g} "
-        f"(limit 1); port run {d['run_s']:.1f} s, oracle {o['wall_s']:.1f} "
-        f"s")
+        f"the oracle (chaos yardstick): worst mismatch / bound "
+        f"{worst['deep64']:.4g} (limit 1); port run {d['run_s']:.1f} s, "
+        f"oracle {o['wall_s']:.1f} s")
+    log(f"gate: fused interior, scripts/qualify_fused.py's run "
+        f"({traj.QUALIFY_STEPS} f32 steps at {traj.QUALIFY_WORLD}, env "
+        f"off, fused vs default, 30 x the (1 + {traj.QUALIFY_EPS:g}) "
+        f"envelope + 1e-2 scale + 1e-12): worst mismatch / bound "
+        f"{fu['qualify']:.4g} (limit 1), {fu['qualify_s']:.1f} s")
+    log(f"gate: fused interior, deep world, {GATE_STEPS['deep']} f64 "
+        f"steps on the card vs the oracle (chaos yardstick of its own "
+        f"kicked copy): worst mismatch / bound {worst['fused']:.4g} (limit "
+        f"1), {fu['run_s']:.1f} s")
     log(f"gate: deep bottom branches (one step vs the oracle): worst "
         f"mismatch / tolerance {d['bottom_branches']:.4g}; t=0 branch "
         f"firing held; {d['branches_s']:.1f} s")

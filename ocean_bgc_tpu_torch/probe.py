@@ -44,6 +44,21 @@ def probe_inputs(device=None):
             torch.tensor(kmax, device=dev))
 
 
+def shaped_inputs(nlev, ncol, ntr=NTR, seed=0, device=None):
+    """Inputs of P at any shape, made as :func:`probe_inputs` makes the
+    probe's, with kmax drawn over 0..nlev, its first column at 0 and its
+    last at nlev (a single column at nlev)."""
+    rng = np.random.RandomState(seed)
+    tr = rng.rand(nlev, ntr, ncol).astype(np.float32)
+    temp = (rng.rand(nlev, ncol) * 20).astype(np.float32)
+    kmax = rng.randint(0, nlev + 1, (1, ncol)).astype(np.int32)
+    kmax[0, 0] = 0
+    kmax[0, -1] = nlev
+    dev = torch.device("cuda" if device is None else device)
+    return (torch.tensor(tr, device=dev), torch.tensor(temp, device=dev),
+            torch.tensor(kmax, device=dev))
+
+
 def probe_patterns_torch(tr, temp, kmax):
     """The plain PyTorch version of P: ``(out (nlev, C), tend (nlev,
     ntr, C))`` from tr (nlev, ntr, C), temp (nlev, C), kmax (1, C)."""
@@ -89,6 +104,47 @@ def probe_patterns_torch(tr, temp, kmax):
     return out, tend
 
 
+# the columns of one block of the kernel (csrc/probe_patterns.cu): at the
+# probe's 128 columns, 16 blocks over the card's SMs
+TILE = 8
+# the kernel's shared memory: 4 floats a cell of a tile, at most 48 KB
+TILE_CELLS = 48 * 1024 // 16
+# the argument types of csrc/probe_patterns.cu's obgc_probe_patterns
+ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def launch_shape(nlev, ncol, tile=TILE):
+    """``(tile, blocks, threads)`` of P's launch at ``nlev`` levels and
+    ``ncol`` columns: ``tile`` columns a block (fewer where the block's
+    cells would not fit its shared memory, or there are fewer columns),
+    one thread a cell up to 1024, in whole warps."""
+    if nlev > TILE_CELLS:
+        raise ValueError(f"probe_patterns takes at most {TILE_CELLS} "
+                         f"levels, got {nlev}")
+    tile = max(1, min(tile, ncol, TILE_CELLS // nlev))
+    threads = min(1024, -(-tile * nlev // 32) * 32)
+    return tile, -(-ncol // tile), threads
+
+
+def _launch(tr, temp, kmax, tile=TILE):
+    """One launch of P in blocks of ``tile`` columns (see
+    :func:`launch_shape`); adds one to ``probe_patterns.launches``."""
+    nlev, ntr, ncol = tr.shape
+    tile, _, threads = launch_shape(nlev, ncol, tile)
+    lib = _kernels.load("probe_patterns")
+    fn = lib.obgc_probe_patterns
+    fn.argtypes = list(ARGTYPES)
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(temp)
+    tend = torch.empty_like(tr)
+    code = fn(tr.data_ptr(), temp.data_ptr(), kmax.data_ptr(),
+              out.data_ptr(), tend.data_ptr(), nlev, ntr, ncol, tile,
+              threads, torch.cuda.current_stream(tr.device).cuda_stream)
+    _kernels.check(lib, code, "probe_patterns launch")
+    probe_patterns.launches += 1
+    return out, tend
+
+
 def probe_patterns(tr, temp, kmax):
     """P on CUDA tensors, its plain version on CPU tensors.  Each kernel
     launch adds one to ``probe_patterns.launches``."""
@@ -105,19 +161,10 @@ def probe_patterns(tr, temp, kmax):
                              f"tensors: tr (nlev, ntr, C) and temp (nlev, "
                              f"C) float32, kmax (1, C) int32; got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = _kernels.load("probe_patterns")
-    fn = lib.obgc_probe_patterns
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(temp)
-    tend = torch.empty_like(tr)
-    code = fn(tr.data_ptr(), temp.data_ptr(), kmax.data_ptr(),
-              out.data_ptr(), tend.data_ptr(), nlev, ntr, ncol,
-              torch.cuda.current_stream(tr.device).cuda_stream)
-    _kernels.check(lib, code, "probe_patterns launch")
-    probe_patterns.launches += 1
-    return out, tend
+    if ntr < 4:
+        raise ValueError(f"probe_patterns reads tracer slot 3: ntr >= 4, "
+                         f"got {ntr}")
+    return _launch(tr, temp, kmax)
 
 
 probe_patterns.launches = 0

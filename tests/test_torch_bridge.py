@@ -1,31 +1,25 @@
-"""The port's copies, bridge and import boundary, held against the JAX
-package: parameters, constants and the synthetic world must be equal
-bit for bit, and the port (plus chip_smoke.py) may import neither JAX
-nor the JAX package."""
+"""The port's copies and import boundary, held against the JAX package:
+parameters, constants, tracer tables and the diagnostics registry must
+be equal, and the port (plus chip_smoke.py) may import neither JAX nor
+the JAX package.  The synthetic world and the device choice are in
+``tests/test_torch_world.py``."""
 
 import ast
 import dataclasses
 from pathlib import Path
 
-import numpy as np
-import pytest
-import torch
-
 import ocean_bgc_tpu  # noqa: F401  (enables x64)
-import jax.numpy as jnp
 
 from ocean_bgc_tpu import constants as jconst
 from ocean_bgc_tpu import state as jstate
 from ocean_bgc_tpu.params import ModelParams as JaxModelParams
 from ocean_bgc_tpu.utils import diag as jdiag
-from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
 from ocean_bgc_tpu_torch import constants as tconst
 from ocean_bgc_tpu_torch import state as tstate
 from ocean_bgc_tpu_torch.params import ModelParams
 from ocean_bgc_tpu_torch.utils import diag as tdiag
-from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, resolve_device
-from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+from ocean_bgc_tpu_torch.utils.bridge import params_from_dict
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -73,33 +67,6 @@ def test_diagnostics_registry_copy_has_not_drifted():
     assert all(tuple(b[k]) == tuple(a[k]) for k in a)
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_synthetic_world_bitwise_equal(dtype):
-    jdt = None if dtype == "float64" else jnp.float32
-    js, jg, jf = jax_world(nlev=7, ncol=40, seed=11, ragged=True, dtype=jdt)
-    ts, tg, tf = synthetic_world(nlev=7, ncol=40, seed=11, ragged=True,
-                                 dtype=getattr(torch, dtype), device="cpu")
-    pairs = [(js.bgc, ts.bgc), (jg, tg), (jf, tf)]
-    for jobj, tobj in pairs:
-        for f in dataclasses.fields(jobj):
-            a = np.asarray(getattr(jobj, f.name))
-            b = getattr(tobj, f.name).numpy()
-            assert a.dtype == b.dtype, f.name
-            np.testing.assert_array_equal(a, b, err_msg=f.name)
-    np.testing.assert_array_equal(np.asarray(js.dms), ts.dms.numpy())
-    np.testing.assert_array_equal(np.asarray(js.macros), ts.macros.numpy())
-    # the world exercises land and shelf columns
-    kmax = tg.kmax.numpy()
-    assert (kmax == 0).any() and ((kmax > 0) & (kmax < 7)).any()
-
-
-def test_cuda_device_requested_without_card_raises():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        resolve_device(None)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        synthetic_world(nlev=2, ncol=4)
 
 
 def _forbidden_imports(path, module_level=False):
@@ -139,9 +106,10 @@ def test_gate_files_import_no_jax_when_imported():
     """``chip_smoke.py`` runs the long-horizon gates of these test files
     on the card, and the two-rank test runs its file as the ranks'
     script, where there is no JAX: importing them imports none of it
-    (their tests that compare with JAX import it inside the test)."""
+    (their tests that compare with JAX import it inside the test).  P's
+    CPU tests need none either."""
     files = [REPO / "tests" / f"test_torch_{n}.py" for n in (
-        "trajectory", "deep_world", "fp32_trajectory", "fp32_deep",
+        "trajectory", "deep_world", "fp32_trajectory", "fp32_deep", "probe",
         "distributed")]
     offenders = {f.name: _forbidden_imports(f, module_level=True)
                  for f in files}

@@ -517,6 +517,40 @@ def test_probe_kernel_matches_plain_version(cuda):
     assert probe.probe_patterns.launches == before + 1
     assert probe.max_rel_err(got, probe.probe_patterns_torch(
         tr, temp, kmax)) <= probe.RTOL
+    assert probe.launch_shape(probe.NLEV, probe.C)[1] > 1
+
+
+@pytest.mark.parametrize("nlev", [1, 12, 60])
+def test_probe_kernel_at_every_shape(cuda, nlev):
+    """P at nlev levels and 1, 31, 33, 257 and 8192 columns, kmax over
+    0..nlev with columns at 0 and at nlev: one launch a call, within
+    RTOL of the plain version, and the same bits in blocks of 1, 2 and
+    32 columns as in the default tile."""
+    for seed, ncol in enumerate((1, 31, 33, 257, 8192)):
+        args = probe.shaped_inputs(nlev, ncol, seed=seed, device=cuda)
+        before = probe.probe_patterns.launches
+        got = probe.probe_patterns(*args)
+        torch.cuda.synchronize()
+        assert probe.probe_patterns.launches == before + 1
+        assert probe.max_rel_err(
+            got, probe.probe_patterns_torch(*args)) <= probe.RTOL, ncol
+        for tile in (1, 2, 32):
+            other = probe._launch(*args, tile=tile)
+            assert all(torch.equal(a, b) for a, b in zip(got, other)), tile
+
+
+def test_probe_cpu_tensors_take_the_plain_route(cuda):
+    """With a card present, CPU tensors still take the plain version and
+    launch nothing; the kernel refuses fewer than 4 tracer slots."""
+    args = probe.probe_inputs("cpu")
+    before = probe.probe_patterns.launches
+    got = probe.probe_patterns(*args)
+    assert probe.probe_patterns.launches == before
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, probe.probe_patterns_torch(*args)))
+    with pytest.raises(ValueError, match="slot 3"):
+        probe.probe_patterns(*probe.shaped_inputs(12, 33, ntr=3,
+                                                  device=cuda))
 
 
 def _off_window(ph):

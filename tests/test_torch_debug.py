@@ -1,16 +1,16 @@
-"""The port's env fingerprint and staleness guard, its debugging utilities
-and its profiling helpers, on the CPU.
+"""The port's env fingerprint and staleness guard and its debugging
+utilities, on the CPU.
 
 ``env_fingerprint`` against JAX's; the ``OBGC_CHECK_ENV=1`` guard's three
 cases; ``validate_state``, ``solver_health`` and ``poc_bounds_report``
 against JAX's on the same numpy state and diagnostics (no JAX step: the
-port steps where a stepped state is needed); ``checked_step`` raising;
-``step_timer`` and ``trace`` on CPU tensors.  The constants kernel under
+port steps where a stepped state is needed).  ``checked_step`` raising,
+``step_timer`` and ``trace`` on CPU tensors are in
+``tests/test_torch_debug_tools.py``.  The constants kernel under
 ``solver_health`` and the guard's host synchronisation on the card are in
 tests/test_torch_cuda.py."""
 
 import dataclasses
-import json
 
 import numpy as np
 import pytest
@@ -24,7 +24,7 @@ from ocean_bgc_tpu.ops.bgc import env_fingerprint as jax_env_fingerprint
 from ocean_bgc_tpu.utils import debug as jdebug
 from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
-from ocean_bgc_tpu_torch.models.coupled import CoupledState, step
+from ocean_bgc_tpu_torch.models.coupled import step
 from ocean_bgc_tpu_torch.models.forcing_series import _blend_env
 from ocean_bgc_tpu_torch.ops.bgc import (
     EnvCache,
@@ -34,7 +34,7 @@ from ocean_bgc_tpu_torch.ops.bgc import (
     precompute_env,
 )
 from ocean_bgc_tpu_torch.params import ModelParams
-from ocean_bgc_tpu_torch.utils import debug, profiling
+from ocean_bgc_tpu_torch.utils import debug
 from ocean_bgc_tpu_torch.utils.bridge import world_from_numpy
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
@@ -195,49 +195,3 @@ def test_poc_bounds_report_matches_jax():
         {k: v.numpy() for k, v in bad.items()})
     assert got["poc_error"] is True and got["n_violating_cells"] > 0
     assert got["min_poc_prod_avail"] < 0.0
-
-
-def test_checked_step_raises_on_corruption():
-    """A step whose output holds a non-finite tracer raises, naming the
-    field; a clean step passes through unchanged."""
-    state, grid, forcing = synthetic_world(nlev=6, ncol=8, seed=54,
-                                           device="cpu")
-    params = ModelParams()
-
-    def bad_step(s):
-        new, d = step(s, grid, forcing, params, DT, compute_diags=False)
-        poisoned = new.bgc.tracers.clone()
-        poisoned[0, 0, 0] = float("inf")
-        return _with_bgc(new, tracers=poisoned), d
-
-    with pytest.raises(FloatingPointError, match="'bgc.tracers'"):
-        debug.checked_step(bad_step, grid)(state)
-    out, _ = debug.checked_step(
-        lambda s: step(s, grid, forcing, params, DT, compute_diags=False),
-        grid)(state)
-    assert isinstance(out, CoupledState)
-    assert torch.isfinite(out.bgc.tracers).all()
-
-
-def test_step_timer_on_cpu():
-    """On CPU tensors the host clock times each call: the first call,
-    ``warmup - 1`` untimed calls, then ``repeats`` timed ones."""
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return x * 2.0
-
-    out = profiling.step_timer(fn, torch.ones(16), warmup=2, repeats=3)
-    assert set(out) == {"best", "mean", "compile"}
-    assert len(calls) == 1 + 1 + 3
-    assert 0.0 < out["best"] <= out["mean"]
-    assert out["compile"] > 0.0
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path / "prof")) as prof:
-        torch.ones(8).mul(3.0).sum()
-    assert any("mul" in e.key for e in prof.key_averages())
-    events = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert events["traceEvents"]

@@ -1,18 +1,14 @@
 """The fused interior path of the port (``interior_impl="fused"``, K2 in
 ``ops/cuda_step.py``) on the CPU: its plain version against the JAX
-package's ``bgc_source_sink``, the step through it, the options it
-refuses, the kernel's argument layout against the Python side, the
-build's hashing of shared headers, and P's plain version against JAX's
-probe kernel in interpret mode.  The kernels themselves run only on the
-card (tests/test_torch_cuda.py)."""
+package's ``bgc_source_sink``, the step through it, and the kernel's
+inputs.  The options it refuses and the kernel's argument layout against
+the Python side are in ``tests/test_torch_fused_layout.py``; the build's
+generated header and hashing, and P's plain version against JAX's probe
+kernel, in ``tests/test_torch_kernel_build.py``.  The kernels themselves
+run only on the card (tests/test_torch_cuda.py)."""
 
-import ast
 import dataclasses
 import functools
-import importlib.util
-import inspect
-import re
-import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -28,22 +24,15 @@ from ocean_bgc_tpu.ops.bgc import precompute_env as jax_precompute_env
 from ocean_bgc_tpu.params import ModelParams as JaxModelParams
 from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
-from ocean_bgc_tpu_torch import constants, probe
+from ocean_bgc_tpu_torch import constants
 from ocean_bgc_tpu_torch.models.coupled import step
-from ocean_bgc_tpu_torch.ops import _kernels, bgc, cuda_step, particulates
+from ocean_bgc_tpu_torch.ops import cuda_step
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
 from ocean_bgc_tpu_torch.ops.cuda_step import (
     KERNEL_FIELDS,
     fused_interior_step,
     kernel_inputs,
-)
-from ocean_bgc_tpu_torch.ops.kernel_params import (
-    GLOBAL_FIELDS,
-    NUM_PARAMS,
-    TRAIT_FIELDS,
-    check_traits,
-    pack_bgc_params,
 )
 from ocean_bgc_tpu_torch.params import BGCParams, ModelParams
 from ocean_bgc_tpu_torch.state import BGCTracers as T
@@ -179,18 +168,6 @@ def _np_world(nlev=NLEV, ncol=NCOL, seed=21):
     return _np(js), _np(jg), _np(jf)
 
 
-@pytest.mark.parametrize("kwargs", [dict(compute_diags=True),
-                                    dict(compute_diags=False, health=True),
-                                    dict(compute_diags=False,
-                                         interior_impl="pallas")])
-def test_fused_refuses_what_jax_refuses(kwargs):
-    s, g, f = world_from_numpy(*_np_world(nlev=2, ncol=4), device="cpu")
-    kw = dict(interior_impl="fused")
-    kw.update(kwargs)
-    with pytest.raises(ValueError):
-        step(s, g, f, ModelParams(), DT, **kw)
-
-
 def test_kernel_impl_on_cpu_tensors_raises():
     s, g, f = world_from_numpy(*_np_world(nlev=2, ncol=4), device="cpu")
     b = s.bgc
@@ -201,88 +178,6 @@ def test_kernel_impl_on_cpu_tensors_raises():
         with pytest.raises(ValueError, match="impl"):
             fused_interior_step(b.tracers, g, f, b.ph_prev_3d,
                                 b.ph_prev_alt_3d, BGCParams(), impl=bad)
-
-
-def _enum(name):
-    """The enumerator names of ``enum <name>`` in interior_step.cu, the
-    trailing count excluded."""
-    src = (CSRC / "interior_step.cu").read_text()
-    body = re.search(r"enum " + name + r" : int \{(.*?)\};", src, re.S)[1]
-    body = re.sub(r"//[^\n]*", "", body)
-    names = [n.strip() for n in body.split(",") if n.strip()]
-    assert names[-1].endswith("_COUNT")
-    return names[:-1]
-
-
-def _attributes_read(fn, owners):
-    """Attribute names read as ``<owner>.<name>`` in a function's source."""
-    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
-    return {node.attr for node in ast.walk(tree)
-            if isinstance(node, ast.Attribute)
-            and isinstance(node.value, ast.Name) and node.value.id in owners}
-
-
-def test_kernel_argument_layout_matches_python():
-    """A silent mismatch between the kernel's enums and the Python lists
-    would give plausible but wrong physics: the enums must list exactly
-    the packed parameters and pointer fields, in order, and the pack must
-    hold every parameter the plain interior reads."""
-    assert _enum("GlobalParam") == ["P_" + f for f in GLOBAL_FIELDS]
-    assert _enum("TraitParam") == ["A_" + f for f in TRAIT_FIELDS]
-    assert _enum("Field") == ["F_" + f for f in KERNEL_FIELDS]
-
-    interior = (bgc.ecosystem_kinetics, bgc.assemble_tendencies,
-                bgc.compute_restoring, bgc.bgc_source_sink,
-                particulates.particulate_level_update)
-    read = set().union(*(_attributes_read(fn, {"params"})
-                         for fn in interior))
-    # consumed by precompute_dissolution before the kernel runs (the
-    # plain version reads them only when no dissolution factors are given)
-    wrapper_side = {"parm_SiO2_diss", "parm_CaCO3_diss"}
-    bgc_fields = {f.name for f in dataclasses.fields(BGCParams)}
-    assert read - wrapper_side - {"autotrophs"} == set(GLOBAL_FIELDS)
-    assert set(GLOBAL_FIELDS) <= bgc_fields
-    traits = set().union(*(_attributes_read(fn, {"au", "au2"})
-                           for fn in interior))
-    assert traits == set(TRAIT_FIELDS)
-
-
-def test_biology_kernel_tiles_match_python():
-    """The wrapper plans the biology kernel's tiles for the block size and
-    the staged fields the kernel declares: whole columns, at least one,
-    two blocks' staging within an SM's shared memory."""
-    src = (CSRC / "interior_step.cu").read_text()
-    assert int(re.search(r"constexpr int kBioThreads = (\d+);", src)[1]) \
-        == cuda_step.BIO_THREADS
-    assert len(_enum("Stage")) == cuda_step.STAGED_FIELDS
-    assert cuda_step.columns_per_block(60, 8) == 16
-    assert cuda_step.columns_per_block(60, 4) == 32
-    assert cuda_step.columns_per_block(5000, 8) == 1
-    assert 2 * cuda_step.TILE_BYTES <= 227 * 1024
-
-
-def test_pack_holds_each_field_at_its_enum_slot():
-    params = dataclasses.replace(BGCParams(), parm_POC_diss=1234.5,
-                                 lrest_sio3=True)
-    packed = pack_bgc_params(params)
-    assert len(packed) == NUM_PARAMS
-    assert all(type(v) is float for v in packed)
-    for i, name in enumerate(GLOBAL_FIELDS):
-        assert packed[i] == float(getattr(params, name)), name
-    for g, au in enumerate(params.autotrophs):
-        for j, name in enumerate(TRAIT_FIELDS):
-            slot = len(GLOBAL_FIELDS) + g * len(TRAIT_FIELDS) + j
-            assert packed[slot] == float(getattr(au, name)), name
-
-
-def test_traits_that_do_not_fit_the_layout_raise():
-    p = BGCParams()
-    bad = dataclasses.replace(p.autotrophs[0], has_si=True)
-    with pytest.raises(ValueError, match="has_si"):
-        check_traits(dataclasses.replace(p, autotrophs=(bad,)
-                                         + p.autotrophs[1:]))
-    with pytest.raises(ValueError, match="autotroph groups"):
-        check_traits(dataclasses.replace(p, autotrophs=p.autotrophs[:3]))
 
 
 def test_kernel_inputs_follow_the_env_and_the_gates():
@@ -306,56 +201,3 @@ def test_kernel_inputs_follow_the_env_and_the_gates():
     assert gated["no3_clim"] is None and gated["sio3_clim"] is None
 
 
-def test_generated_constants_header_holds_the_same_doubles():
-    text = _kernels.constants_header()
-    values = dict(re.findall(r"constexpr double (\w+) = ([^;]+);", text))
-    assert values
-    for name in (n for n in dir(constants) if n.isupper()):
-        value = getattr(constants, name)
-        if isinstance(value, float):
-            assert float(values[name]) == value, name
-    assert "TR_SI_IND[4] = {-1, 23, -1, -1}" in text
-
-
-def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
-    """Editing csrc/carbonate_solve.cuh must rebuild K1 and K2."""
-    csrc = tmp_path / "csrc"
-    csrc.mkdir()
-    for src in CSRC.iterdir():
-        (csrc / src.name).write_bytes(src.read_bytes())
-    monkeypatch.setattr(_kernels, "CSRC", csrc)
-    before = {n: _kernels.library_path(n) for n in _kernels.SOURCES}
-    header = csrc / "carbonate_solve.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _kernels.library_path(n) for n in _kernels.SOURCES}
-    assert all(before[n] != after[n] for n in _kernels.SOURCES)
-
-
-def test_probe_plain_version_matches_jax_probe_kernel():
-    """P's plain version against scripts/probe_mosaic.py's kernel through
-    pl.pallas_call(interpret=True) at 12 x 5 x 128 f32; rtol 1e-5, since
-    the exclusive cumsum is summed in another order than JAX's 12 x 12
-    matmul (each output scaled by its largest magnitude)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    spec = importlib.util.spec_from_file_location(
-        "probe_mosaic", REPO / "scripts" / "probe_mosaic.py")
-    mosaic = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mosaic)     # defines kernel; main() not run
-
-    tr, temp, kmax = probe.probe_inputs("cpu")
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    call = pl.pallas_call(
-        mosaic.kernel,
-        out_shape=(jax.ShapeDtypeStruct(temp.shape, jnp.float32),
-                   jax.ShapeDtypeStruct(tr.shape, jnp.float32)),
-        in_specs=[vmem] * 3, out_specs=(vmem, vmem),
-        scratch_shapes=[pltpu.VMEM(tuple(temp.shape), jnp.float32)] * 2,
-        interpret=True)
-    want = call(tr.numpy(), temp.numpy(), kmax.numpy())
-    got = probe.probe_patterns(tr, temp, kmax)
-    assert probe.probe_patterns.launches == 0
-    for g, w in zip(got, want):
-        scale = np.abs(np.asarray(w)).max()
-        np.testing.assert_allclose(g.numpy() / scale, np.asarray(w) / scale,
-                                   rtol=0, atol=1e-5)

@@ -8,10 +8,12 @@ held to the solver's tolerance (|dH| <= 2 xacc), every other output to
 1e-9 of its field's largest magnitude (the conservation residuals to
 their top-100 m budget's, as tests/test_torch_diags.py holds them).  The
 tracer-order adapter, ``diag_names`` and an f32 host block are held
-bitwise to the port's canonical run; the metadata, the parameter
-defaults, ``tracer_permutation``'s errors, the state helpers and the
-host-layout copy exactly to JAX's.  The card runs the same entry points
-in tests/test_torch_cuda.py and chip_smoke.py."""
+bitwise to the port's canonical run; the metadata and the parameter
+defaults exactly to JAX's.  This file holds the BGC pair;
+``tests/test_torch_host_api_dms.py`` runs the same tests on the DMS and
+MACROS entry points, ``tests/test_torch_host_api_layout.py`` holds
+``tracer_permutation``'s errors and the host-layout copy.  The card runs
+the same entry points in tests/test_torch_cuda.py and chip_smoke.py."""
 
 import dataclasses
 
@@ -21,14 +23,10 @@ import torch
 
 import ocean_bgc_tpu  # noqa: F401  (enables x64)
 from ocean_bgc_tpu import host_api as japi
-from ocean_bgc_tpu import state as jstate
-from ocean_bgc_tpu.io import host_layout as jhl
 
-import ocean_bgc_tpu_torch
 from ocean_bgc_tpu_torch import host_api as api
 from ocean_bgc_tpu_torch import state as tstate
 from ocean_bgc_tpu_torch.constants import XACC
-from ocean_bgc_tpu_torch.io import host_layout as hl
 from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
 from ocean_bgc_tpu_torch.state import (
     BGC_TRACER_NAMES,
@@ -40,6 +38,9 @@ from ocean_bgc_tpu_torch.state import (
 NCOL, NLEV = 6, 8
 ENTRY_POINTS = ("BGC_SourceSink", "BGC_SurfaceFluxes", "DMS_SourceSink",
                 "DMS_SurfaceFluxes", "MACROS_SourceSink")
+# the entry points held here; tests/test_torch_host_api_dms.py holds the
+# rest with the same tests
+BGC_PAIR = ENTRY_POINTS[:2]
 # conservation residuals, zero up to rounding: held on their budget's scale
 RESIDUALS = {f"Jint_{x}tot": f"Jint_100m_{x}tot" for x in ("C", "N", "P",
                                                            "Si")}
@@ -112,17 +113,17 @@ def _warm(name, kw, cold):
                 surface_pH_alt_co2=cold["surface_pH_alt_co2"])
 
 
-@pytest.fixture(scope="module")
-def calls():
-    """Every entry point through JAX and the port on the same host
-    arrays; the two BGC ones cold and warm (the warm call fed its own
-    package's returned pH)."""
+def entry_calls(names):
+    """The entry points ``names`` through JAX and the port on the same
+    host arrays (``"kw"`` holds every entry point's); the two BGC ones
+    cold and warm (the warm call fed its own package's returned pH)."""
     kws = _host_calls()
     out = {"kw": kws, "jax": {}, "port": {}}
     before = (cc.co3_terms_dual_coeffs.launches,
               cc.carbonate_coeffs_sat.launches,
               cc.solve_htotal_brackets.launches)
-    for name, kw in kws.items():
+    for name in names:
+        kw = kws[name]
         j = getattr(japi, name)(**kw)
         p = getattr(api, name)(**kw, device="cpu")
         out["jax"][name], out["port"][name] = j, p
@@ -136,6 +137,18 @@ def calls():
             cc.carbonate_coeffs_sat.launches,
             cc.solve_htotal_brackets.launches) == before
     return out
+
+
+@pytest.fixture(scope="module")
+def calls():
+    """:func:`entry_calls` of the BGC pair."""
+    return entry_calls(BGC_PAIR)
+
+
+@pytest.fixture(params=BGC_PAIR)
+def name(request):
+    """Each entry point of the BGC pair."""
+    return request.param
 
 
 def _assert_close(want, got, label, scale_of=None):
@@ -166,7 +179,6 @@ def _assert_close(want, got, label, scale_of=None):
         assert (err <= 1e-9).all(), (label, k, err.max())
 
 
-@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_point_matches_jax(calls, name):
     """Each entry point's results against JAX's: keys, host layouts,
     types and values; the BGC pair cold and warm."""
@@ -193,7 +205,6 @@ def _to_host_order(a, perm):
     return out
 
 
-@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_tracer_order_adapter_bitwise(calls, name):
     """A host keeping its own tracer order (the reference's indices
     structs) gets bitwise the canonical results, in its order."""
@@ -215,28 +226,6 @@ def test_tracer_order_adapter_bitwise(calls, name):
             assert all(np.array_equal(got[k][d], v[d]) for d in v), k
         else:
             assert np.array_equal(got[k], v), k
-
-
-@pytest.mark.parametrize("case,match", [
-    ("missing", "missing"), ("unknown", "unknown"),
-    ("duplicate", "permutation")])
-def test_tracer_permutation_errors(case, match):
-    """The three ways a host index map fails, with JAX's texts."""
-    good = {n: i for i, n in enumerate(BGC_TRACER_NAMES)}
-    assert (api.tracer_permutation(good, BGC_TRACER_NAMES)
-            == np.arange(30)).all()
-    bad = dict(good)
-    if case == "missing":
-        bad.pop("PO4")
-    elif case == "unknown":
-        bad["not_a_tracer"] = 3
-    else:
-        bad["PO4"] = bad["NO3"]
-    with pytest.raises(ValueError, match=match) as ours:
-        api.tracer_permutation(bad, BGC_TRACER_NAMES)
-    with pytest.raises(ValueError) as theirs:
-        japi.tracer_permutation(bad, BGC_TRACER_NAMES)
-    assert str(ours.value) == str(theirs.value)
 
 
 def test_diag_names_keeps_the_full_runs_values(calls):
@@ -305,78 +294,3 @@ def test_entry_points_default_to_cuda(calls):
         tstate.zeros_state(2, 3)
 
 
-def test_state_helpers_match_jax():
-    """``zeros_state``, ``pack_tracers`` and ``unpack_tracers`` against
-    JAX's, on the same values."""
-    z, jz = tstate.zeros_state(4, 5, device="cpu"), jstate.zeros_state(4, 5)
-    for f in dataclasses.fields(jz):
-        a, b = np.asarray(getattr(jz, f.name)), getattr(z, f.name).numpy()
-        assert a.shape == b.shape and a.dtype == b.dtype, f.name
-        assert not b.any(), f.name
-    assert tstate.zeros_state(2, 3, torch.float32, "cpu").tracers.dtype == \
-        torch.float32
-    rng = np.random.default_rng(5)
-    named = {n: rng.standard_normal((4, 5)) for n in BGC_TRACER_NAMES}
-    block = tstate.pack_tracers({k: torch.from_numpy(v)
-                                 for k, v in named.items()})
-    want = np.asarray(jstate.pack_tracers(named))
-    assert np.array_equal(block.numpy(), want)
-    back = tstate.unpack_tracers(block)
-    jback = jstate.unpack_tracers(want)
-    assert list(back) == list(jback) == list(BGC_TRACER_NAMES)
-    assert all(np.array_equal(back[k].numpy(), np.asarray(jback[k]))
-               for k in back)
-
-
-@pytest.mark.parametrize("path", ["native", "numpy"])
-def test_host_layout_copy_matches_jax(path, monkeypatch):
-    """Every function of the host-layout copy bitwise JAX's, on the
-    native packer and on the NumPy path."""
-    assert hl.native_available() and jhl.native_available()
-    if path == "numpy":
-        monkeypatch.setattr(hl, "_load", lambda: None)
-        assert not hl.native_available()
-    rng = np.random.default_rng(7)
-    lm = rng.standard_normal((37, 11))
-    block = rng.standard_normal((23, 9, 30))
-    for fn, x in (("to_level_major", lm), ("from_level_major", lm.T),
-                  ("pack_tracer_block", block),
-                  ("pack_tracer_block", block.astype(np.float32)),
-                  ("unpack_tracer_block", block)):
-        got, want = getattr(hl, fn)(x), getattr(jhl, fn)(x)
-        assert got.dtype == want.dtype == np.float64, fn
-        assert np.array_equal(got, want), fn
-    assert np.array_equal(hl.to_level_major(lm), lm.T)
-    assert np.array_equal(hl.unpack_tracer_block(hl.pack_tracer_block(
-        block)), block)
-    a = rng.standard_normal((40, 40))
-    a[3, 7], a[10, 2], a[0, 0] = np.nan, np.inf, -np.inf
-    b = a.copy()
-    assert hl.scrub_nonfinite(a, fill=-1.0) == jhl.scrub_nonfinite(
-        b, fill=-1.0) == 3
-    assert np.array_equal(a, b) and a[3, 7] == -1.0
-    with pytest.raises(ValueError, match="C-contiguous float64"):
-        hl.scrub_nonfinite(a.T[::2])
-
-
-def test_top_level_conveniences_resolve():
-    """The package's top level: the params and state re-exports and the
-    lazy model entry points, as JAX's top level has them."""
-    from ocean_bgc_tpu_torch.models import coupled
-    from ocean_bgc_tpu_torch.ops import bgc
-    from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
-
-    p = ocean_bgc_tpu_torch
-    assert p.params.ModelParams is p.ModelParams
-    assert p.state.BGCTracers is p.BGCTracers
-    for name in ("BGCParams", "DMSParams", "MACROSParams", "ModelParams",
-                 "BGCForcing", "BGCState", "BGCTracers", "ColumnGrid",
-                 "DMSTracers", "MACROSTracers", "constants", "__version__"):
-        assert hasattr(p, name) and hasattr(ocean_bgc_tpu, name), name
-    assert (p.step, p.run, p.CoupledState) == (coupled.step, coupled.run,
-                                               coupled.CoupledState)
-    assert (p.precompute_env, p.EnvCache) == (bgc.precompute_env,
-                                              bgc.EnvCache)
-    assert p.synthetic_world is synthetic_world
-    with pytest.raises(AttributeError):
-        p.not_a_name  # noqa: B018

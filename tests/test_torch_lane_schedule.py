@@ -62,13 +62,14 @@ def test_parked_tail_cap_is_checked_before_a_launch():
     assert all(w in (1, 2, 4, 8) for w in cc.SEEDED_MAX_WARPS.values())
 
 
-def _c_params(name):
-    """The parameter types of ``extern "C" int name(...)`` in the
-    source, as ctypes types."""
-    text = SOURCE.read_text()
+def _c_params(name, source=SOURCE):
+    """The parameter types of ``extern "C" int name(...)`` in
+    ``source``, as ctypes types."""
+    text = source.read_text()
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
     types = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
              "long long": ctypes.c_longlong, "void*": ctypes.c_void_p,
+             "const void*": ctypes.c_void_p,
              "const void* const*": ctypes.POINTER(ctypes.c_void_p),
              "void* const*": ctypes.POINTER(ctypes.c_void_p)}
     params = [" ".join(p.split()[:-1]) for p in m[1].split(",")]

@@ -1,7 +1,8 @@
 """The slice end to end: the port's production step (diagnostics off, env
 cache on) against the JAX package's, at f64 and f32, on one small ragged
-world per dtype; plus the scipy oracle, the inactive-lane stand-in, and
-the step's options on top of the diags-off call."""
+world per dtype; plus the scipy oracle and the inactive-lane stand-in.
+The step's options on top of the diags-off call are in
+``tests/test_torch_step_options.py``."""
 
 import dataclasses
 
@@ -19,11 +20,7 @@ from ocean_bgc_tpu.params import ModelParams as JaxModelParams
 from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
 from ocean_bgc_tpu_torch.constants import XACC
-from ocean_bgc_tpu_torch.models.coupled import (
-    HEALTH_NAMES,
-    CoupledState,
-    step,
-)
+from ocean_bgc_tpu_torch.models.coupled import CoupledState, step
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     carbonate_coeffs_sat,
@@ -32,7 +29,6 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
 )
 from ocean_bgc_tpu_torch.state import BGCState, BGCTracers as T
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, world_from_numpy
-from ocean_bgc_tpu_torch.utils.diag import coupled_registry
 from tests.oracle.coupled_ref import coupled_step_ref
 
 NLEV, NCOL, NSTEPS, DT = 8, 32, 3, 3600.0
@@ -189,52 +185,6 @@ def test_one_step_matches_oracle_and_env_free_step():
                                atol=1e-18)
     np.testing.assert_allclose(got.macros.numpy(), want["macros"],
                                rtol=5e-7, atol=1e-18)
-
-
-@pytest.mark.parametrize("kwargs", [
-    dict(compute_diags=True), dict(health=True),
-    dict(diag_filter=["pH_3D"]), dict(diag_dtype=torch.float32)])
-def test_options_not_ported_yet_raise(kwargs):
-    """The four options that raised before the diagnostics were ported,
-    each on top of ``compute_diags=False``, now do what the JAX package's
-    step does with them (ocean_bgc_tpu/models/coupled.py:232-271), read
-    from JAX's own step by ``jax.eval_shape`` (traced, not compiled): the
-    same diagnostic names, shapes and dtypes (the 155 of the registry;
-    the two health counters alone; none, whatever their dtype), or the
-    same ValueError for a filter with nothing to filter.  The step itself
-    is the diags-off one, bitwise."""
-    js, jg, jf = jax_world(nlev=2, ncol=4, seed=21, ragged=True)
-    state, grid, forcing = world_from_numpy(_np(js), _np(jg), _np(jf),
-                                            device="cpu")
-    jp = JaxModelParams()
-    params = params_from_dict(dataclasses.asdict(jp))
-    kw = {"compute_diags": False, **kwargs}
-    jkw = dict(kw)
-    if "diag_dtype" in kw:
-        jkw["diag_dtype"] = jnp.float32
-
-    def jax_diags():
-        return jax.eval_shape(
-            lambda s: jax_step(s, jg, jf, jp, DT, **jkw)[1], js)
-    if "diag_filter" in kwargs:
-        with pytest.raises(ValueError, match="compute_diags=True") as want:
-            jax_diags()
-        with pytest.raises(ValueError) as got:
-            step(state, grid, forcing, params, DT, **kw)
-        assert str(got.value) == str(want.value)
-        return
-    want = jax_diags()
-    out, diags = step(state, grid, forcing, params, DT, **kw)
-    assert set(diags) == set(want)
-    assert len(diags) == {"compute_diags": len(coupled_registry()),
-                          "health": len(HEALTH_NAMES),
-                          "diag_dtype": 0}[next(iter(kwargs))]
-    for k, v in diags.items():
-        assert tuple(v.shape) == want[k].shape, k
-        assert str(v.dtype) == f"torch.{want[k].dtype}", k
-        assert torch.isfinite(v).all(), k
-    plain, _ = step(state, grid, forcing, params, DT, compute_diags=False)
-    assert torch.equal(out.bgc.tracers, plain.bgc.tracers)
 
 
 def test_cpu_step_never_counts_a_launch():

@@ -19,6 +19,7 @@ compared with: columns never interact, so one run of twice the width
 gives both, in half the steps.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -27,7 +28,7 @@ import torch
 
 from ocean_bgc_tpu_torch.models.coupled import run
 from ocean_bgc_tpu_torch.params import ModelParams
-from ocean_bgc_tpu_torch.state import BGCTracers as T
+from ocean_bgc_tpu_torch.state import BGC_TRACER_NAMES, BGCTracers as T
 from ocean_bgc_tpu_torch.utils.bridge import world_from_numpy
 from ocean_bgc_tpu_torch.utils.synthetic import _synthetic_world_numpy
 from tests.oracle.coupled_ref import coupled_step_ref
@@ -38,6 +39,12 @@ PRE_CHAOS_STEPS = 120
 # the 1-ulp kick of the chaos yardstick
 ULP_KICK = 1e-15
 SOLVE_TRACERS = (T.DIC, T.DIC_ALT_CO2, T.O2, T.ALK)
+# the fused interior's qualification (scripts/qualify_fused.py): the
+# relative kick of the envelope's initial f32 tracers, its world and its
+# steps
+QUALIFY_EPS = 1.2e-7
+QUALIFY_WORLD = dict(nlev=60, ncol=256, seed=5, ragged=True)
+QUALIFY_STEPS = 96
 
 
 def oracle_state(world):
@@ -79,18 +86,28 @@ def widen(world, kick):
 
 
 def port_run(world, nsteps, *, dtype=torch.float64, device="cpu",
-             kick=None, params=None):
-    """``nsteps`` steps of the port's ``run`` from a NumPy world.
+             kick=None, params=None, interior_impl="auto", env_cache=True):
+    """``nsteps`` steps of the port's ``run`` from a NumPy world, with
+    ``interior_impl`` and ``env_cache`` as ``run`` takes them.
 
     Returns ``(final, kicked)``: the final state as NumPy arrays under the
     oracle's keys, and with ``kick`` the tracers of the kicked copy (the
-    extra columns of the same run; :func:`widen`), else None."""
+    extra columns of the same run, :func:`widen`'s, its tracers
+    multiplied by ``1 + kick`` in ``dtype``, as the reference scales
+    them), else None."""
     params = params or ModelParams()
     ncol = world[1]["kmax"].shape[-1]
     state, grid, forcing = world_from_numpy(
-        *(widen(world, kick) if kick is not None else world),
+        *(widen(world, 0.0) if kick is not None else world),
         device=device, dtype=dtype)
-    final, _ = run(state, grid, forcing, params, DT, nsteps)
+    if kick is not None:
+        tracers = state.bgc.tracers.clone()
+        tracers[..., ncol:] *= torch.tensor(1.0 + kick, dtype=dtype,
+                                            device=tracers.device)
+        state = dataclasses.replace(state, bgc=dataclasses.replace(
+            state.bgc, tracers=tracers))
+    final, _ = run(state, grid, forcing, params, DT, nsteps,
+                   interior_impl=interior_impl, env_cache=env_cache)
     b = final.bgc
     out = {k: v.cpu().numpy() for k, v in dict(
         tracers=b.tracers, ph_prev=b.ph_prev_3d,
@@ -102,6 +119,37 @@ def port_run(world, nsteps, *, dtype=torch.float64, device="cpu",
         kicked = out["tracers"][..., ncol:]
         out = {k: v[..., :ncol] for k, v in out.items()}
     return out, kicked
+
+
+def fused_qualification(world, nsteps, *, device="cpu"):
+    """``scripts/qualify_fused.py``'s qualification of the fused interior
+    on the port: ``nsteps`` f32 steps of ``world`` (NumPy) with
+    ``interior_impl="fused"`` against as many with the default interior,
+    without the env cache, as there.  Per tracer, max|fused - default|
+    within 30 times the envelope (the default run's distance from the run
+    whose initial f32 tracers are scaled by f32(1 + 1.2e-7), riding as
+    extra columns) plus 1e-2 of the tracer's scale plus 1e-12.  Returns
+    the worst mismatch over its bound; raises AssertionError naming the
+    tracers that fail."""
+    want, kicked = port_run(world, nsteps, dtype=torch.float32,
+                            device=device, kick=QUALIFY_EPS,
+                            env_cache=False)
+    got, _ = port_run(world, nsteps, dtype=torch.float32, device=device,
+                      interior_impl="fused", env_cache=False)
+    g = got["tracers"].astype(np.float64)
+    w = want["tracers"].astype(np.float64)
+    envelope = np.abs(kicked.astype(np.float64) - w)
+    assert np.isfinite(g).all(), "non-finite tracers in the fused run"
+    worst = {}
+    for idx in range(T.CNT):
+        mismatch = np.abs(g[:, idx] - w[:, idx]).max()
+        bound = (30.0 * envelope[:, idx].max()
+                 + 1e-2 * np.abs(w[:, idx]).max() + 1e-12)
+        worst[BGC_TRACER_NAMES[idx]] = float(mismatch / bound)
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    assert not bad, (f"{nsteps} fused f32 steps against the default "
+                     f"interior: mismatch / bound {bad}")
+    return max(worst.values())
 
 
 def _ratio(got, want, rtol, atol):
@@ -185,3 +233,12 @@ def test_kicked_columns_do_not_touch_the_run():
         scale = np.abs(v).max() + 1e-300
         np.testing.assert_allclose(wide[k] / scale, v / scale, rtol=0,
                                    atol=1e-13, err_msg=k)
+
+
+def test_fused_qualification_on_the_plain_route():
+    """:func:`fused_qualification` (the card runs it on
+    ``QUALIFY_WORLD`` for ``QUALIFY_STEPS``) at 6 x 8 for 4 steps; on CPU
+    tensors the fused interior is its plain version, the default
+    interior's code."""
+    world = _synthetic_world_numpy(**dict(QUALIFY_WORLD, nlev=6, ncol=8))
+    assert 0.0 <= fused_qualification(world, 4) <= 1.0

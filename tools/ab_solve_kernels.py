@@ -1,4 +1,4 @@
-"""Compare the unseeded solve kernels of two checkouts of this
+"""Compare the unseeded solve kernels and P of two checkouts of this
 repository on one NVIDIA GPU: their SASS, and their times in turns.
 
     python3 tools/ab_solve_kernels.py BEFORE_DIR AFTER_DIR
@@ -9,14 +9,19 @@ builds the checkout's kernels, makes ``chip_smoke.py``'s flagship world
 (60 x 8192, ragged) one step warm at f64 and f32, and times behind a
 device sleep (``chip_smoke.cuda_ms(device_only=True)``) the launches of
 K1's unseeded dual instance on the env cache's constants, its unseeded
-bracket-in instance on the surface pair and K2's solve kernel.  Then
+bracket-in instance on the surface pair and K2's solve kernel, and P
+(``probe.probe_patterns`` on the probe's inputs) beside the launch floor
+(an empty kernel of one block of 32 threads).  Then
 each kernel of ``carbonate_dual`` and ``interior_step`` is reported as
 having the same SASS in both builds or not (``cuobjdump -sass``).  The
 last line is a JSON object {checkout: {kernel: mean ms of its two
 turns}}.  Both checkouts must have ``chip_smoke.py`` with
-``k1_inputs``, ``surface_lanes`` and ``cuda_ms``.
+``k1_inputs``, ``surface_lanes`` and ``cuda_ms``, ``probe.py`` with
+``probe_inputs`` and ``probe_patterns``, and ``obgc_empty_launch`` in
+``csrc/carbonate_dual.cu``.
 """
 
+import ctypes
 import json
 import os
 import re
@@ -73,6 +78,17 @@ def child(root):
                 ("K2 solve", lambda: ck._launch_solve(kfields, out))):
             res[f"{kernel} {name}"] = cs.cuda_ms(fn, reps=20,
                                                  device_only=True)
+    from ocean_bgc_tpu_torch import probe
+    lib = _kernels.load("carbonate_dual")
+    lib.obgc_empty_launch.argtypes = [ctypes.c_uint, ctypes.c_int,
+                                      ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    pargs = probe.probe_inputs()
+    res["P float32"] = cs.cuda_ms(lambda: probe.probe_patterns(*pargs),
+                                  reps=20, device_only=True)
+    res["launch floor"] = cs.cuda_ms(
+        lambda: lib.obgc_empty_launch(1, 32, stream), reps=20,
+        device_only=True)
     libs = {n: str(_kernels.library_path(n)) for n in SASS_LIBRARIES}
     print(json.dumps({"ms": res, "libs": libs}))
     return 0
