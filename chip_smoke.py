@@ -38,7 +38,16 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    and ``"torch"``, pH within the solver's tolerance; K1 against its
    plain version on cold and warm inputs (all 8 outputs bitwise equal);
    the bracket-in instance against its plain version on the surface pair
-   and the stand-in (bitwise);
+   and the stand-in (bitwise); then the single-point carbonate API and
+   the bracket-in instance's statistics variant (:func:`point_phase`):
+   ``co3_terms`` over the world's 491,520 cells from the cold [6, 9]
+   window and from +/-0.2 around that solve's pH, and ``co2calc_surface``
+   over its 8192 columns, each one launch and bitwise ``impl="torch"``,
+   timed beside its bound; ``solve_htotal_stats`` on those lanes,
+   unseeded and seeded (H bitwise, steps and converged flags the plain
+   version's lane for lane, timed against the launch without statistics
+   in turns, mean cold steps > 1.5 x warm); and, counted, the card's step
+   distribution over ``scripts/ph_iter_stats.py``'s cases after 5 steps;
 4. the fused path (``interior_impl="fused"``), at f64 and f32 on the
    same world: 10 steps with the launches counted (K2's solve kernel 10
    and its biology kernel 10, the dual K1 0, the bracket-in instance 10);
@@ -143,7 +152,13 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    ``all_reduce`` ms; (c) ``run_model --sharded`` under
    ``torch.distributed.run`` with one NCCL rank, its summary, checkpoint
    shards (restored whole and onto two ranks' blocks) and history shards
-   against the same run unsharded here, bitwise; (d)
+   against the same run unsharded here, bitwise, and a 2-step f64 run
+   with ``--netcdf-history --save-world`` whose two files are the
+   unsharded run's bytes; in (a) and (b) each rank's blocks of the f64
+   step's local diagnostics and of its world gathered to rank 0
+   (``parallel/sharding.py::gather_columns``), which alone writes the
+   NetCDF history and the world file, bitwise those of the unsharded
+   step; (d)
    ``entry.dryrun_multichip(2)`` with its default placement, on the card.
 
 ``python3 chip_smoke.py --gate NAME ...`` and ``--rank-worker CONFIG``
@@ -197,8 +212,10 @@ OPS_BRACKET_LANE = 4
 # the seed's test and its clamp into the bracket (four compares)
 OPS_SEED_WINDOW, OPS_SEED_CLAMP = 6, 5
 # it reads dic, x1, x2 and writes H per lane, and reads ta, pt, sit and
-# the 15 constants per shared element
+# the 15 constants per shared element; its statistics variant also writes
+# per lane the steps (int32) and the converged flag (one byte)
 BRACKET_FIELDS_LANE, BRACKET_FIELDS_SHARED = 4, 18
+STATS_BYTES_LANE = 4 + 1
 # K1 reads 21 fields per cell and writes 8; of the 8 the production step
 # (diagnostics off) reads only the two pH fields
 K1_FIELDS_IN, K1_FIELDS_OUT, K1_FIELDS_OUT_READ = 21, 8, 2
@@ -335,8 +352,8 @@ def cuda_ms(fn, reps, warmup=2, rounds=5, device_only=False):
 
 def _counters():
     """{name: (wrapper, attribute)} of every kernel launch count: K1's
-    two instances unseeded and seeded and its constants kernel, K2's two
-    kernels."""
+    two instances unseeded and seeded, the bracket-in instance's
+    statistics variant and K1's constants kernel, K2's two kernels."""
     from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc, cuda_step
     return dict(
         k1=(cc.co3_terms_dual_coeffs, "launches"),
@@ -344,6 +361,7 @@ def _counters():
         brackets=(cc.solve_htotal_brackets, "launches"),
         k1_seeded=(cc.co3_terms_dual_coeffs, "seeded_launches"),
         brackets_seeded=(cc.solve_htotal_brackets, "seeded_launches"),
+        brackets_stats=(cc.solve_htotal_brackets, "stats_launches"),
         k2_solve=(cuda_step._launch_solve, "launches"),
         k2_bio=(cuda_step._launch_bio, "launches"))
 
@@ -535,12 +553,14 @@ def standin_lanes(env):
             full * 10.0 ** -c.PHLO_3D_INIT)
 
 
-def bracket_bound(args, dtype):
+def bracket_bound(args, dtype, stats=False):
     """(bound_ms, bound_by, bytes, operations, mean and most steps) of the
     bracket-in instance on these lanes (with an eighth argument, the
     seeds, of its seeded variant): each lane's and each shared element's
     fields once over the HBM rate, against the operations the plain
-    version's per-lane counts need over the peak rate of the type."""
+    version's per-lane counts need over the peak rate of the type.
+    ``stats``: of its statistics variant, which also writes per lane its
+    steps (4 B) and its converged flag (1 B)."""
     from ocean_bgc_tpu_torch.ops.carbonate import _solve_htotal_impl
     coeffs, dic, ta = args[0], args[1], args[2]
     seed = len(args) > 7
@@ -554,7 +574,8 @@ def bracket_bound(args, dtype):
            + (iters * (OPS_ITER + OPS_TALK)).sum().item())
     # the seeded variant reads one field more per lane, its seed
     nbytes = (((BRACKET_FIELDS_LANE + seed) * n
-               + BRACKET_FIELDS_SHARED * ta.numel()) * dic.element_size())
+               + BRACKET_FIELDS_SHARED * ta.numel()) * dic.element_size()
+              + (STATS_BYTES_LANE * n if stats else 0))
     return (*bound(nbytes, ops, dtype), nbytes, ops, iters.mean().item(),
             iters.max().item())
 
@@ -625,6 +646,238 @@ def check_brackets(dtype, world, env, warm_state):
         f"plain; stand-in ({NLEV * NCOL} lanes, cold) {standin_ms:.4f} ms, "
         f"plain {standin_plain_ms:.3f} ms")
     return dict(max_abs_err=warm_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# the single-point API's warm window, +/- this around the cold solve's pH
+# (tests/test_solver_stats.py's protocol), and the steps of the f32 tail
+# whose share of lanes the step distribution reports
+POINT_WARM_DEL = 0.2
+TAIL_STEPS = (14, 24)
+
+
+def point_inputs(world):
+    """The single-point API's arguments on the whole world: per cell depth
+    (m), T, S and DIC, ALK, PO4, SiO3 clamped at 0 (as a step reads them)
+    and the pressure gate below the first level; per column the
+    surface's, then the atmosphere's xCO2 and pressure."""
+    from ocean_bgc_tpu_torch.state import BGCTracers as T
+    state, grid, forcing = world
+    trc = state.bgc.tracers.clamp_min(0.0)
+    tracers = [trc[:, i].contiguous() for i in (T.DIC, T.ALK, T.PO4,
+                                                 T.SIO3)]
+    depth = grid.cell_center_depth * 0.01
+    press = (torch.arange(depth.shape[0], device=depth.device)
+             > 0)[:, None].expand(depth.shape)
+    return ((depth, forcing.potential_temperature, forcing.salinity,
+             *tracers), press,
+            (forcing.surface_depth, forcing.sst, forcing.sss,
+             *(t[0] for t in tracers)),
+            (forcing.atm_co2, forcing.surface_pressure))
+
+
+def bracket_fields(lanes, seed=None):
+    """The bracket-in instance's fields (``_launch_brackets``) of solver
+    arguments ``(coeffs, dic, ta, pt, sit, x1, x2)``, seeded where
+    ``seed`` is given."""
+    coeffs, dic, ta, pt, sit, x1, x2 = lanes
+    fields = dict(dic=dic, x1=x1, x2=x2, ta=ta, pt=pt, sit=sit,
+                  **coeffs._asdict())
+    if seed is not None:
+        fields["x0"] = seed
+    return fields
+
+
+def lane_stats(iters, conv, mask=None):
+    """The steps' mean, p50, p90, p99 and max, the converged share and the
+    share of lanes taking TAIL_STEPS steps, over the lanes of ``mask``
+    (all where None)."""
+    if mask is not None:
+        iters, conv = iters[mask], conv[mask]
+    it = iters.double().reshape(-1)
+    q = torch.quantile(it, torch.tensor([0.5, 0.9, 0.99], dtype=it.dtype,
+                                        device=it.device)).tolist()
+    lo, hi = TAIL_STEPS
+    return dict(lanes=it.numel(), mean=it.mean().item(), p50=q[0],
+                p90=q[1], p99=q[2], max=it.max().item(),
+                converged=conv.double().mean().item(),
+                tail=((it >= lo) & (it <= hi)).double().mean().item())
+
+
+def stats_text(st):
+    return (f"{st['lanes']} lanes: mean {st['mean']:.3f}, p50 "
+            f"{st['p50']:.0f}, p90 {st['p90']:.0f}, p99 {st['p99']:.0f}, "
+            f"max {st['max']:.0f}, converged {st['converged']:.6f}, "
+            f"{TAIL_STEPS[0]}-{TAIL_STEPS[1]} steps {st['tail']:.4f}")
+
+
+def point_phase(dtype, ctx):
+    """Phase 3b at one dtype: the single-point carbonate API and the
+    bracket-in instance's statistics variant; returns the statistics
+    variant's numbers for the JSON line.
+
+    (a) ``co3_terms`` over every cell of the world, from the cold [6, 9]
+    window and from a +/-0.2 window around that solve's pH, and
+    ``co2calc_surface`` over the surface columns from the cold surface
+    window: each call one launch of the bracket-in instance and every
+    output bitwise ``impl="torch"`` on the same tensors (tolerance none:
+    the kernel is the plain version's per-lane iteration), its ms per
+    launch behind the device sleep beside its bound and the plain
+    version's ms.  (b) ``solve_htotal_stats`` on those lanes, unseeded
+    and seeded at the cold roots: H bitwise the launch without
+    statistics and the plain version, the steps and converged flags equal
+    to the plain version's lane for lane, its time against the launch
+    without statistics in turns; JAX's warm-start criterion (mean cold
+    steps > 1.5 x mean warm); then, counted, the card's step distribution
+    over ``scripts/ph_iter_stats.py``'s cases after 5 steps (the
+    interior's two scenarios as ``bgc_source_sink`` forms them and the
+    same cells cold, active and inactive cells apart, and the surface
+    pair), each held to the plain version's counts."""
+    from ocean_bgc_tpu_torch import constants as c
+    from ocean_bgc_tpu_torch.ops import carbonate as tc
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import (_launch_brackets,
+                                                        _ph_brackets)
+    t0 = time.perf_counter()
+    world, env = ctx["world"], ctx["env"]
+    interior, press, surface, (xco2, atm) = point_inputs(world)
+    cold = (torch.full_like(interior[0], c.PHLO_3D_INIT),
+            torch.full_like(interior[0], c.PHHI_3D_INIT))
+    surf_cold = (torch.full_like(surface[0], c.PHLO_SURF_INIT),
+                 torch.full_like(surface[0], c.PHHI_SURF_INIT))
+    icoeffs = tc.carbonate_coeffs(*interior[:3], press)
+    scoeffs = tc.carbonate_coeffs(*surface[:3], False)
+
+    # -- (a) each call counted, bitwise, timed --
+    def point_call(label, fn, args, coeffs, tracers, window):
+        reset_counts()
+        got = fn(*args, impl="kernel")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = fn(*args, impl="torch")
+        compare(f"{label} {dtype}, kernel vs plain", got, want)
+        if counts != expected(brackets=1):
+            raise AssertionError(f"{label} {dtype}: launches {counts}, "
+                                 f"expected the bracket-in instance 1")
+        lanes = tc.htotal_lanes(coeffs, *tracers, *window)
+        fields = bracket_fields(lanes)
+        ms = cuda_ms(lambda: _launch_brackets(fields), reps=20,
+                     device_only=True)
+        plain_ms = cuda_ms(lambda: tc._solve_htotal_impl(*lanes), reps=1,
+                           warmup=1, rounds=3)
+        bound_ms, bound_by, nbytes, ops, mean_it, max_it = bracket_bound(
+            lanes, dtype)
+        n = lanes[1].numel()
+        floor = cuda_ms(empty_launch(-(-n // 256), 256), reps=20,
+                        device_only=True)
+        log(f"{label} {dtype} ({n} lanes): launches {counts['brackets']}, "
+            f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e6:.3f} Mop, steps mean {mean_it:.2f}, most "
+            f"{max_it:.0f}); launch floor {floor:.4f} ms")
+        return got, lanes
+
+    got, cold_lanes = point_call("co3_terms, cold window", tc.co3_terms,
+                                 (*interior, *cold, press), icoeffs,
+                                 interior[3:], cold)
+    ph = got[0]
+    warm = (ph - POINT_WARM_DEL, ph + POINT_WARM_DEL)
+    _, warm_lanes = point_call(
+        f"co3_terms, +/-{POINT_WARM_DEL} window", tc.co3_terms,
+        (*interior, *warm, press), icoeffs, interior[3:], warm)
+    point_call("co2calc_surface, cold window", tc.co2calc_surface,
+               (*surface, *surf_cold, xco2, atm), scoeffs, surface[3:],
+               surf_cold)
+
+    # -- (b) the statistics variant on the same lanes --
+    def held(label, lanes, seed=None):
+        """solve_htotal_stats on ``lanes``, held to the launch without
+        statistics and to the plain version; its outputs."""
+        h, it, cv = tc.solve_htotal_stats(*lanes, x0=seed)
+        torch.cuda.synchronize()
+        bare = _launch_brackets(bracket_fields(lanes, seed))
+        want, st = tc._solve_htotal_impl(*lanes, with_stats=True, x0=seed)
+        same = (torch.equal(h, bare), torch.equal(h, want),
+                torch.equal(it, st["iters"]),
+                torch.equal(cv, st["converged"]))
+        log(f"statistics variant {dtype} {label} ({h.numel()} lanes): H "
+            f"bitwise the launch without statistics {same[0]} and the "
+            f"plain version {same[1]}; steps equal lane for lane {same[2]}, "
+            f"converged flags {same[3]}")
+        if not all(same):
+            raise AssertionError(f"the statistics variant {dtype} {label} "
+                                 f"disagrees")
+        return h, it, cv
+
+    h_cold, it_cold, _ = held("cold window", cold_lanes)
+    _, it_warm, _ = held(f"+/-{POINT_WARM_DEL} window", warm_lanes)
+    _, it_seed, _ = held(f"+/-{POINT_WARM_DEL} window, seeded at the cold "
+                         f"roots", warm_lanes, h_cold)
+    means = [x.double().mean().item() for x in (it_cold, it_warm, it_seed)]
+    log(f"statistics variant {dtype}: mean steps cold {means[0]:.3f}, warm "
+        f"{means[1]:.3f}, seeded {means[2]:.3f}; JAX's warm-start criterion "
+        f"cold > 1.5 x warm: {means[0] > 1.5 * means[1]}")
+    if not means[0] > 1.5 * means[1]:
+        raise AssertionError(f"warm starts do not cut the steps: {means}")
+    times = {}
+    for label, seed in (("warm", None), ("seeded", h_cold)):
+        fields = bracket_fields(warm_lanes, seed)
+        times[label] = in_turns(
+            f"statistics variant {dtype} {label}, {warm_lanes[1].numel()} "
+            f"lanes", {"with statistics": lambda f=fields: _launch_brackets(
+                f, with_stats=True),
+                       "without": lambda f=fields: _launch_brackets(f)})
+    plain_ms = cuda_ms(lambda: tc._solve_htotal_impl(
+        *warm_lanes, with_stats=True), reps=1, warmup=1, rounds=3)
+    bound_ms, bound_by, nbytes, ops, _, _ = bracket_bound(warm_lanes, dtype,
+                                                          stats=True)
+    log(f"statistics variant {dtype} warm: "
+        f"{times['warm']['with statistics']:.4f} ms/launch (without "
+        f"{times['warm']['without']:.4f}), seeded "
+        f"{times['seeded']['with statistics']:.4f} (without "
+        f"{times['seeded']['without']:.4f}); plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e6:.3f} Mop)")
+
+    # -- the card's step distribution, counted --
+    state, grid, forcing = world
+    state5 = ctx["after"][4]
+    dic, ta, pt, sit, ph_a, ph_b, coeffs = k1_inputs(state5, grid, forcing,
+                                                     env)
+    mass = tc._to_mass_units(dic, ta, pt, sit)
+    cases = {name: (coeffs, *mass, *_ph_brackets(p)) for name, p in (
+        ("interior ambient", ph_a), ("interior ALT_CO2", ph_b),
+        ("interior cold", torch.zeros_like(ph_a)))}
+    cases["surface pair"] = surface_lanes(state5, forcing)
+    reset_counts()
+    with gates_paused():
+        out = {name: tc.solve_htotal_stats(*lanes)
+               for name, lanes in cases.items()}
+        torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected(brackets_stats=len(cases)):
+        raise AssertionError(f"the step distribution's launches {counts}, "
+                             f"expected the statistics variant "
+                             f"{len(cases)}")
+    active = grid.active_mask()
+    ocean = (grid.kmax > 0).expand(cases["surface pair"][1].shape)
+    for name, lanes in cases.items():
+        h, it, cv = out[name]
+        want, st = tc._solve_htotal_impl(*lanes, with_stats=True)
+        if not (torch.equal(h, want) and torch.equal(it, st["iters"])
+                and torch.equal(cv, st["converged"])):
+            raise AssertionError(f"the statistics variant {dtype} {name} "
+                                 f"disagrees with its plain version")
+        parts = ((("all", None), ("active", active), ("inactive", ~active))
+                 if name.startswith("interior") else
+                 (("all", None), ("ocean", ocean), ("land", ~ocean)))
+        for part, mask in parts:
+            if mask is None or mask.any():
+                log(f"step distribution {dtype} (card), {name} after 5 "
+                    f"steps, {part}, {stats_text(lane_stats(it, cv, mask))}")
+    log(f"point phase {dtype}: launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=counts["brackets_stats"], max_abs_err=0.0,
+                ms=times["warm"]["with statistics"], plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -3185,7 +3438,7 @@ def md_rank(cfg):
     from ocean_bgc_tpu_torch.params import ModelParams
     from ocean_bgc_tpu_torch.parallel import distributed as dist
     from ocean_bgc_tpu_torch.parallel.sharding import (
-        all_reduce_sum, make_mesh, make_sharded_forced_run,
+        all_reduce_sum, gather_columns, make_mesh, make_sharded_forced_run,
         make_sharded_step, shard_columns, shard_world)
     from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
     from ocean_bgc_tpu_torch.utils.history import write_history_shards
@@ -3235,6 +3488,15 @@ def md_rank(cfg):
                  **{k: v.cpu().numpy() for k, v in local.items()})
         if dtype == torch.float64:
             ckpt.save(os.path.join(out, "ck"), new, step=1, mesh=mesh)
+            # the two files of every column, gathered to rank 0 (each
+            # rank names its own, so that what each writes shows)
+            before = gather_columns.calls
+            means = gather_columns(local, mesh)
+            whole = gather_columns((new, grid, forcing), mesh)
+            rec["gathers"] = gather_columns.calls - before
+            if means is not None:
+                write_md_files(out, f"_p{mesh.rank}", means, *whole)
+            del whole
         fused = make_sharded_step(mesh, params, DT, interior_impl="fused")
         new, _ = counted(f"fused_{name}", fused, state, grid, forcing)
         write_history_shards(os.path.join(out, f"fused_{name}"),
@@ -3261,6 +3523,37 @@ def md_rank(cfg):
         json.dump(rec, f)
     dist.shutdown()
     return 0
+
+
+def write_md_files(out, suffix, means, state, grid, forcing):
+    """The multi-device phase's NetCDF history of the step's local
+    diagnostics and its world file, as ``run_model`` writes them:
+    ``hist<suffix>.nc`` and ``world<suffix>.nc`` in ``out``."""
+    import numpy as np
+
+    from ocean_bgc_tpu_torch.io.model_io import (save_history_netcdf,
+                                                 save_world)
+    save_history_netcdf(os.path.join(out, f"hist{suffix}.nc"), means,
+                        nlev=NLEV, ncol=NCOL, count=1,
+                        attrs={"dt": DT, "step": np.int32(1)})
+    save_world(os.path.join(out, f"world{suffix}.nc"), state, grid, forcing,
+               attrs={"step": np.int32(1)})
+
+
+def same_files(label, got, want):
+    """Raise unless the files ``got`` and ``want`` hold the same bytes,
+    naming the NetCDF variables that differ."""
+    with open(got, "rb") as f, open(want, "rb") as g:
+        if f.read() == g.read():
+            return
+    from ocean_bgc_tpu_torch.io import netcdf3 as nc
+    a, b = nc.read(got), nc.read(want)
+    differ = sorted(k for k in set(a.variables) | set(b.variables)
+                    if k not in a.variables or k not in b.variables
+                    or not (a.variables[k].data == b.variables[k].data).all())
+    raise AssertionError(f"{label}: {os.path.basename(got)} differs from "
+                         f"the unsharded twin's (variables {differ}, "
+                         f"attributes equal {a.attrs == b.attrs})")
 
 
 def spawn_ranks(label, n, backend, device, out):
@@ -3407,6 +3700,19 @@ def md_check(label, recs, out, ref):
             f"per rank {recs[0][f'diags_{name}']['launches']} (diags), "
             f"{recs[0][f'fused_{name}']['launches']} (fused), as unsharded; "
             f"collectives 1 / 0")
+    for kind in ("hist", "world"):
+        if any(os.path.exists(os.path.join(out, f"{kind}_p{i}.nc"))
+               for i in range(1, len(recs))):
+            raise AssertionError(f"{label}: a rank other than 0 wrote "
+                                 f"{kind}")
+        same_files(label, os.path.join(out, f"{kind}_p0.nc"),
+                   ref[f"{kind}_twin"])
+    if any(rec["gathers"] != 2 for rec in recs):
+        raise AssertionError(f"{label}: gathers per rank "
+                             f"{[rec['gathers'] for rec in recs]}, want 2")
+    log(f"multi-device {label} float64: the NetCDF history and the world "
+        f"file gathered to rank 0 (2 gathers per rank) bitwise the "
+        f"unsharded twin's; no other rank wrote either")
     forced = stitch_history_shards(os.path.join(out, "forced"))
     fshare, fworst = md_compare(f"{label} forced", forced,
                                 state_fields(ref["forced_state"]),
@@ -3421,9 +3727,11 @@ def md_check(label, recs, out, ref):
         f"launches per rank {recs[0]['forced']['launches']}")
 
 
-def md_reference(params):
+def md_reference(params, tmp):
     """The unsharded step with diagnostics and health, the fused step and
-    the forced run on the whole world, each with its launches counted."""
+    the forced run on the whole world, each with its launches counted;
+    at f64 the NetCDF history of the step's local diagnostics and its
+    world file, written to ``tmp`` (the ranks' files' twins)."""
     from ocean_bgc_tpu_torch.models.coupled import step
     from ocean_bgc_tpu_torch.models.forcing_series import run_forced
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
@@ -3436,6 +3744,11 @@ def md_reference(params):
         new, diags = step(state, grid, forcing, params, DT, health=True)
         torch.cuda.synchronize()
         r = dict(diags_state=new, diags=diags, diags_launches=read_counts())
+        if dtype == torch.float64:
+            write_md_files(tmp, "_twin", {k: diags[k] for k in MD_LOCAL},
+                           new, grid, forcing)
+            for kind in ("hist", "world"):
+                ref[f"{kind}_twin"] = os.path.join(tmp, f"{kind}_twin.nc")
         reset_counts()
         r["fused_state"], _ = step(state, grid, forcing, params, DT,
                                    compute_diags=False,
@@ -3526,6 +3839,34 @@ def md_run_model(tmp, params):
             f"run's; ck_final restored bitwise, its step-2 shards restored "
             f"onto 2 ranks bitwise, history ({len(hist)} fields) stitched "
             f"bitwise")
+    # one file of every column: NetCDF history and the world file, f64
+    files = {}
+    for label, launch in (("sharded", [
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "ocean_bgc_tpu_torch.run_model",
+            "--sharded"]), ("unsharded", None)):
+        out = os.path.join(tmp, f"rm_nc_{label}")
+        argv = [*common[:6], "--steps", "2", *common[8:], "--netcdf-history",
+                "--save-world", os.path.join(out, "world.nc"), "--out", out]
+        if launch is None:
+            run_driver("unsharded twin of run_model --sharded "
+                       "--netcdf-history --save-world", argv)
+        else:
+            proc = subprocess.run([*launch, *argv, "--quiet"], cwd=HERE,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"run_model --sharded --netcdf-history "
+                                     f"--save-world failed (exit "
+                                     f"{proc.returncode}):\n"
+                                     f"{proc.stderr[-3000:]}")
+        files[label] = [os.path.join(out, f) for f in ("hist_000002.nc",
+                                                       "world.nc")]
+    for got, want in zip(files["sharded"], files["unsharded"]):
+        same_files("(c) run_model --sharded", got, want)
+    log("multi-device (c) run_model --sharded --netcdf-history --save-world "
+        "(1 NCCL rank, 2 steps, f64): hist_000002.nc and world.nc bitwise "
+        "the unsharded run's")
 
 
 def md_phase(params, tmp):
@@ -3535,7 +3876,7 @@ def md_phase(params, tmp):
     a child process, every result gated against the unsharded step
     here."""
     t0 = time.perf_counter()
-    ref = md_reference(params)
+    ref = md_reference(params, tmp)
     log(f"multi-device: unsharded launches, diags step "
         f"{ref['float64']['diags_launches']}, fused step "
         f"{ref['float64']['fused_launches']}")
@@ -3626,6 +3967,7 @@ def phases(_kernels, card, tmp):
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split('.')[-1]
         k1, kb, ctx = main_path(dtype, params)
+        kstats = point_phase(dtype, ctx)
         k2 = fused_path(dtype, params, ctx)
         kcoeffs = default_call(dtype, params, ctx)
         if dtype == torch.float64:
@@ -3643,6 +3985,11 @@ def phases(_kernels, card, tmp):
             seed_qualification(params, ctx)
         log(f"driver phase {name}: {time.perf_counter() - t0:.1f} s")
         del ctx
+        kernels.append(dict(
+            name=f"solve_htotal_brackets stats ({name})", route="cuda",
+            source="ocean_bgc_tpu_torch/csrc/carbonate_dual.cu",
+            replaces="ocean_bgc_tpu/ops/pallas_carbonate.py:63",
+            library_ms=None, **kstats))
         for kname, key, k in (
                 ("carbonate_dual seeded", "k1_seeded", seeded["dual"]),
                 ("solve_htotal_brackets seeded", "brackets_seeded",

@@ -1,5 +1,6 @@
 // K1: the pH solve, CUDA C++ for Hopper (sm_90a), in two instances, each
-// with an unseeded and a seeded variant.
+// with an unseeded and a seeded variant; the bracket-in instance also has
+// a statistics variant.
 //
 // Replaces the Pallas TPU kernel
 //   ocean_bgc_tpu/ops/pallas_carbonate.py::_carbonate_kernel (:63).
@@ -19,8 +20,13 @@
 // The bracket-in instance (obgc_solve_htotal_brackets) is
 // ops/carbonate.py::_solve_htotal_impl itself: H of every lane from
 // H-space brackets given as input.  It solves the surface pair of every
-// step (ambient and ALT_CO2 over all columns, co2calc_surface_dual) and
-// the env cache's stand-in problem (precompute_env).  Lanes whose
+// step (ambient and ALT_CO2 over all columns, co2calc_surface_dual), the
+// env cache's stand-in problem (precompute_env) and the single-point
+// calls (comp_htotal, co3_terms, co2calc_surface: one lane per cell).
+// Its statistics variant (obgc_solve_htotal_brackets_stats,
+// solve_htotal_stats) also writes each lane's steps and whether it
+// converged, counted as the plain version counts them; it is a lane
+// source of its own, so the other instances keep their code.  Lanes whose
 // alkalinity, nutrients and constants are shared (the surface pair's two
 // scenarios) read them in place: lane l reads element l % m of each
 // shared field, so nothing is expanded in memory.
@@ -49,10 +55,13 @@
 // column and writes one per lane (~1.7 MB at f64 for 8192 columns): it is
 // bound by its launch and its slowest lanes, not by the card's rates.
 //
-// The unseeded tail.  Warm cells converge in 2-3 steps at f64; at f32 a
-// third of them take 14-24 (a bisection tail near the f32 rounding of
-// the residual), so with one lane per thread most of a warp waits for its
-// slowest lane, and the f32 launch runs at 8.6x its bound.  There the
+// The unseeded tail.  Warm cells converge in 2-3 steps at f64 (mean
+// 2.07); at f32 35.7% of them take 14-24 (mean 8.78, p50 4, p90 19: a
+// bisection tail near the f32 rounding of the residual), as the
+// statistics variant counts them on the H100 over the flagship world
+// after 5 steps (chip_smoke.py's step distribution, PERF.md).  So with
+// one lane per thread most of a warp waits for its slowest lane, and the
+// f32 launch runs at 8.6x its bound.  There the
 // slow lanes are the bulk: refilling finished threads with unstarted
 // lanes from a device counter, per problem or per residual evaluation,
 // measured no faster on the H100 at either type (PERF.md), so the
@@ -113,6 +122,7 @@ constexpr int kThreads = 256;
 template <typename T, bool Seed>
 struct DualLanes {
   static constexpr bool kSeed = Seed;
+  static constexpr bool kStats = false;
   // dic, ta, pt, sit (mmol/m^3), ph_prev_a, ph_prev_b, then the 15
   // coefficients in CarbCoeffs order
   const T* in[kNumIn];
@@ -192,6 +202,7 @@ enum BracketField : int {
 template <typename T, bool Seed>
 struct BracketLanes {
   static constexpr bool kSeed = Seed;
+  static constexpr bool kStats = false;
   const T* in[B_h];
   T* h;
   int64_t m;   // elements of each shared field
@@ -216,10 +227,28 @@ struct BracketLanes {
   }
 };
 
+// The bracket-in instance's statistics variant (solve_htotal_stats): the
+// same lanes, and per lane also its steps and whether it converged (or
+// stalled) before MAXIT, the plain version's ``iters`` and
+// ``converged``.  A type of its own, so that the instances above keep
+// their kernels' parameters and names.
+template <typename T, bool Seed>
+struct BracketStatsLanes : BracketLanes<T, Seed> {
+  static constexpr bool kStats = true;
+  int* iters;
+  bool* converged;
+
+  __device__ __forceinline__ void count(int64_t l, int steps,
+                                        bool conv) const {
+    iters[l] = steps;
+    converged[l] = conv;
+  }
+};
+
 template <typename T, typename Src>
 __global__ void __launch_bounds__(kThreads)
     lanes_kernel(Src src, int64_t n) {
-  solve_lanes<T, Src::kSeed>(src, n);
+  solve_lanes<T, Src::kSeed, Src::kStats>(src, n);
 }
 
 // Four blocks of kThreads to an SM: at most 64 registers, those of the
@@ -276,6 +305,19 @@ int launch_brackets(void* const* fields, int64_t n, int64_t m,
   for (int j = 0; j < B_h; ++j) src.in[j] = static_cast<const T*>(fields[j]);
   src.h = static_cast<T*>(fields[B_h]);
   src.m = m;
+  return launch<T>(src, n, sch, stream);
+}
+
+template <typename T, bool Seed>
+int launch_brackets_stats(void* const* fields, int* iters, bool* converged,
+                          int64_t n, int64_t m, const Schedule& sch,
+                          cudaStream_t stream) {
+  BracketStatsLanes<T, Seed> src;
+  for (int j = 0; j < B_h; ++j) src.in[j] = static_cast<const T*>(fields[j]);
+  src.h = static_cast<T*>(fields[B_h]);
+  src.m = m;
+  src.iters = iters;
+  src.converged = converged;
   return launch<T>(src, n, sch, stream);
 }
 
@@ -342,6 +384,34 @@ extern "C" int obgc_solve_htotal_brackets(int is_double, int seed,
   }
   return seed ? obgc::launch_brackets<float, true>(fields, n, m, sch, s)
               : obgc::launch_brackets<float, false>(fields, n, m, sch, s);
+}
+
+// The bracket-in instance's statistics variant: as
+// obgc_solve_htotal_brackets, and per lane also its steps into ``iters``
+// (int32) and whether it converged or stalled before MAXIT into
+// ``converged`` (one byte, 0 or 1), ``n`` elements each.
+extern "C" int obgc_solve_htotal_brackets_stats(int is_double, int seed,
+                                                unsigned blocks, int threads,
+                                                void* const* fields,
+                                                void* iters, void* converged,
+                                                long long n, long long m,
+                                                void* stream) {
+  const obgc::Schedule sch{obgc::cst::MAXIT, blocks, threads};
+  if (seed && !obgc::valid(sch, false, n)) return cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto it = static_cast<int*>(iters);
+  auto cv = static_cast<bool*>(converged);
+  if (is_double) {
+    return seed ? obgc::launch_brackets_stats<double, true>(fields, it, cv,
+                                                            n, m, sch, s)
+                : obgc::launch_brackets_stats<double, false>(fields, it, cv,
+                                                             n, m, sch, s);
+  }
+  return seed ? obgc::launch_brackets_stats<float, true>(fields, it, cv, n,
+                                                         m, sch, s)
+              : obgc::launch_brackets_stats<float, false>(fields, it, cv, n,
+                                                          m, sch, s);
 }
 
 extern "C" int obgc_brackets_num_fields() { return obgc::B_COUNT; }

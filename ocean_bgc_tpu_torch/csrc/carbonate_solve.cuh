@@ -239,10 +239,14 @@ __device__ __forceinline__ Newton<T> newton_start(const TalkTerms<T>& t, T x1,
 // in locals and stored back once: so written, solve_htotal's kernels
 // compile to the same SASS as one undivided loop, where iterating the
 // fields of ``s`` in place moved registers and slowed the f32 surface
-// pair by 4% (PERF.md).
-template <typename T>
+// pair by 4% (PERF.md).  ``Stats`` (the statistics sources): also store
+// in ``*converged`` whether the problem stopped by converging or
+// stalling, not at MAXIT or ``stop`` (the plain version's ``converged``);
+// without it the pointer is not read and the routine is the one above.
+template <typename T, bool Stats = false>
 __device__ __forceinline__ bool newton_steps(const TalkTerms<T>& t,
-                                             Newton<T>& s, T xacc, int stop) {
+                                             Newton<T>& s, T xacc, int stop,
+                                             bool* converged = nullptr) {
   T soln = s.soln, xlo = s.xlo, xhi = s.xhi, dx = s.dx, dxold = s.dxold;
   T f = s.f, df = s.df;
   int it = s.it;
@@ -273,6 +277,7 @@ __device__ __forceinline__ bool newton_steps(const TalkTerms<T>& t,
     }
   }
   s = Newton<T>{soln, xlo, xhi, dx, dxold, f, df, it};
+  if constexpr (Stats) *converged = done;
   return done || it >= cst::MAXIT;
 }
 
@@ -328,9 +333,11 @@ __device__ __forceinline__ T ph_seed(T ph_prev) {
 // - One lane per thread (solve_lanes), every unseeded source and a
 //   seeded one at a cap of MAXIT or more: each thread solves its lane's
 //   problems start to end.  Unseeded, the slow problems are the bulk,
-//   not a tail: at f32 a third of warm problems take 14-24 steps (a
-//   bisection tail near the f32 rounding of the residual), so nearly
-//   every warp holds several and there is little idle time to reclaim.
+//   not a tail: at f32 35.7% of the flagship world's warm interior
+//   problems take 14-24 steps (mean 8.78, p50 4, p90 19: a bisection
+//   tail near the f32 rounding of the residual; chip_smoke.py's step
+//   distribution on the H100, PERF.md), so nearly every warp holds
+//   several and there is little idle time to reclaim.
 //   Refill (a thread whose lane is done takes the next unstarted lane
 //   from a device counter) and a per-step lane state machine measured no
 //   faster on the H100 at either type (PERF.md).
@@ -367,8 +374,12 @@ struct Lane {
 
 // Solve lanes [0, n), one per thread of the grid (strided past the grid).
 // ``Seed``: each problem starts from its seed s.x0, which the source sets
-// (solve_htotal); unseeded sources leave it unset and unread.
-template <typename T, bool Seed = false, typename Src>
+// (solve_htotal); unseeded sources leave it unset and unread.  ``Stats``:
+// the source also takes each problem's steps and whether it converged
+// (or stalled) before MAXIT, by ``count(i, steps, converged)`` before its
+// ``finish(i, s)``; the steps are the plain version's ``iters``, the step
+// that converges counted.
+template <typename T, bool Seed = false, bool Stats = false, typename Src>
 __device__ __forceinline__ void solve_lanes(const Src& src, int64_t n) {
   const T xacc = solver_xacc<T>();
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -378,7 +389,14 @@ __device__ __forceinline__ void solve_lanes(const Src& src, int64_t n) {
     Lane<T> s;
     if (!src.begin(lane, s)) continue;
     do {
-      if constexpr (Seed) {
+      if constexpr (Stats) {
+        Newton<T> st =
+            newton_start<T, Seed>(s.t, s.x1, s.x2, Seed ? s.x0 : T(0));
+        bool converged;
+        newton_steps<T, true>(s.t, st, xacc, cst::MAXIT, &converged);
+        s.soln = st.soln;
+        src.count(lane, st.it, converged);
+      } else if constexpr (Seed) {
         s.soln = solve_htotal<T, true>(s.t, s.x1, s.x2, xacc, s.x0);
       } else {
         s.soln = solve_htotal(s.t, s.x1, s.x2, xacc);

@@ -88,3 +88,8 @@ def step_rk4(state: CoupledState, grid: ColumnGrid, forcing: BGCForcing,
         macros_incr=(k1.macros + 2.0 * k2.macros + 2.0 * k3.macros
                      + k4.macros))
     return new, diags
+
+
+# the integrators by name, as run_model's --integrator names them; forward
+# Euler is models/coupled.py::step itself (JAX's INTEGRATORS)
+INTEGRATORS = {"euler": None, "rk2": step_rk2, "rk4": step_rk4}

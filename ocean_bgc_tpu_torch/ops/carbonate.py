@@ -478,6 +478,93 @@ def _to_mass_units(dic_in, ta_in, pt_in, sit_in):
     return dic, ta, pt, sit
 
 
+def solve_htotal_stats(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
+                       x0=None, *, impl="auto"):
+    """The instrumented solve (JAX ``solve_htotal_stats``, ocean_bgc_tpu/
+    ops/carbonate.py:437-444): ``(htotal, iters, converged)``, with the
+    Newton-or-bisection steps each lane took (int32, the step that
+    converges counted) and whether it converged or stalled before MAXIT
+    (bool) — the convergence observability the reference silently drops
+    (co2calc.F90:993-995).  ``x0``: the iteration seed (0 = none), as
+    :func:`_solve_htotal_impl` takes it.  The arguments broadcast against
+    each other.  ``impl`` as :func:`co2calc_surface_dual` takes it: on
+    CUDA tensors one launch of K1's bracket-in instance's statistics
+    variant (``ops/cuda_carbonate.py::solve_htotal_brackets``, counted in
+    its ``.stats_launches``), on CPU tensors the plain
+    :func:`_solve_htotal_impl`.  Not differentiable: inputs that require
+    grad raise."""
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import solve_htotal_brackets
+    coeffs, dic, ta, pt, sit, x1, x2, x0 = _as_lanes(
+        coeffs, dic, ta, pt, sit, x1, x2, x0)
+    return solve_htotal_brackets(coeffs, dic, ta, pt, sit, x1, x2, seed=x0,
+                                 impl=impl, with_stats=True)
+
+
+def _as_lanes(coeffs: CarbCoeffs, dic, *fields):
+    """``coeffs``, ``dic`` and ``fields`` (tensors, numbers, or None,
+    kept) broadcast to one shape, contiguous, numbers as tensors of
+    ``dic``'s type and device: one lane per element, every field read
+    per lane, the layout K1's bracket-in instance takes (its shared
+    fields as many as its lanes)."""
+    def tensor(x):
+        return (x if isinstance(x, torch.Tensor) or x is None
+                else torch.as_tensor(x, dtype=dic.dtype, device=dic.device))
+    fields = [tensor(x) for x in fields]
+    given = [*coeffs, dic, *(x for x in fields if x is not None)]
+    shape = torch.broadcast_shapes(*(t.shape for t in given))
+
+    def lanes(t):
+        return None if t is None else t.expand(shape).contiguous()
+    return (CarbCoeffs(*map(lanes, coeffs)), lanes(dic),
+            *map(lanes, fields))
+
+
+def comp_htotal(coeffs: CarbCoeffs, dic_in, ta_in, pt_in, sit_in, phlo,
+                phhi, *, impl="auto"):
+    """Solve for H+ from (DIC, TA) with a pH bracket [phlo, phhi]
+    (comp_htotal, co2calc.F90:781-868; JAX ``comp_htotal``): the tracers
+    floored and in mol/kg, the H-space bracket ``10**-phhi``,
+    ``10**-phlo``, one lane per cell.  ``impl`` as
+    :func:`co2calc_surface_dual` takes it (on CUDA tensors one launch of
+    K1's bracket-in instance); differentiable through the solve's
+    implicit-function rule.  Returns ``(htotal, dic)``, both in mol/kg."""
+    from ocean_bgc_tpu_torch.ops.cuda_carbonate import solve_htotal_brackets
+    dic = _to_mass_units(dic_in, ta_in, pt_in, sit_in)[0]
+    lanes = htotal_lanes(coeffs, dic_in, ta_in, pt_in, sit_in, phlo, phhi)
+    return solve_htotal_brackets(*lanes, impl=impl), dic
+
+
+def htotal_lanes(coeffs: CarbCoeffs, dic_in, ta_in, pt_in, sit_in, phlo,
+                 phhi):
+    """:func:`comp_htotal`'s solver arguments, ``(coeffs, dic, ta, pt,
+    sit, x1, x2)`` in mol/kg, one lane per cell (``solve_htotal_brackets``'s
+    layout)."""
+    dic, ta, pt, sit = _to_mass_units(dic_in, ta_in, pt_in, sit_in)
+    x1, x2 = (torch.pow(10.0, -torch.as_tensor(ph, dtype=dic.dtype,
+                                               device=dic.device))
+              for ph in (phhi, phlo))
+    return _as_lanes(coeffs, dic, ta, pt, sit, x1, x2)
+
+
+def co3_terms(depth_m, temp, salt, dic_in, ta_in, pt_in, sit_in, phlo,
+              phhi, apply_pressure, *, impl="auto"):
+    """Carbonate speciation H2CO3/HCO3/CO3 and pH (comp_CO3terms,
+    co2calc.F90:214-316; JAX ``co3_terms``): the Lueker constants, with
+    pressure corrections where ``apply_pressure`` (a bool or a bool
+    tensor), and :func:`comp_htotal`'s root.  Returns ``(ph, h2co3,
+    hco3, co3)``, the concentrations in mmol/m^3."""
+    coeffs = carbonate_coeffs(depth_m, temp, salt, apply_pressure,
+                              k1_k2_ph_tot=True)
+    htotal, dic = comp_htotal(coeffs, dic_in, ta_in, pt_in, sit_in, phlo,
+                              phhi, impl=impl)
+    htotal2 = htotal * htotal
+    denom = 1.0 / (htotal2 + coeffs.k1 * htotal + coeffs.k1 * coeffs.k2)
+    h2co3 = dic * htotal2 * denom * MASS_TO_VOL
+    hco3 = dic * coeffs.k1 * htotal * denom * MASS_TO_VOL
+    co3 = dic * coeffs.k1 * coeffs.k2 * denom * MASS_TO_VOL
+    return -torch.log10(htotal), h2co3, hco3, co3
+
+
 def warm_brackets_h(ph_prev, lo_init, hi_init, del_ph, with_seed=False):
     """H-space solver brackets: ph_prev -/+ del_ph where ph_prev != 0
     (BGC_mod.F90:943-956), with one pow per cell; lanes with the 0
@@ -546,6 +633,31 @@ def co2calc_surface_dual(depth_m, temp, salt, dic_a, dic_b, ta_in, pt_in,
                 dpco2[i] * 1e6)
 
     return pick(0), pick(1)
+
+
+def co2calc_surface(depth_m, temp, salt, dic_in, ta_in, pt_in, sit_in,
+                    phlo, phhi, xco2_in, atmpres, *,
+                    locmip_k1_k2_bug_fix=True, impl="auto"):
+    """Surface CO2*, delta-CO2* and pCO2 of one scenario (co2calc_1point,
+    co2calc.F90:75-210; JAX ``co2calc_surface``): the surface level, no
+    pressure corrections; ``locmip_k1_k2_bug_fix`` picks the Lueker
+    total-scale k1/k2 over the OCMIP2 fit; the root of
+    :func:`comp_htotal` (``impl`` as it takes it).  Returns ``(ph,
+    co2star, dco2star, pco2surf, dpco2)``, the co2star terms in mmol/m^3
+    and pCO2 in ppmv."""
+    coeffs = carbonate_coeffs(depth_m, temp, salt, False,
+                              k1_k2_ph_tot=locmip_k1_k2_bug_fix)
+    htotal, dic = comp_htotal(coeffs, dic_in, ta_in, pt_in, sit_in, phlo,
+                              phhi, impl=impl)
+    xco2 = xco2_in * 1e-6
+    htotal2 = htotal * htotal
+    co2star = dic * htotal2 / (htotal2 + coeffs.k1 * htotal
+                               + coeffs.k1 * coeffs.k2)
+    dco2star = xco2 * coeffs.ff * atmpres - co2star
+    pco2surf = co2star / coeffs.ff
+    dpco2 = pco2surf - xco2 * atmpres
+    return (-torch.log10(htotal), co2star * MASS_TO_VOL,
+            dco2star * MASS_TO_VOL, pco2surf * 1e6, dpco2 * 1e6)
 
 
 def co3_sat_vals(depth_m, temp, salt, apply_pressure):

@@ -115,6 +115,10 @@ DUAL_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
 BRACKETS_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                      ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)
+# the bracket-in instance's statistics variant: its arguments, with the
+# per-lane steps and converged flags after the fields
+BRACKETS_STATS_ARGTYPES = (*BRACKETS_ARGTYPES[:5], ctypes.c_void_p,
+                           ctypes.c_void_p, *BRACKETS_ARGTYPES[5:])
 
 
 def _speciate(h, dic, coeffs):
@@ -517,19 +521,19 @@ def dual_sat_and_coeffs(depth_m, temp, salt, dic, ta, pt, sit, ph_prev_a,
     return coeffs, a, b, sat
 
 
-def _launch_brackets(fields, threads=None):
+def _launch_brackets(fields, threads=None, with_stats=False):
     """Launch the bracket-in instance on ``fields`` (by
     :data:`BRACKET_FIELDS` name, inputs only; the seeded variant where
     ``fields`` holds ``x0``); returns H per lane.  ``threads`` overrides
-    a seeded launch's block size (:func:`seeded_schedule`)."""
+    a seeded launch's block size (:func:`seeded_schedule`).
+    ``with_stats``: the statistics variant, returning ``(H, iters,
+    converged)``, the steps per lane (int32) and whether each converged
+    (bool)."""
     _kernels.refuse_grad("solve_htotal_brackets", fields)
     dic = fields["dic"]
     seed = "x0" in fields
     sched = seeded_schedule(dic, threads) if seed else (1, 32)
     lib = _kernels.load("carbonate_dual")
-    fn = lib.obgc_solve_htotal_brackets
-    fn.argtypes = BRACKETS_ARGTYPES
-    fn.restype = ctypes.c_int
     if lib.obgc_brackets_num_fields() != len(BRACKET_FIELDS):
         raise RuntimeError("csrc/carbonate_dual.cu and ops/cuda_carbonate.py "
                            "disagree on the bracket-in argument layout")
@@ -538,14 +542,27 @@ def _launch_brackets(fields, threads=None):
     arr = (ctypes.c_void_p * len(BRACKET_FIELDS))(
         *(ptrs[k].data_ptr() if k in ptrs else None for k in BRACKET_FIELDS))
     stream = torch.cuda.current_stream(dic.device).cuda_stream
-    code = fn(int(dic.dtype == torch.float64), int(seed), *sched, arr,
-              dic.numel(), fields["ta"].numel(), stream)
+    sizes = (dic.numel(), fields["ta"].numel(), stream)
+    if with_stats:
+        fn = lib.obgc_solve_htotal_brackets_stats
+        fn.argtypes = BRACKETS_STATS_ARGTYPES
+        iters = torch.empty(dic.shape, dtype=torch.int32, device=dic.device)
+        converged = torch.empty(dic.shape, dtype=torch.bool,
+                                device=dic.device)
+        outs = (iters.data_ptr(), converged.data_ptr())
+    else:
+        fn = lib.obgc_solve_htotal_brackets
+        fn.argtypes = BRACKETS_ARGTYPES
+        outs = ()
+    fn.restype = ctypes.c_int
+    code = fn(int(dic.dtype == torch.float64), int(seed), *sched, arr, *outs,
+              *sizes)
     _kernels.check(lib, code, "solve_htotal_brackets launch")
-    return h
+    return (h, iters, converged) if with_stats else h
 
 
 def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
-                          seed=None, impl="auto"):
+                          seed=None, impl="auto", with_stats=False):
     """H (mol/kg) of every lane from the H-space bracket [x1, x2]: the
     function of :func:`ops.carbonate._solve_htotal_impl`, its plain
     version.
@@ -562,9 +579,24 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     device.  Each kernel launch adds one to
     ``solve_htotal_brackets.launches``, or with a ``seed`` to
     ``solve_htotal_brackets.seeded_launches``.
+
+    ``with_stats``: the statistics variant, ``(H, iters, converged)``
+    with the steps each lane took (int32, the step that converges
+    counted) and whether it converged or stalled before MAXIT (bool), as
+    the plain version counts them; not differentiable (inputs that
+    require grad raise).  Its kernel launches add one to
+    ``solve_htotal_brackets.stats_launches``, seeded or not.
     """
     _check_impl(impl)
-    if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
+    plain = impl == "torch" or (impl == "auto" and dic.device.type == "cpu")
+    if with_stats:
+        _kernels.refuse_grad("solve_htotal_stats", coeffs, dic, ta, pt, sit,
+                             x1, x2, seed)
+        if plain:
+            h, st = _solve_htotal_impl(coeffs, dic, ta, pt, sit, x1, x2,
+                                       with_stats=True, x0=seed)
+            return h, st["iters"], st["converged"]
+    elif plain:
         return solve_htotal(coeffs, dic, ta, pt, sit, x1, x2, seed)
     lanes, shared = tuple(dic.shape), tuple(ta.shape)
     if len(shared) > len(lanes) or lanes[len(lanes) - len(shared):] != shared:
@@ -578,6 +610,10 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     _check_kernel_inputs("solve_htotal_brackets", dic, {
         k: (t, lanes if k in ("dic", "x1", "x2", "x0") else shared)
         for k, t in fields.items()})
+    if with_stats:
+        out = _launch_brackets(fields, with_stats=True)
+        solve_htotal_brackets.stats_launches += 1
+        return out
 
     def run():
         h = _launch_brackets(fields)
@@ -588,3 +624,4 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
 
 solve_htotal_brackets.launches = 0
 solve_htotal_brackets.seeded_launches = 0
+solve_htotal_brackets.stats_launches = 0

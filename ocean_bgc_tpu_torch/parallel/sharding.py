@@ -15,7 +15,11 @@ processes of a ``torch.distributed`` group (``parallel/distributed.py``):
 * what crosses ranks is the global reduction of the scalar monitoring
   diagnostics (the Jint conservation sums, the global integrals and the
   health counters): one stacked ``all_reduce`` per step that computes
-  them, where the JAX package issues 6 + 2 ``psum``s.
+  them, where the JAX package makes 6 + 2 ``psum``s;
+* a file that holds every column (``run_model``'s NetCDF history and
+  world file) is written by rank 0 from the ranks' blocks gathered to it
+  (:func:`gather_columns`), as the JAX package writes it from its global
+  arrays.
 
 The JAX package's pjit twins (``make_pjit_step``,
 ``make_pjit_forced_run``) were a validation harness for XLA's
@@ -95,6 +99,54 @@ def all_reduce_sum(values: Sequence[torch.Tensor], mesh: ColumnMesh
 
 
 all_reduce_sum.calls = 0
+
+
+def gather_columns(tree, mesh: ColumnMesh):
+    """Every rank's column block of ``tree`` on rank 0, joined along the
+    last axis in rank order (``host_local_columns``): the global tree on
+    rank 0, None on the others.  Scalars are replicated and come from
+    rank 0.  One ``gather`` over the mesh's group of the tree's leaves as
+    bytes, so every leaf keeps its type and its bits (on a Gloo group
+    through the host; NCCL gathers on the cards).  Every rank calls it
+    with a tree of the same structure, shapes and types; each call adds
+    one to ``gather_columns.calls``."""
+    leaves = []
+
+    def collect(path, x):
+        leaves.append(torch.as_tensor(x))
+        return x
+
+    tree_map(collect, tree)
+    on = (mesh.device if tdist.get_backend(mesh.group) == "nccl"
+          else torch.device("cpu"))
+    raw = [x.to(on).contiguous().reshape(-1).view(torch.uint8)
+           for x in leaves]
+    buf = torch.cat(raw) if raw else torch.empty(0, dtype=torch.uint8,
+                                                 device=on)
+    blocks = ([torch.empty_like(buf) for _ in range(mesh.world_size)]
+              if mesh.rank == 0 else None)
+    dst = 0 if mesh.group is None else tdist.get_global_rank(mesh.group, 0)
+    tdist.gather(buf, blocks, dst=dst, group=mesh.group)
+    gather_columns.calls += 1
+    if mesh.rank != 0:
+        return None
+    parts = [b.split([r.numel() for r in raw]) for b in blocks]
+    index = iter(range(len(leaves)))
+
+    def join(path, _):
+        i = next(index)
+        x = leaves[i]
+        # a copy per piece: a view of the buffer at another type needs an
+        # aligned offset
+        pieces = [p[i].clone().view(x.dtype).reshape(x.shape)
+                  for p in parts]
+        joined = pieces[0] if x.ndim == 0 else torch.cat(pieces, dim=-1)
+        return joined.to(x.device)
+
+    return tree_map(join, tree)
+
+
+gather_columns.calls = 0
 
 
 def make_sharded_step(mesh: ColumnMesh, params: ModelParams, dt: float, *,

@@ -15,8 +15,10 @@ on CUDA, one card per rank; Gloo with ``--device cpu``), or without a
 launcher as one rank.  Each rank steps its block with no collective and
 writes its history and checkpoint shards (``hist_<step>/hist_p<rank>.npz``,
 ``ck_<step>/ck_p<rank>.npz``); ``--restore`` reads shards written at any
-rank count, or a single file.  Rank 0 prints the summary, reduced over
-ranks.
+rank count, or a single file.  ``--netcdf-history`` and ``--save-world``
+write one file of every column: the ranks' blocks are gathered to rank 0
+(``parallel/sharding.py::gather_columns``), which alone writes it.  Rank
+0 prints the summary, reduced over ranks.
 
 Examples::
 
@@ -107,10 +109,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.sharded and (args.netcdf_history or args.save_world):
-        raise SystemExit("--sharded writes per-rank .npz shards; "
-                         "--netcdf-history and --save-world write one file "
-                         "and are not available with it")
     if args.history_fields and not args.history_every > 0:
         raise SystemExit("--history-fields requires --history-every N "
                          "(without history output there are no "
@@ -157,9 +155,12 @@ def _run(args) -> int:
 
     mesh = None
     if args.sharded:
+        import torch.distributed as tdist
+
         from ocean_bgc_tpu_torch.parallel.distributed import global_mesh
         from ocean_bgc_tpu_torch.parallel.sharding import (
             all_reduce_sum,
+            gather_columns,
             shard_columns,
             shard_world,
         )
@@ -205,8 +206,7 @@ def _run(args) -> int:
         if not args.quiet:
             print(f"resumed from {args.restore} at step {start_step}")
 
-    step_impl = {"euler": step, "rk2": integrators.step_rk2,
-                 "rk4": integrators.step_rk4}[args.integrator]
+    step_impl = integrators.INTEGRATORS[args.integrator] or step
     want_diags = args.history_every > 0
 
     series = record_dt = None
@@ -265,28 +265,32 @@ def _run(args) -> int:
                 tavg = TavgState.create(diags)
             tavg = tavg.accumulate(diags)
             if (i + 1) % args.history_every == 0:
+                stem = os.path.join(args.out, f"hist_{i + 1:06d}")
+                means = tavg.means()
                 if mesh is not None:
                     # scalars (the health counters' means) are the ranks'
                     # totals: one all_reduce per history write
-                    means = tavg.means()
                     scalars = [k for k, v in means.items() if v.ndim == 0]
                     if scalars:
                         means.update(zip(scalars, all_reduce_sum(
                             [means[k] for k in scalars], mesh)))
-                    path = write_history_shards(
-                        os.path.join(args.out, f"hist_{i + 1:06d}"), means,
-                        mesh=mesh)
-                elif args.netcdf_history:
+                if args.netcdf_history:
                     from ocean_bgc_tpu_torch.io.model_io import (
                         save_history_netcdf)
-                    path = save_history_netcdf(
-                        os.path.join(args.out, f"hist_{i + 1:06d}.nc"),
-                        tavg.means(), nlev=state.bgc.nlev,
-                        ncol=state.bgc.ncol, count=int(tavg.count),
-                        attrs={"dt": args.dt, "step": np.int32(i + 1)})
+                    if mesh is not None:
+                        # one file of every column, written by rank 0
+                        means = gather_columns(means, mesh)
+                    path = None
+                    if means is not None:
+                        path = save_history_netcdf(
+                            stem + ".nc", means, nlev=state.bgc.nlev,
+                            ncol=total_columns, count=int(tavg.count),
+                            attrs={"dt": args.dt, "step": np.int32(i + 1)})
+                elif mesh is not None:
+                    path = write_history_shards(stem, means, mesh=mesh)
                 else:
                     path = write_history(
-                        os.path.join(args.out, f"hist_{i + 1:06d}"), tavg,
+                        stem, tavg,
                         attrs={"dt": str(args.dt), "step": str(i + 1)})
                 tavg = tavg.reset()
                 if not args.quiet:
@@ -304,8 +308,13 @@ def _run(args) -> int:
                          step=start_step + args.steps, mesh=mesh)
     if args.save_world:
         from ocean_bgc_tpu_torch.io.model_io import save_world
-        save_world(args.save_world, state, grid, forcing,
-                   attrs={"step": np.int32(start_step + args.steps)})
+        world = (state, grid, forcing)
+        if mesh is not None:
+            # one file of every column, written by rank 0
+            world = gather_columns(world, mesh)
+        if world is not None:
+            save_world(args.save_world, *world,
+                       attrs={"step": np.int32(start_step + args.steps)})
         if not args.quiet:
             print(f"world -> {args.save_world}")
     # the summary needs only the conservation residual
@@ -316,7 +325,6 @@ def _run(args) -> int:
     if mesh is not None:
         # the summary over ranks: the largest residual and elapsed time,
         # every block finite, the health totals summed
-        import torch.distributed as tdist
         worst = torch.stack([jint.to(torch.float64),
                              (~finite).to(torch.float64),
                              jint.new_full((), elapsed, dtype=torch.float64)])
@@ -340,6 +348,9 @@ def _run(args) -> int:
                         for k, v in health_tot.items()})
     if mesh is None or mesh.rank == 0:
         print(json.dumps(summary))
+    if mesh is not None:
+        # every rank returns once rank 0's files are written
+        tdist.barrier(group=mesh.group)
     return 0
 
 

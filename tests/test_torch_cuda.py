@@ -369,7 +369,8 @@ def _bracket_lanes(cuda, dtype):
     a quarter of the lanes: cold (the wide window), warm (the pH after
     one step -/+ DEL_PH), off-window (that pH shifted by 0.5, so the
     bracket must grow) and the step's own warm seeds of the ALT_CO2
-    scenario after two steps (at f32 a third of them take 14-24 steps)."""
+    scenario after two steps (at f32 over a third of warm problems take
+    14-24 steps, chip_smoke.py's step distribution)."""
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
                                            ragged=True, dtype=dtype,
@@ -423,6 +424,101 @@ def test_bracket_instance_matches_plain_solve(cuda, dtype):
                                 impl="kernel")
     want = tcarb._solve_htotal_impl(ccol, dic2, *row[1:], xs1, xs2)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["", "seeded"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stats_variant_matches_plain_version(cuda, dtype, seeded):
+    """The bracket-in instance's statistics variant (``solve_htotal_stats``
+    on CUDA tensors, one launch counted in ``.stats_launches``) on the
+    lanes above and in the surface layout: H bitwise the launch without
+    statistics and the plain version, the steps and converged flags equal
+    to ``_solve_htotal_impl``'s lane for lane, unseeded and seeded near
+    the windows' midpoints (clamped into the grown brackets where the
+    window is off); inputs that require grad raise."""
+    coeffs, m, x1, x2 = _bracket_lanes(cuda, dtype)
+    x0 = None
+    if seeded:
+        x0 = torch.where(torch.arange(x1.numel(), device=cuda).view(
+            x1.shape) % 3 == 0, 0.0, (x1 * x2).sqrt() * 1.01)
+    before = (solve_htotal_brackets.launches,
+              solve_htotal_brackets.seeded_launches,
+              solve_htotal_brackets.stats_launches)
+    h, iters, conv = tcarb.solve_htotal_stats(coeffs, *m, x1, x2, x0=x0)
+    torch.cuda.synchronize()
+    assert (solve_htotal_brackets.launches,
+            solve_htotal_brackets.seeded_launches,
+            solve_htotal_brackets.stats_launches) == (before[0], before[1],
+                                                      before[2] + 1)
+    assert iters.dtype == torch.int32 and conv.dtype == torch.bool
+    want, st = tcarb._solve_htotal_impl(coeffs, *m, x1, x2, with_stats=True,
+                                        x0=x0)
+    assert torch.equal(h, want)
+    assert torch.equal(h, solve_htotal_brackets(coeffs, *m, x1, x2, seed=x0,
+                                                impl="kernel"))
+    assert torch.equal(iters, st["iters"])
+    assert torch.equal(conv, st["converged"])
+    # some f32 lanes end at MAXIT: the flags say which, as the plain
+    # version's do
+    assert (st["grows"] > 0).any() and conv.any()
+
+    row = [x[3].contiguous() for x in m]
+    ccol = tcarb.CarbCoeffs(*(k[3].contiguous() for k in coeffs))
+    dic2 = torch.stack([row[0], row[0] * 0.97])
+    xs1, xs2 = torch.stack([x1[3], x1[5]]), torch.stack([x2[3], x2[5]])
+    xs0 = None if x0 is None else torch.stack([x0[3], x0[5]])
+    got = solve_htotal_brackets(ccol, dic2, *row[1:], xs1, xs2, seed=xs0,
+                                impl="kernel", with_stats=True)
+    want, st = tcarb._solve_htotal_impl(ccol, dic2, *row[1:], xs1, xs2,
+                                        with_stats=True, x0=xs0)
+    for g, w in zip(got, (want, st["iters"], st["converged"])):
+        assert torch.equal(g, w)
+    with pytest.raises(RuntimeError, match="require grad"):
+        tcarb.solve_htotal_stats(coeffs, m[0].clone().requires_grad_(),
+                                 *m[1:], x1, x2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_single_point_api_is_one_launch_bitwise(cuda, dtype):
+    """``co3_terms`` (pressure as a mask), ``co2calc_surface`` and
+    ``comp_htotal`` on CUDA tensors: one launch of the bracket-in
+    instance each, every output bitwise ``impl="torch"`` on the same
+    tensors; the cold and a +/-0.2 window; gradients through the kernel
+    route equal the plain route's."""
+    state, grid, forcing = synthetic_world(nlev=12, ncol=700, seed=4,
+                                           ragged=True, dtype=dtype,
+                                           device=cuda)
+    trc = state.bgc.tracers.clamp_min(0.0)
+    from ocean_bgc_tpu_torch.state import BGCTracers as T
+    tracers = [trc[:, i] for i in (T.DIC, T.ALK, T.PO4, T.SIO3)]
+    depth = grid.cell_center_depth * 0.01
+    env = (depth, forcing.potential_temperature, forcing.salinity)
+    press = (torch.arange(12, device=cuda) > 0)[:, None].expand(depth.shape)
+    lo, hi = torch.full_like(depth, 6.0), torch.full_like(depth, 9.0)
+
+    def run(fn, *args, **kw):
+        before = solve_htotal_brackets.launches
+        got = fn(*args, impl="kernel", **kw)
+        torch.cuda.synchronize()
+        assert solve_htotal_brackets.launches == before + 1, fn.__name__
+        want = fn(*args, impl="torch", **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), fn.__name__
+        return got
+    ph = run(tcarb.co3_terms, *env, *tracers, lo, hi, press)[0]
+    run(tcarb.co3_terms, *env, *tracers, ph - 0.2, ph + 0.2, press)
+    surf = [x[0] for x in tracers]
+    run(tcarb.co2calc_surface, forcing.surface_depth, forcing.sst,
+        forcing.sss, *surf, 7.0, 9.0, forcing.atm_co2,
+        forcing.surface_pressure)
+    coeffs = tcarb.carbonate_coeffs(*env, press)
+    run(tcarb.comp_htotal, coeffs, *tracers, lo, hi)
+
+    dic = tracers[0].clone().requires_grad_()
+    grads = [torch.autograd.grad(tcarb.co3_terms(
+        *env, dic, *tracers[1:], lo, hi, press, impl=impl)[3].sum(), dic)[0]
+        for impl in ("kernel", "torch")]
+    assert torch.equal(*grads)
 
 
 def test_surface_fluxes_make_no_host_sync(cuda):

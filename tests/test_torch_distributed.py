@@ -6,7 +6,9 @@ Each rank steps its block of a 6 x 16 ragged world (f64 and f32) through
 ``make_sharded_step`` (diagnostics, health and ``local_diags``; the fused
 production step) and ``make_sharded_forced_run``, writes its blocks as
 history shards, saves and restores checkpoint shards across rank counts,
-and runs ``run_model --sharded``.  The tests hold the stitched results to
+and runs ``run_model --sharded``, once with shard history and once with
+NetCDF history and a world file, which rank 0 alone writes from the
+gathered blocks.  The tests hold the stitched results to
 the port's unsharded step (which ``tests/test_torch_step.py`` holds to
 JAX) within 1e-12 (f64) / 1e-5 (f32) of each field's scale, the global
 sums to the sums of JAX's unsharded diagnostics, the health counts
@@ -66,6 +68,8 @@ RM_ARGS = ("--nlev", str(NLEV), "--ncol", str(NCOL), "--seed", "3",
            "--health", "--history-every", "2", "--history-fields",
            "pco2surf,NITRIF,POC_FLUX_IN", "--checkpoint-every", "2",
            "--device", "cpu", "--quiet")
+# the run that writes NetCDF history and the world file
+NC_ARGS = ("--steps", "2", "--netcdf-history")
 
 
 def _world(dtype=torch.float64):
@@ -138,8 +142,16 @@ def rank_main(out):
     with contextlib.redirect_stdout(buf):
         run_model.main(["--sharded", *RM_ARGS, "--steps", "4", "--out",
                         os.path.join(out, "rm")])
+    # one file of every column: each rank is given its own directory, so
+    # that what each writes shows
+    nc_out = os.path.join(out, f"rm_nc_p{mesh.rank}")
+    nc_buf = io.StringIO()
+    with contextlib.redirect_stdout(nc_buf):
+        run_model.main(["--sharded", *RM_ARGS, *NC_ARGS, "--save-world",
+                        os.path.join(nc_out, "world.nc"), "--out", nc_out])
     with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
         json.dump({"calls": calls, "stdout": buf.getvalue(),
+                   "stdout_nc": nc_buf.getvalue(),
                    "world_size": mesh.world_size}, f)
     dist.shutdown()
 
@@ -320,6 +332,41 @@ def test_run_model_sharded_at_two_ranks_and_restored_at_one(ranks, tmp_path,
     assert n == 4
     _close({k: v.numpy() for k, v in _fields(again).items()},
            _fields(final), TOL["float64"], "resumed")
+
+
+
+def test_run_model_sharded_writes_netcdf_history_and_world_on_rank_0(
+        ranks, tmp_path, capsys):
+    """``run_model --sharded --netcdf-history --save-world`` on two
+    ranks: rank 0 writes the one history file and the one world file of
+    every column, each variable within TOL of the same run at one process
+    (the blocks are stepped apart, see above) and with its dimensions and
+    attributes; rank 1 writes neither and prints nothing."""
+    from ocean_bgc_tpu_torch.io import netcdf3 as nc
+    names = ("hist_000002.nc", "world.nc")
+    with open(os.path.join(ranks, "rank1.json")) as f:
+        assert json.load(f)["stdout_nc"] == ""
+    assert not any(os.path.exists(os.path.join(ranks, "rm_nc_p1", n))
+                   for n in names)
+    with open(os.path.join(ranks, "rank0.json")) as f:
+        summary = json.loads(json.load(f)["stdout_nc"].splitlines()[-1])
+    assert summary["columns"] == NCOL and summary["steps"] == 2
+    one = tmp_path / "one"
+    assert run_model.main([*RM_ARGS, *NC_ARGS, "--save-world",
+                           str(one / "world.nc"), "--out", str(one)]) == 0
+    capsys.readouterr()
+    for name in names:
+        got = nc.read(os.path.join(ranks, "rm_nc_p0", name))
+        want = nc.read(str(one / name))
+        assert got.dims == want.dims and got.dims["ncol"] == NCOL, name
+        assert {k: str(v) for k, v in got.attrs.items()} == {
+            k: str(v) for k, v in want.attrs.items()}, name
+        assert set(got.variables) == set(want.variables), name
+        _close({k: v.data for k, v in got.variables.items()},
+               {k: v.data for k, v in want.variables.items()},
+               TOL["float64"], name)
+        for k, v in got.variables.items():
+            assert v.dims == want.variables[k].dims, (name, k)
 
 
 if __name__ == "__main__":

@@ -78,7 +78,8 @@ def _c_params(name, source=SOURCE):
 
 @pytest.mark.parametrize("name, argtypes", [
     ("obgc_carbonate_dual", cc.DUAL_ARGTYPES),
-    ("obgc_solve_htotal_brackets", cc.BRACKETS_ARGTYPES)])
+    ("obgc_solve_htotal_brackets", cc.BRACKETS_ARGTYPES),
+    ("obgc_solve_htotal_brackets_stats", cc.BRACKETS_STATS_ARGTYPES)])
 def test_entry_point_signatures_match_the_source(name, argtypes):
     """ctypes passes each argument as the wrapper's signature says: a
     mismatch with the C declaration would shift every argument after
