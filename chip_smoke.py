@@ -350,35 +350,36 @@ def cuda_ms(fn, reps, warmup=2, rounds=5, device_only=False):
     return statistics.median(times)
 
 
-def _counters():
-    """{name: (wrapper, attribute)} of every kernel launch count: K1's
-    two instances unseeded and seeded, the bracket-in instance's
-    statistics variant and K1's constants kernel, K2's two kernels."""
-    from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc, cuda_step
-    return dict(
-        k1=(cc.co3_terms_dual_coeffs, "launches"),
-        coeffs=(cc.carbonate_coeffs_sat, "launches"),
-        brackets=(cc.solve_htotal_brackets, "launches"),
-        k1_seeded=(cc.co3_terms_dual_coeffs, "seeded_launches"),
-        brackets_seeded=(cc.solve_htotal_brackets, "seeded_launches"),
-        brackets_stats=(cc.solve_htotal_brackets, "stats_launches"),
-        k2_solve=(cuda_step._launch_solve, "launches"),
-        k2_bio=(cuda_step._launch_bio, "launches"))
+# every kernel launch count, by its name here and in the port's counters
+# (``utils/profiling.py``): K1's two instances unseeded and seeded, the
+# bracket-in instance's statistics variant and K1's constants kernel,
+# K2's two kernels
+LAUNCH_COUNTERS = dict(
+    k1="k1.dual", coeffs="k1.coeffs", brackets="k1.brackets",
+    k1_seeded="k1.dual_seeded", brackets_seeded="k1.brackets_seeded",
+    brackets_stats="k1.brackets_stats", k2_solve="k2.solve",
+    k2_bio="k2.bio")
+_COUNTS_AT_RESET = {}
 
 
 def reset_counts():
-    """Set every kernel wrapper's launch count to 0."""
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+    """Count every kernel's launches from 0 here on."""
+    from ocean_bgc_tpu_torch.utils.profiling import counters
+    _COUNTS_AT_RESET.clear()
+    _COUNTS_AT_RESET.update(counters())
 
 
 def read_counts():
-    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+    """Each kernel's launches since :func:`reset_counts`."""
+    from ocean_bgc_tpu_torch.utils.profiling import counters
+    now = counters()
+    return {k: now[name] - _COUNTS_AT_RESET.get(name, 0)
+            for k, name in LAUNCH_COUNTERS.items()}
 
 
 def expected(**nonzero):
     """The launch counts of a run in which only ``nonzero`` launched."""
-    return {k: nonzero.get(k, 0) for k in _counters()}
+    return {k: nonzero.get(k, 0) for k in LAUNCH_COUNTERS}
 
 
 def ptxas_lines(log_text):
@@ -2109,10 +2110,11 @@ def probe_phase():
     PROBE_TILES in turns beside the launch floor (an empty kernel of the
     default launch's shape); returns its kernel entry's numbers."""
     from ocean_bgc_tpu_torch import probe
-    probe.probe_patterns.launches = 0
+    from ocean_bgc_tpu_torch.utils.profiling import counters
+    before = counters()["probe"]
     out, tend, checksum = probe.run()
     torch.cuda.synchronize()
-    launches = probe.probe_patterns.launches
+    launches = counters()["probe"] - before
     args = probe.probe_inputs()
     want = probe.probe_patterns_torch(*args)
     rel = probe.max_rel_err((out, tend), want)
@@ -2128,11 +2130,11 @@ def probe_phase():
     for nlev in PROBE_NLEVS:
         for seed, ncol in enumerate(PROBE_NCOLS):
             shaped = probe.shaped_inputs(nlev, ncol, seed=seed)
-            before = probe.probe_patterns.launches
+            before = counters()["probe"]
             r = probe.max_rel_err(probe.probe_patterns(*shaped),
                                   probe.probe_patterns_torch(*shaped))
             worst = max(worst, r)
-            if probe.probe_patterns.launches != before + 1 or not (
+            if counters()["probe"] != before + 1 or not (
                     r <= probe.RTOL):
                 raise AssertionError(f"P at {nlev} x {ncol}: max error / "
                                      f"scale {r:.3g}")
@@ -3442,6 +3444,7 @@ def md_rank(cfg):
         make_sharded_step, shard_columns, shard_world)
     from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
     from ocean_bgc_tpu_torch.utils.history import write_history_shards
+    from ocean_bgc_tpu_torch.utils.profiling import counters
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
     import numpy as np
 
@@ -3454,11 +3457,12 @@ def md_rank(cfg):
 
     def counted(label, fn, *args):
         reset_counts()
-        before = all_reduce_sum.calls
+        before = counters()["collectives.all_reduce"]
         result = fn(*args)
         torch.cuda.synchronize()
-        rec[label] = dict(launches=read_counts(),
-                          collectives=all_reduce_sum.calls - before)
+        rec[label] = dict(
+            launches=read_counts(),
+            collectives=counters()["collectives.all_reduce"] - before)
         return result
 
     def wall_ms(fn, reps):
@@ -3490,10 +3494,10 @@ def md_rank(cfg):
             ckpt.save(os.path.join(out, "ck"), new, step=1, mesh=mesh)
             # the two files of every column, gathered to rank 0 (each
             # rank names its own, so that what each writes shows)
-            before = gather_columns.calls
+            before = counters()["collectives.gather"]
             means = gather_columns(local, mesh)
             whole = gather_columns((new, grid, forcing), mesh)
-            rec["gathers"] = gather_columns.calls - before
+            rec["gathers"] = counters()["collectives.gather"] - before
             if means is not None:
                 write_md_files(out, f"_p{mesh.rank}", means, *whole)
             del whole

@@ -67,6 +67,7 @@ def _dryrun_rank(rank, n, address, device):
     )
     from ocean_bgc_tpu_torch.parallel import distributed as dist
     from ocean_bgc_tpu_torch.params import ModelParams
+    from ocean_bgc_tpu_torch.utils.profiling import readback
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
     dev, backend = rank_placement(rank, n, torch.cuda.device_count(), device)
@@ -79,9 +80,10 @@ def _dryrun_rank(rank, n, address, device):
         fn = make_sharded_step(mesh, ModelParams(), 3600.0,
                                compute_diags=True, health=True)
         new_state, global_diags = fn(state, grid, forcing)
-        assert bool(new_state.bgc.tracers.isfinite().all())
-        assert float(global_diags["photoC_TOT_zint"]) >= 0.0
-        assert float(global_diags["health_solver_nonconverged_cells"]) == 0.0
+        assert bool(readback(new_state.bgc.tracers.isfinite().all()))
+        assert float(readback(global_diags["photoC_TOT_zint"])) >= 0.0
+        assert float(readback(
+            global_diags["health_solver_nonconverged_cells"])) == 0.0
     finally:
         dist.shutdown()
 
@@ -111,8 +113,8 @@ if __name__ == "__main__":
                          else None)
         print(f"dryrun_multichip({n}): OK")
     else:
-        import torch
+        from ocean_bgc_tpu_torch.utils.profiling import synchronize
         fn, args = entry()
         out = fn(*args)
-        torch.cuda.synchronize()
+        synchronize()
         print("entry(): ran OK")

@@ -77,6 +77,7 @@ from ocean_bgc_tpu_torch.state import (
     bgc_tracer_units,
 )
 from ocean_bgc_tpu_torch.utils.bridge import resolve_device
+from ocean_bgc_tpu_torch.utils.profiling import count
 
 BGC_tracer_cnt = BGCTracers.CNT        # 30 (BGC_mod.F90:117-118)
 DMS_tracer_cnt = 14                    # DMS_mod.F90:61-62
@@ -197,6 +198,7 @@ def _to_host(tensors: Sequence[torch.Tensor]):
             for t in tensors]
     for b, t in zip(bufs, tensors):
         b.copy_(t, non_blocking=True)
+    count("host_syncs")
     torch.cuda.current_stream(tensors[0].device).synchronize()
     return [b.numpy() for b in bufs]
 

@@ -32,6 +32,7 @@ from ocean_bgc_tpu_torch.state import (
     ColumnGrid,
 )
 from ocean_bgc_tpu_torch.utils.bridge import resolve_device
+from ocean_bgc_tpu_torch.utils.profiling import readback
 
 _GRID_FIELDS = ("cell_center_depth", "cell_thickness", "cell_bottom_depth",
                 "latitude", "kmax")
@@ -40,7 +41,7 @@ _GRID_FIELDS = ("cell_center_depth", "cell_thickness", "cell_bottom_depth",
 def to_numpy(x) -> np.ndarray:
     """A tensor (on any device) or array as a host numpy array."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return readback(x).detach().cpu().numpy()
     return np.asarray(x)
 
 

@@ -58,6 +58,7 @@ from ocean_bgc_tpu_torch.models.coupled import CoupledState, step
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.params import ModelParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCState, ColumnGrid
+from ocean_bgc_tpu_torch.utils.profiling import readback
 
 _INDEXED = re.compile(r"^([A-Za-z_][A-Za-z_0-9]*)\[(\d+)\]$")
 
@@ -260,7 +261,7 @@ def parameter_sensitivities(
                      remat=remat, env_cache=env_cache,
                      carbonate_impl=carbonate_impl)
     (g,) = torch.autograd.grad(functional(final), theta)
-    return {p: float(g[i]) for i, p in enumerate(paths)}
+    return dict(zip(paths, readback(g).tolist()))
 
 
 @dataclasses.dataclass
@@ -341,19 +342,20 @@ def calibrate(
     for _ in range(iters):
         opt.zero_grad()
         loss = objective(theta)
-        losses.append(float(loss.detach()))
+        losses.append(float(readback(loss.detach())))
         loss.backward()
         opt.step()
     # one final evaluation so that losses[-1] is the loss AT the returned
     # parameters (the loop records the loss before each update)
     if iters > 0:
         with torch.no_grad():
-            losses.append(float(objective(theta)))
+            losses.append(float(readback(objective(theta))))
 
-    values = {p: float(v) for p, v in zip(paths, to_values(theta.detach()))}
+    values = dict(zip(paths, readback(torch.stack(
+        to_values(theta.detach()))).tolist()))
     return CalibrationResult(
         params=override_params(template, values),
         values=values,
         losses=losses,
-        theta=theta.detach().cpu().numpy(),
+        theta=readback(theta.detach()).cpu().numpy(),
     )

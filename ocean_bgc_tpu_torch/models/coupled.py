@@ -47,6 +47,7 @@ from ocean_bgc_tpu_torch.state import (
     DMSTracers as DT,
     MACROSTracers as MT,
 )
+from ocean_bgc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,79 +169,85 @@ def evaluate_tendencies(
     top_dzr = 1.0 / grid.cell_thickness[0]            # (ncol,)
 
     # ---- 1. surface fluxes ----
-    sflux = bgc_surface_fluxes(
-        state.bgc.tracers, forcing,
-        state.bgc.surface_ph, state.bgc.surface_ph_alt, params.bgc,
-        carbonate_impl=carbonate_impl)
-    dflux = dms_surface_fluxes(
-        state.dms[0, 0], forcing.sst, forcing.sss, forcing.ice_fraction,
-        forcing.wind_speed_squared_10m, forcing.surface_pressure,
-        params.dms)
+    with span("step.surface"):
+        sflux = bgc_surface_fluxes(
+            state.bgc.tracers, forcing,
+            state.bgc.surface_ph, state.bgc.surface_ph_alt, params.bgc,
+            carbonate_impl=carbonate_impl)
+        dflux = dms_surface_fluxes(
+            state.dms[0, 0], forcing.sst, forcing.sss, forcing.ice_fraction,
+            forcing.wind_speed_squared_10m, forcing.surface_pressure,
+            params.dms)
 
     # ---- 2. interior tendencies ----
-    if impl == "fused":
-        bgc_out = fused_interior_step(
-            state.bgc.tracers, grid, forcing,
-            state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
-            env=env)
-    else:
-        bgc_out = bgc_source_sink(
-            state.bgc.tracers, grid, forcing,
-            state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
-            compute_diags=compute_diags, carbonate_impl=carbonate_impl,
-            env=env, health=health)
-    dms_tend, dms_diags = dms_source_sink(
-        dms_tracer_block(state), grid.cell_thickness, active,
-        forcing.sst, forcing.shortwave_surface, params.dms,
-        compute_diags=compute_diags)
-    mac_tend, mac_diags = macros_source_sink(
-        macros_tracer_block(state), active, params.macros,
-        compute_diags=compute_diags)
+    with span("step.interior"):
+        if impl == "fused":
+            bgc_out = fused_interior_step(
+                state.bgc.tracers, grid, forcing,
+                state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
+                env=env)
+        else:
+            bgc_out = bgc_source_sink(
+                state.bgc.tracers, grid, forcing,
+                state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d, params.bgc,
+                compute_diags=compute_diags, carbonate_impl=carbonate_impl,
+                env=env, health=health)
+    with span("step.dms"):
+        dms_tend, dms_diags = dms_source_sink(
+            dms_tracer_block(state), grid.cell_thickness, active,
+            forcing.sst, forcing.shortwave_surface, params.dms,
+            compute_diags=compute_diags)
+    with span("step.macros"):
+        mac_tend, mac_diags = macros_source_sink(
+            macros_tracer_block(state), active, params.macros,
+            compute_diags=compute_diags)
 
     # ---- 3. deposit surface fluxes into the top active cell ----
-    surf_src = torch.where(has_ocean, top_dzr, 0.0)   # (ncol,) 1/cm
-    bgc_t = bgc_out.tendencies
-    bgc_t[0] += surf_src[None, :] * sflux.net_flux
-    # the prognostic tracers' tendencies, gathered by stacking (an index
-    # list would be copied from the host, a synchronisation)
-    dms_t = torch.stack([dms_tend[:, i] for i in (DT.DMS, DT.DMSP)], dim=1)
-    dms_t[0, 0] += surf_src * dflux.dms_flux
-    dms_t[0, 1] += surf_src * dflux.dmsp_flux
-    mac_t = torch.stack([mac_tend[:, i] for i in (MT.PROT, MT.POLY, MT.LIP)],
-                        dim=1)
+    with span("step.deposit"):
+        surf_src = torch.where(has_ocean, top_dzr, 0.0)   # (ncol,) 1/cm
+        bgc_t = bgc_out.tendencies
+        bgc_t[0] += surf_src[None, :] * sflux.net_flux
+        # the prognostic tracers' tendencies, gathered by stacking (an
+        # index list would be copied from the host, a synchronisation)
+        dms_t = torch.stack([dms_tend[:, i] for i in (DT.DMS, DT.DMSP)],
+                            dim=1)
+        dms_t[0, 0] += surf_src * dflux.dms_flux
+        dms_t[0, 1] += surf_src * dflux.dmsp_flux
+        mac_t = torch.stack(
+            [mac_tend[:, i] for i in (MT.PROT, MT.POLY, MT.LIP)], dim=1)
 
-    tend = CoupledTendencies(
-        bgc=bgc_t, dms=dms_t, macros=mac_t,
-        ph_prev_3d=bgc_out.ph_prev_3d,
-        ph_prev_alt_3d=bgc_out.ph_prev_alt_3d,
-        surface_ph=torch.where(has_ocean, sflux.surface_ph,
-                               state.bgc.surface_ph),
-        surface_ph_alt=torch.where(has_ocean, sflux.surface_ph_alt,
-                                   state.bgc.surface_ph_alt),
-    )
+        tend = CoupledTendencies(
+            bgc=bgc_t, dms=dms_t, macros=mac_t,
+            ph_prev_3d=bgc_out.ph_prev_3d,
+            ph_prev_alt_3d=bgc_out.ph_prev_alt_3d,
+            surface_ph=torch.where(has_ocean, sflux.surface_ph,
+                                   state.bgc.surface_ph),
+            surface_ph_alt=torch.where(has_ocean, sflux.surface_ph_alt,
+                                       state.bgc.surface_ph_alt),
+        )
 
-    diags: Dict[str, torch.Tensor] = {}
-    if compute_diags:
-        diags.update(bgc_out.diags)
-        diags.update({f"DMS_{k}" if not k.startswith("DMS") else k: v
-                      for k, v in dms_diags.items()})
-        diags.update({f"MACROS_{k}": v for k, v in mac_diags.items()})
-        diags.update(sflux.diags)
-        diags.update(dflux.diags)
-        diags["netFlux"] = sflux.net_flux
-        if diag_filter is not None:
-            unknown = set(diag_filter) - set(diags) - set(
-                HEALTH_NAMES if health else ())
-            if unknown:
-                raise KeyError(f"unknown diagnostics {sorted(unknown)}; "
-                               f"valid names: {sorted(diags)}")
-            keep = set(diag_filter)
-            diags = {k: v for k, v in diags.items() if k in keep}
-        if diag_dtype is not None:
-            diags = {k: v.to(diag_dtype) for k, v in diags.items()}
-    if health:
-        # monitoring, not history: two scalars that survive any filter
-        diags.update(zip(HEALTH_NAMES, bgc_out.health))
+        diags: Dict[str, torch.Tensor] = {}
+        if compute_diags:
+            diags.update(bgc_out.diags)
+            diags.update({f"DMS_{k}" if not k.startswith("DMS") else k: v
+                          for k, v in dms_diags.items()})
+            diags.update({f"MACROS_{k}": v for k, v in mac_diags.items()})
+            diags.update(sflux.diags)
+            diags.update(dflux.diags)
+            diags["netFlux"] = sflux.net_flux
+            if diag_filter is not None:
+                unknown = set(diag_filter) - set(diags) - set(
+                    HEALTH_NAMES if health else ())
+                if unknown:
+                    raise KeyError(f"unknown diagnostics {sorted(unknown)}; "
+                                   f"valid names: {sorted(diags)}")
+                keep = set(diag_filter)
+                diags = {k: v for k, v in diags.items() if k in keep}
+            if diag_dtype is not None:
+                diags = {k: v.to(diag_dtype) for k, v in diags.items()}
+        if health:
+            # monitoring, not history: two scalars that survive any filter
+            diags.update(zip(HEALTH_NAMES, bgc_out.health))
     return tend, diags
 
 
@@ -290,14 +297,17 @@ def step(
     "kernel" | "torch"; ``interior_impl``: "auto" | "xla" | "fused" (K2);
     ``health``, ``diag_filter``, ``diag_dtype``: see
     :func:`evaluate_tendencies`."""
-    tend, diags = evaluate_tendencies(state, grid, forcing, params,
-                                      compute_diags=compute_diags,
-                                      carbonate_impl=carbonate_impl,
-                                      interior_impl=interior_impl,
-                                      diag_dtype=diag_dtype, env=env,
-                                      health=health,
-                                      diag_filter=diag_filter)
-    return apply_update(state, tend, dt), diags
+    with span("step"):
+        tend, diags = evaluate_tendencies(state, grid, forcing, params,
+                                          compute_diags=compute_diags,
+                                          carbonate_impl=carbonate_impl,
+                                          interior_impl=interior_impl,
+                                          diag_dtype=diag_dtype, env=env,
+                                          health=health,
+                                          diag_filter=diag_filter)
+        with span("step.update"):
+            new_state = apply_update(state, tend, dt)
+    return new_state, diags
 
 
 def run(

@@ -69,6 +69,7 @@ from ocean_bgc_tpu_torch.ops.particulates import (
 from ocean_bgc_tpu_torch.ops.schmidt import o2sat
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
+from ocean_bgc_tpu_torch.utils.profiling import readback, span
 
 
 def _maximum(a, b):
@@ -247,7 +248,7 @@ def check_env_cache(env: EnvCache, grid: ColumnGrid,
     tol = 1e-5 if live.dtype == torch.float32 else 1e-10
     fp = env.fingerprint.to(live.dtype)
     rel = torch.max(torch.abs(live - fp) / (1.0 + torch.abs(fp)))
-    _raise_if_env_stale(rel.item(), tol)
+    _raise_if_env_stale(readback(rel).item(), tol)
 
 
 def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
@@ -261,6 +262,11 @@ def precompute_env(grid: ColumnGrid, forcing: BGCForcing,
     The cache is valid while (T, S, grid) keep the values passed here; it
     carries their :func:`env_fingerprint`, which ``OBGC_CHECK_ENV=1`` makes
     every consuming :func:`bgc_source_sink` call check."""
+    with span("precompute_env"):
+        return _precompute_env(grid, forcing, params)
+
+
+def _precompute_env(grid, forcing, params) -> EnvCache:
     temp = forcing.potential_temperature
     depth_m = grid.cell_center_depth * 0.01
     subsurface = subsurface_of(depth_m)
@@ -1104,26 +1110,28 @@ def bgc_source_sink(
     # constants or, without one, on constants evaluated once here for the
     # solve and the health counters.  The speciation and the saturation
     # values feed only diagnostics.
-    args = carbonate_inputs(tracers, grid, forcing, ph_prev_3d,
-                            ph_prev_alt_3d, env)
-    seed = x0_seed_enabled() if x0_seed is None else x0_seed
-    if env is not None:
-        coeffs, sat = args[-1], (env.co3_sat_calc, env.co3_sat_arag)
-        amb, alt = co3_terms_dual_coeffs(*args, seed=seed,
-                                         impl=carbonate_impl)
-    else:
-        coeffs, amb, alt, sat = dual_sat_and_coeffs(
-            *args, with_sat=compute_diags, seed=seed, impl=carbonate_impl)
-    ph_3d, h2co3, hco3, co3 = amb
-    ph_3d_alt, h2co3_alt, hco3_alt, co3_alt = alt
+    with span("interior.carbonate"):
+        args = carbonate_inputs(tracers, grid, forcing, ph_prev_3d,
+                                ph_prev_alt_3d, env)
+        seed = x0_seed_enabled() if x0_seed is None else x0_seed
+        if env is not None:
+            coeffs, sat = args[-1], (env.co3_sat_calc, env.co3_sat_arag)
+            amb, alt = co3_terms_dual_coeffs(*args, seed=seed,
+                                             impl=carbonate_impl)
+        else:
+            coeffs, amb, alt, sat = dual_sat_and_coeffs(
+                *args, with_sat=compute_diags, seed=seed, impl=carbonate_impl)
+        ph_3d, h2co3, hco3, co3 = amb
+        ph_3d_alt, h2co3_alt, hco3_alt, co3_alt = alt
 
-    ph_new = torch.where(active, ph_3d, ph_prev_3d)
-    ph_alt_new = torch.where(active, ph_3d_alt, ph_prev_alt_3d)
+        ph_new = torch.where(active, ph_3d, ph_prev_3d)
+        ph_alt_new = torch.where(active, ph_3d_alt, ph_prev_alt_3d)
 
     # ---- the batched ecosystem kinetics (BGC_mod.F90:826-1529) ----
-    kin = ecosystem_kinetics(tr, temp, dz, center, active, lat,
-                             par_surf[None, :], params,
-                             tfunc=env.tfunc if env is not None else None)
+    with span("interior.kinetics"):
+        kin = ecosystem_kinetics(tr, temp, dz, center, active, lat,
+                                 par_surf[None, :], params,
+                                 tfunc=env.tfunc if env is not None else None)
 
     health_out = None
     if health:
@@ -1135,64 +1143,71 @@ def bgc_source_sink(
     # read each level's full output, the incoming carry and the
     # scavenging rate; the tendency assembly only ParticleProdOut.
     # ------------------------------------------------------------------
-    carry: ParticleCarry = init_particle_carry(dust_flux_in)
-    levels, fe_scavenge_levels, rate_levels, carry_levels = [], [], [], []
-    for k in range(nlev):
-        # iron scavenging scales with the sinking mass flux entering
-        # this level, i.e. the carry (BGC_mod.F90:1510-1522)
-        fe_k = fe[k]
-        fe_scavenge_rate = params.parm_fe_scavenge_rate0 * (
-            (carry.poc_s + carry.poc_h) * 120.1
-            + (carry.caco3_s + carry.caco3_h) * c.P_CACO3_MASS
-            + (carry.sio2_s + carry.sio2_h) * c.P_SIO2_MASS
-            + (carry.dust_s + carry.dust_h) * c.DUST_FESCAV_SCALE)
-        fe_scavenge_rate = torch.where(
-            fe_k > c.FE_SCAVENGE_THRES1,
-            fe_scavenge_rate
-            + (fe_k - c.FE_SCAVENGE_THRES1) * c.FE_MAX_SCALE2,
-            fe_scavenge_rate)
-        fe_scavenge = c.YPS * fe_k * fe_scavenge_rate
-        fe_prod = kin.fe_prod_base[k] + fe_scavenge
+    with span("interior.level_loop"):
+        carry: ParticleCarry = init_particle_carry(dust_flux_in)
+        levels, fe_scavenge_levels = [], []
+        rate_levels, carry_levels = [], []
+        for k in range(nlev):
+            # iron scavenging scales with the sinking mass flux entering
+            # this level, i.e. the carry (BGC_mod.F90:1510-1522)
+            fe_k = fe[k]
+            fe_scavenge_rate = params.parm_fe_scavenge_rate0 * (
+                (carry.poc_s + carry.poc_h) * 120.1
+                + (carry.caco3_s + carry.caco3_h) * c.P_CACO3_MASS
+                + (carry.sio2_s + carry.sio2_h) * c.P_SIO2_MASS
+                + (carry.dust_s + carry.dust_h) * c.DUST_FESCAV_SCALE)
+            fe_scavenge_rate = torch.where(
+                fe_k > c.FE_SCAVENGE_THRES1,
+                fe_scavenge_rate
+                + (fe_k - c.FE_SCAVENGE_THRES1) * c.FE_MAX_SCALE2,
+                fe_scavenge_rate)
+            fe_scavenge = c.YPS * fe_k * fe_scavenge_rate
+            fe_prod = kin.fe_prod_base[k] + fe_scavenge
 
-        diss_k = (DissolutionCache(*(v[k] for v in env.diss))
-                  if env is not None else None)
-        if compute_diags:
-            carry_levels.append(carry)
-            rate_levels.append(fe_scavenge_rate)
-        carry, pt_k = particulate_level_update(
-            carry, kin.poc_prod[k], kin.caco3_prod[k], kin.sio2_prod[k],
-            fe_prod, temp[k], o2[k], no3[k], dz[k], bottom[k],
-            forcing.fesedflux[k], is_bottom[k], active[k], params,
-            diss=diss_k)
-        levels.append(pt_k)
-        fe_scavenge_levels.append(fe_scavenge)
+            diss_k = (DissolutionCache(*(v[k] for v in env.diss))
+                      if env is not None else None)
+            if compute_diags:
+                carry_levels.append(carry)
+                rate_levels.append(fe_scavenge_rate)
+            carry, pt_k = particulate_level_update(
+                carry, kin.poc_prod[k], kin.caco3_prod[k], kin.sio2_prod[k],
+                fe_prod, temp[k], o2[k], no3[k], dz[k], bottom[k],
+                forcing.fesedflux[k], is_bottom[k], active[k], params,
+                diss=diss_k)
+            levels.append(pt_k)
+            fe_scavenge_levels.append(fe_scavenge)
 
     def stacked(cls, per_level):
         """``cls`` of (nlev, ncol) stacks of the per-level fields."""
         return cls(*(torch.stack([getattr(p, f) for p in per_level])
                      for f in cls._fields))
 
-    # with diagnostics off, stack only what the tendency assembly reads
-    pt = stacked(ParticleLevelOut if compute_diags else ParticleProdOut,
-                 levels)
-    fe_scavenge = torch.stack(fe_scavenge_levels)
+    with span("interior.assembly"):
+        # with diagnostics off, stack only what the tendency assembly
+        # reads
+        pt = stacked(ParticleLevelOut if compute_diags else ParticleProdOut,
+                     levels)
+        fe_scavenge = torch.stack(fe_scavenge_levels)
 
-    # ---- tendency assembly (BGC_mod.F90:1545-1790) ----
-    restore_no3, restore_sio3, restore_po4 = compute_restoring(
-        forcing, tr, params)
-    tend, ex = assemble_tendencies(kin, pt, fe_scavenge, tr, restore_no3,
-                                   restore_sio3, restore_po4, params)
+        # ---- tendency assembly (BGC_mod.F90:1545-1790) ----
+        restore_no3, restore_sio3, restore_po4 = compute_restoring(
+            forcing, tr, params)
+        tend, ex = assemble_tendencies(kin, pt, fe_scavenge, tr, restore_no3,
+                                       restore_sio3, restore_po4, params)
 
-    # mask all tendencies to active cells; tracer axis in the middle
-    tend_arr = torch.where(active[:, None, :], torch.stack(tend, dim=1), 0.0)
+        # mask all tendencies to active cells; tracer axis in the middle
+        tend_arr = torch.where(active[:, None, :],
+                               torch.stack(tend, dim=1), 0.0)
     diags: Dict[str, torch.Tensor] = {}
     if compute_diags:
-        diags = _bgc_diags(
-            tr, grid, forcing, params, kin, pt, ex, tend_arr, fe_scavenge,
-            torch.stack(rate_levels), stacked(ParticleCarry, carry_levels),
-            (restore_no3, restore_sio3, restore_po4),
-            (ph_3d, h2co3, hco3, co3), (ph_3d_alt, h2co3_alt, hco3_alt,
-                                        co3_alt), sat)
+        with span("interior.diags"):
+            diags = _bgc_diags(
+                tr, grid, forcing, params, kin, pt, ex, tend_arr,
+                fe_scavenge, torch.stack(rate_levels),
+                stacked(ParticleCarry, carry_levels),
+                (restore_no3, restore_sio3, restore_po4),
+                (ph_3d, h2co3, hco3, co3),
+                (ph_3d_alt, h2co3_alt, hco3_alt, co3_alt), sat)
     return BGCSourceSinkOut(tendencies=tend_arr, ph_prev_3d=ph_new,
                             ph_prev_alt_3d=ph_alt_new, diags=diags,
                             health=health_out)

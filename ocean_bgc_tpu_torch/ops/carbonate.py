@@ -35,6 +35,7 @@ from ocean_bgc_tpu_torch.constants import (
     VOL_TO_MASS,
     XACC,
 )
+from ocean_bgc_tpu_torch.utils.profiling import readback
 
 _LN10 = 2.302585092994045684   # ln(10)
 _LN_001 = -4.605170185988091368  # ln(1e-2)
@@ -344,7 +345,7 @@ def _solve_htotal_impl(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
     grows = torch.zeros(flo.shape, dtype=torch.int32, device=flo.device)
     for _ in range(_BRACKET_GROW_GUARD):
         m = not_bracketed(flo, fhi)
-        if not bool(m.any()):
+        if not bool(readback(m.any())):
             break
         growth = torch.sqrt(x2 / x1)
         x1 = torch.where(m, x1 / growth, x1)
@@ -370,7 +371,7 @@ def _solve_htotal_impl(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
     active = torch.ones(soln.shape, dtype=torch.bool, device=soln.device)
     iters = torch.zeros_like(grows)
     for _ in range(MAXIT):
-        if not bool(active.any()):
+        if not bool(readback(active.any())):
             break
         # bisect when Newton would leave the bracket or converges too
         # slowly (co2calc.F90:962-976)
@@ -490,7 +491,7 @@ def solve_htotal_stats(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2,
     each other.  ``impl`` as :func:`co2calc_surface_dual` takes it: on
     CUDA tensors one launch of K1's bracket-in instance's statistics
     variant (``ops/cuda_carbonate.py::solve_htotal_brackets``, counted in
-    its ``.stats_launches``), on CPU tensors the plain
+    ``k1.brackets_stats``), on CPU tensors the plain
     :func:`_solve_htotal_impl`.  Not differentiable: inputs that require
     grad raise."""
     from ocean_bgc_tpu_torch.ops.cuda_carbonate import solve_htotal_brackets

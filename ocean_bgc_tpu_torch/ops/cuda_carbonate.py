@@ -46,8 +46,10 @@ Each solve also has the TPU kernel's seeded variant (``x0_seed``,
 its ``seed`` argument: every problem's iteration starts at the previous
 root, clamped into its bracket, instead of the bracket midpoint.  The
 dual instance recovers the seed from the pH window
-(:func:`_ph_brackets`), the bracket-in instance takes it per lane.  A
-wrapper counts its seeded launches apart, in ``.seeded_launches``.  The
+(:func:`_ph_brackets`), the bracket-in instance takes it per lane.  The
+launches are counted by instance and variant in ``utils/profiling.py``'s
+counters (``k1.dual``, ``k1.dual_seeded``, ``k1.coeffs``,
+``k1.brackets``, ``k1.brackets_seeded``, ``k1.brackets_stats``).  The
 seeded f32 dual instance runs the parked-tail schedule
 (``csrc/carbonate_solve.cuh::solve_lanes_parked``: a problem still
 iterating after :data:`PARK_CAP` steps is handed to the block's first
@@ -82,6 +84,7 @@ from ocean_bgc_tpu_torch.ops.carbonate import (
     implicit_root,
     solve_htotal,
 )
+from ocean_bgc_tpu_torch.utils.profiling import count
 
 IMPLS = ("auto", "kernel", "torch")
 # The bracket-in instance's pointer arguments, in the order of the enum
@@ -284,9 +287,8 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
     the seeded variant (see the module's docstring).
 
     Returns ``((ph, h2co3, hco3, co3) ambient, (...) ALT_CO2)``, the
-    concentrations in mmol/m^3.  Each kernel launch adds one to
-    ``co3_terms_dual_coeffs.launches``, or with ``seed`` to
-    ``co3_terms_dual_coeffs.seeded_launches``.
+    concentrations in mmol/m^3.  Each kernel launch adds one to the
+    counter ``k1.dual``, or with ``seed`` to ``k1.dual_seeded``.
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and dic.device.type == "cpu"):
@@ -302,7 +304,7 @@ def co3_terms_dual_coeffs(dic, ta, pt, sit, ph_prev_a, ph_prev_b,
 
         def run():
             outs = _launch(tuple(fields.values()), dic.dtype, seed)
-            _count(co3_terms_dual_coeffs, seed)
+            count("k1.dual_seeded" if seed else "k1.dual")
             return outs
     outs = _DualSolve.apply(run, dic, ta, pt, sit, ph_prev_a, ph_prev_b,
                             *coeffs)
@@ -347,18 +349,6 @@ class _DualSolve(torch.autograd.Function):
                        if outs and wanted else [None] * len(wanted))
         d = [next(got) if n else None for n in needs]
         return (None, *d[:4], None, None, *d[4:])
-
-
-def _count(wrapper, seed):
-    """One launch more on ``wrapper``'s count of its variant."""
-    if seed:
-        wrapper.seeded_launches += 1
-    else:
-        wrapper.launches += 1
-
-
-co3_terms_dual_coeffs.launches = 0
-co3_terms_dual_coeffs.seeded_launches = 0
 
 
 def subsurface_of(depth_m):
@@ -422,8 +412,8 @@ def carbonate_coeffs_sat(depth_m, temp, salt, *, with_sat=True,
     CUDA tensors; "torch" takes the plain version on any device.
 
     Returns ``(CarbCoeffs, (co3_sat_calc, co3_sat_arag) or None)``, the
-    saturation values in mmol/m^3.  Each kernel launch adds one to
-    ``carbonate_coeffs_sat.launches``.
+    saturation values in mmol/m^3.  Each kernel launch adds one to the
+    counter ``k1.coeffs``.
     """
     _check_impl(impl)
     if impl == "torch" or (impl == "auto" and depth_m.device.type == "cpu"):
@@ -439,9 +429,6 @@ def carbonate_coeffs_sat(depth_m, temp, salt, *, with_sat=True,
     return CarbCoeffs(*outs[:15]), (tuple(outs[15:]) if with_sat else None)
 
 
-carbonate_coeffs_sat.launches = 0
-
-
 class _CoeffsKernel(torch.autograd.Function):
     """The constants kernel's outputs as one buffer, with the backward of
     its plain version: :func:`carbonate_coeffs_sat_torch` recomputed and
@@ -450,7 +437,7 @@ class _CoeffsKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, with_sat, depth_m, temp, salt):
         buf = _launch_coeffs(depth_m, temp, salt, with_sat)
-        carbonate_coeffs_sat.launches += 1
+        count("k1.coeffs")
         ctx.with_sat = with_sat
         ctx.save_for_backward(depth_m, temp, salt)
         return buf
@@ -576,16 +563,15 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
     ``_solve_htotal_impl``'s ``x0``.  ``impl``: "auto" launches the
     kernel on CUDA tensors and uses the plain version on CPU tensors;
     "kernel" requires CUDA tensors; "torch" takes the plain version on any
-    device.  Each kernel launch adds one to
-    ``solve_htotal_brackets.launches``, or with a ``seed`` to
-    ``solve_htotal_brackets.seeded_launches``.
+    device.  Each kernel launch adds one to the counter ``k1.brackets``,
+    or with a ``seed`` to ``k1.brackets_seeded``.
 
     ``with_stats``: the statistics variant, ``(H, iters, converged)``
     with the steps each lane took (int32, the step that converges
     counted) and whether it converged or stalled before MAXIT (bool), as
     the plain version counts them; not differentiable (inputs that
     require grad raise).  Its kernel launches add one to
-    ``solve_htotal_brackets.stats_launches``, seeded or not.
+    ``k1.brackets_stats``, seeded or not.
     """
     _check_impl(impl)
     plain = impl == "torch" or (impl == "auto" and dic.device.type == "cpu")
@@ -612,16 +598,12 @@ def solve_htotal_brackets(coeffs: CarbCoeffs, dic, ta, pt, sit, x1, x2, *,
         for k, t in fields.items()})
     if with_stats:
         out = _launch_brackets(fields, with_stats=True)
-        solve_htotal_brackets.stats_launches += 1
+        count("k1.brackets_stats")
         return out
 
     def run():
         h = _launch_brackets(fields)
-        _count(solve_htotal_brackets, seed is not None)
+        count("k1.brackets" if seed is None else "k1.brackets_seeded")
         return h
     return implicit_root(run, coeffs, dic, ta, pt, sit)
 
-
-solve_htotal_brackets.launches = 0
-solve_htotal_brackets.seeded_launches = 0
-solve_htotal_brackets.stats_launches = 0

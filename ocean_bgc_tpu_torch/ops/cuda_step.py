@@ -43,6 +43,7 @@ from ocean_bgc_tpu_torch.ops.particulates import (
 from ocean_bgc_tpu_torch.ops.carbonate import CarbCoeffs
 from ocean_bgc_tpu_torch.params import BGCParams
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
+from ocean_bgc_tpu_torch.utils.profiling import count
 
 IMPLS = ("auto", "kernel")
 
@@ -163,7 +164,7 @@ def _library():
 
 def _launch_solve(fields: dict, outs: FusedInteriorOut):
     """The solve kernel: both pH fields of every cell into ``outs``.
-    Each launch adds one to ``_launch_solve.launches``."""
+    Each launch adds one to the counter ``k2.solve``."""
     _kernels.refuse_grad("interior_step solve", fields)
     lib = _library()
     fn = lib.obgc_interior_solve
@@ -175,10 +176,7 @@ def _launch_solve(fields: dict, outs: FusedInteriorOut):
     code = fn(int(ref.dtype == torch.float64), _pointers(fields, outs), nlev,
               ncol, torch.cuda.current_stream(ref.device).cuda_stream)
     _kernels.check(lib, code, "interior_step solve launch")
-    _launch_solve.launches += 1
-
-
-_launch_solve.launches = 0
+    count("k2.solve")
 
 
 # The biology kernel's threads per block, at most (kBioThreads in
@@ -203,7 +201,7 @@ def _launch_bio(fields: dict, outs: FusedInteriorOut, params: BGCParams,
                 cols=None):
     """The biology kernel: the tendencies of every cell into ``outs``,
     ``cols`` columns per block (:func:`columns_per_block` if None).  Each
-    launch adds one to ``_launch_bio.launches``."""
+    launch adds one to the counter ``k2.bio``."""
     _kernels.refuse_grad("interior_step biology", fields, params)
     lib = _library()
     fn = lib.obgc_interior_bio
@@ -227,10 +225,7 @@ def _launch_bio(fields: dict, outs: FusedInteriorOut, params: BGCParams,
     code = fn(is_double, _pointers(fields, outs), _packed(params), nlev, ncol,
               cols, torch.cuda.current_stream(ref.device).cuda_stream)
     _kernels.check(lib, code, "interior_step biology launch")
-    _launch_bio.launches += 1
-
-
-_launch_bio.launches = 0
+    count("k2.bio")
 
 
 def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
@@ -245,9 +240,9 @@ def fused_interior_step(tracers, grid: ColumnGrid, forcing: BGCForcing,
     None to evaluate its tables here first.  ``impl``: "auto" launches the
     kernel on CUDA tensors and uses the plain version on CPU tensors;
     "kernel" requires CUDA tensors.  A call launches two kernels, the pH
-    solve (counted in ``_launch_solve.launches``) and the biology
-    (``_launch_bio.launches``).  Forward-only: inputs that require grad
-    (under grad mode) raise ValueError, on any device.
+    solve (counted in ``k2.solve``) and the biology (``k2.bio``).
+    Forward-only: inputs that require grad (under grad mode) raise
+    ValueError, on any device.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown interior kernel impl {impl!r}; "

@@ -41,6 +41,7 @@ from ocean_bgc_tpu_torch.parallel.distributed import (
     host_local_columns,
 )
 from ocean_bgc_tpu_torch.state import BGCForcing, ColumnGrid
+from ocean_bgc_tpu_torch.utils.profiling import count, readback
 from ocean_bgc_tpu_torch.utils.tree import tree_map
 
 COLUMNS = "columns"
@@ -91,14 +92,12 @@ def all_reduce_sum(values: Sequence[torch.Tensor], mesh: ColumnMesh
                    ) -> list:
     """The sums over ranks of scalar tensors, in one ``all_reduce`` of
     them stacked in float64 (counts stay exact), each returned in its
-    own dtype.  Each call adds one to ``all_reduce_sum.calls``."""
+    own dtype.  Each call adds one to the counter
+    ``collectives.all_reduce``."""
     buf = torch.stack([v.to(torch.float64) for v in values])
     tdist.all_reduce(buf, group=mesh.group)
-    all_reduce_sum.calls += 1
+    count("collectives.all_reduce")
     return [buf[i].to(v.dtype) for i, v in enumerate(values)]
-
-
-all_reduce_sum.calls = 0
 
 
 def gather_columns(tree, mesh: ColumnMesh):
@@ -109,7 +108,7 @@ def gather_columns(tree, mesh: ColumnMesh):
     bytes, so every leaf keeps its type and its bits (on a Gloo group
     through the host; NCCL gathers on the cards).  Every rank calls it
     with a tree of the same structure, shapes and types; each call adds
-    one to ``gather_columns.calls``."""
+    one to the counter ``collectives.gather``."""
     leaves = []
 
     def collect(path, x):
@@ -119,6 +118,8 @@ def gather_columns(tree, mesh: ColumnMesh):
     tree_map(collect, tree)
     on = (mesh.device if tdist.get_backend(mesh.group) == "nccl"
           else torch.device("cpu"))
+    if on.type == "cpu":
+        leaves = [readback(x) for x in leaves]
     raw = [x.to(on).contiguous().reshape(-1).view(torch.uint8)
            for x in leaves]
     buf = torch.cat(raw) if raw else torch.empty(0, dtype=torch.uint8,
@@ -127,7 +128,7 @@ def gather_columns(tree, mesh: ColumnMesh):
               if mesh.rank == 0 else None)
     dst = 0 if mesh.group is None else tdist.get_global_rank(mesh.group, 0)
     tdist.gather(buf, blocks, dst=dst, group=mesh.group)
-    gather_columns.calls += 1
+    count("collectives.gather")
     if mesh.rank != 0:
         return None
     parts = [b.split([r.numel() for r in raw]) for b in blocks]
@@ -145,8 +146,6 @@ def gather_columns(tree, mesh: ColumnMesh):
 
     return tree_map(join, tree)
 
-
-gather_columns.calls = 0
 
 
 def make_sharded_step(mesh: ColumnMesh, params: ModelParams, dt: float, *,

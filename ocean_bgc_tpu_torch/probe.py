@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ocean_bgc_tpu_torch.ops import _kernels
+from ocean_bgc_tpu_torch.utils.profiling import count, readback, synchronize
 
 NLEV, NTR, C = 12, 5, 128
 # kernel vs plain version on the card: the same operations in the same
@@ -75,7 +76,7 @@ def probe_patterns_torch(tr, temp, kmax):
     x = torch.ones_like(temp)
     act = torch.ones_like(active)
     for _ in range(20):
-        if not bool(act.any()):
+        if not bool(readback(act.any())):
             break
         xn = 0.5 * (x + temp / torch.clamp_min(x, 1e-6))
         conv = torch.abs(xn - x) < 1e-4
@@ -128,7 +129,7 @@ def launch_shape(nlev, ncol, tile=TILE):
 
 def _launch(tr, temp, kmax, tile=TILE):
     """One launch of P in blocks of ``tile`` columns (see
-    :func:`launch_shape`); adds one to ``probe_patterns.launches``."""
+    :func:`launch_shape`); adds one to the counter ``probe``."""
     nlev, ntr, ncol = tr.shape
     tile, _, threads = launch_shape(nlev, ncol, tile)
     lib = _kernels.load("probe_patterns")
@@ -141,13 +142,13 @@ def _launch(tr, temp, kmax, tile=TILE):
               out.data_ptr(), tend.data_ptr(), nlev, ntr, ncol, tile,
               threads, torch.cuda.current_stream(tr.device).cuda_stream)
     _kernels.check(lib, code, "probe_patterns launch")
-    probe_patterns.launches += 1
+    count("probe")
     return out, tend
 
 
 def probe_patterns(tr, temp, kmax):
     """P on CUDA tensors, its plain version on CPU tensors.  Each kernel
-    launch adds one to ``probe_patterns.launches``."""
+    launch adds one to the counter ``probe``."""
     if tr.device.type == "cpu":
         return probe_patterns_torch(tr, temp, kmax)
     nlev, ntr, ncol = tr.shape
@@ -167,20 +168,18 @@ def probe_patterns(tr, temp, kmax):
     return _launch(tr, temp, kmax)
 
 
-probe_patterns.launches = 0
-
-
 def run(device=None):
     """The probe's path: its inputs through :func:`probe_patterns`.
     Returns ``(out, tend, checksum)``."""
     tr, temp, kmax = probe_inputs(device)
     out, tend = probe_patterns(tr, temp, kmax)
-    return out, tend, float(out.sum()) + float(tend.sum())
+    return out, tend, (float(readback(out.sum()))
+                       + float(readback(tend.sum())))
 
 
 def max_rel_err(got, want):
     """max |got - want| / max |want| over both outputs."""
-    return max(((g - w).abs().max() / w.abs().max()).item()
+    return max(readback((g - w).abs().max() / w.abs().max()).item()
                for g, w in zip(got, want))
 
 
@@ -191,7 +190,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     out, tend, checksum = run()
-    torch.cuda.synchronize()
+    synchronize()
     err = max_rel_err((out, tend), probe_patterns_torch(*probe_inputs()))
     print(f"OK build+run in {time.perf_counter() - t0:.1f}s, "
           f"checksum={checksum:.6g}, max error / scale vs the plain "

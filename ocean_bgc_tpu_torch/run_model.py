@@ -151,6 +151,7 @@ def _run(args) -> int:
     from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
     from ocean_bgc_tpu_torch.utils.bridge import resolve_device
     from ocean_bgc_tpu_torch.utils.history import TavgState, write_history
+    from ocean_bgc_tpu_torch.utils.profiling import readback, synchronize
     from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
 
     mesh = None
@@ -301,7 +302,7 @@ def _run(args) -> int:
             if not args.quiet:
                 print(f"checkpoint -> {path}")
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        synchronize(device)
     elapsed = time.perf_counter() - t0
 
     final_ck = ckpt.save(os.path.join(args.out, "ck_final"), state,
@@ -329,7 +330,8 @@ def _run(args) -> int:
                              (~finite).to(torch.float64),
                              jint.new_full((), elapsed, dtype=torch.float64)])
         tdist.all_reduce(worst, op=tdist.ReduceOp.MAX, group=mesh.group)
-        jint, finite, elapsed = worst[0], worst[1] == 0, float(worst[2])
+        jint, finite = worst[0], worst[1] == 0
+        elapsed = float(readback(worst[2]))
         if args.health:
             health_tot = dict(zip(health_tot, all_reduce_sum(
                 [torch.as_tensor(v, device=device).to(torch.float64)
@@ -340,11 +342,11 @@ def _run(args) -> int:
         "columns_per_s": round(total_columns * args.steps / elapsed, 1),
         "elapsed_s": round(elapsed, 2),
         "final_checkpoint": final_ck,
-        "max_abs_Jint_Ctot": float(jint),
-        "finite": bool(finite),
+        "max_abs_Jint_Ctot": float(readback(jint)),
+        "finite": bool(readback(finite)),
     }
     if args.health:
-        summary.update({f"{k}_total": float(v)
+        summary.update({f"{k}_total": float(readback(torch.as_tensor(v)))
                         for k, v in health_tot.items()})
     if mesh is None or mesh.rank == 0:
         print(json.dumps(summary))

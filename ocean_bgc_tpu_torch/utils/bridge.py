@@ -29,6 +29,7 @@ from ocean_bgc_tpu_torch.params import (
     ModelParams,
 )
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCState, ColumnGrid
+from ocean_bgc_tpu_torch.utils.profiling import readback
 
 
 def resolve_device(device) -> torch.device:
@@ -91,7 +92,7 @@ def host_arguments(state: CoupledState, grid: ColumnGrid,
     cold call); the caller adds them."""
 
     def host(t):
-        a = t.detach().to("cpu", torch.float64).numpy()
+        a = readback(t).detach().to("cpu", torch.float64).numpy()
         if a.ndim == 3:            # (nlev, ntracer, ncol) tracer block
             return np.ascontiguousarray(a.transpose(2, 0, 1))
         return np.ascontiguousarray(a.T)
@@ -99,7 +100,8 @@ def host_arguments(state: CoupledState, grid: ColumnGrid,
     f = {k.name: host(getattr(forcing, k.name))
          for k in dataclasses.fields(forcing)}
     dz = host(grid.cell_thickness)
-    kmax = np.ascontiguousarray(grid.kmax.cpu().numpy().astype(np.int32))
+    kmax = np.ascontiguousarray(
+        readback(grid.kmax).cpu().numpy().astype(np.int32))
     bgc = host(state.bgc.tracers)
     dms = host(dms_tracer_block(state))
     surface = dict(SST=f["sst"], SSS=f["sss"], iceFraction=f["ice_fraction"],

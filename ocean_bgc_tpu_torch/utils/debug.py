@@ -31,6 +31,7 @@ from ocean_bgc_tpu_torch.ops.carbonate import talk
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import carbonate_coeffs_sat
 from ocean_bgc_tpu_torch.ops.particulates import RHO_CACO3, RHO_SIO2
 from ocean_bgc_tpu_torch.state import BGCForcing, BGCTracers as T, ColumnGrid
+from ocean_bgc_tpu_torch.utils.profiling import readback
 
 
 class StateReport(NamedTuple):
@@ -52,7 +53,7 @@ def validate_state(state: CoupledState, grid: ColumnGrid) -> StateReport:
     for arr in fields.values():
         vals = torch.where(mask, arr, 0.0)
         counts += [(~torch.isfinite(vals)).sum(), (vals < 0.0).sum()]
-    counts = torch.stack(counts).tolist()
+    counts = readback(torch.stack(counts)).tolist()
     detail = {name: (counts[2 * i], counts[2 * i + 1])
               for i, name in enumerate(fields)}
     n_bad = sum(v[0] for v in detail.values())
@@ -85,9 +86,9 @@ def solver_health(state: CoupledState, grid: ColumnGrid,
     fn, df = talk(coeffs, dic, ta, pt, sit, h)
     active = grid.active_mask() & (ph != 0.0)
     newton_step = torch.where(active, torch.abs(fn / df), 0.0)
-    big, mean, n = torch.stack([newton_step.max().double(),
-                                newton_step.mean().double(),
-                                active.sum().double()]).tolist()
+    big, mean, n = readback(torch.stack([newton_step.max().double(),
+                                         newton_step.mean().double(),
+                                         active.sum().double()])).tolist()
     return {"max_newton_step_h": big, "mean_newton_step_h": mean,
             "cells_checked": int(n)}
 
@@ -109,9 +110,9 @@ def poc_bounds_report(diags: Dict) -> Dict[str, float]:
     if avail.numel() == 0:
         return {"poc_error": False, "n_violating_cells": 0,
                 "min_poc_prod_avail": 0.0}
-    n = int((avail < 0.0).sum())
+    n = int(readback((avail < 0.0).sum()))
     return {"poc_error": n > 0, "n_violating_cells": n,
-            "min_poc_prod_avail": float(avail.min())}
+            "min_poc_prod_avail": float(readback(avail.min()))}
 
 
 def checked_step(step_fn: Callable, grid: ColumnGrid) -> Callable:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ocean_bgc_tpu_torch.utils.diag import coupled_registry
+from ocean_bgc_tpu_torch.utils.profiling import readback
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +63,8 @@ def write_history(path: str, tavg: TavgState, *,
     """Write the current means to ``path`` (.npz) with units/long-name
     metadata from the diagnostics registry."""
     registry = coupled_registry()
-    means = {n: v.detach().cpu().numpy() for n, v in tavg.means().items()}
+    means = {n: readback(v).detach().cpu().numpy()
+             for n, v in tavg.means().items()}
     meta = {}
     for n in means:
         spec = registry.get(n)
@@ -72,7 +74,8 @@ def write_history(path: str, tavg: TavgState, *,
     if attrs:
         meta.update({f"__attr__{k}": np.str_(v) for k, v in attrs.items()})
     path = path if path.endswith(".npz") else path + ".npz"
-    np.savez(path, __count__=tavg.count.cpu().numpy(), **means, **meta)
+    np.savez(path, __count__=readback(tavg.count).cpu().numpy(), **means,
+             **meta)
     return path
 
 
@@ -128,7 +131,8 @@ def write_history_shards(dirpath: str, fields: Dict[str, torch.Tensor], *,
         if "@" in name or name.startswith("__"):
             raise ValueError(f"field name {name!r} collides with the "
                              "shard-file key syntax")
-        a = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
+        a = (readback(arr).detach().cpu().numpy()
+             if isinstance(arr, torch.Tensor)
              else np.asarray(arr))
         if a.ndim == 0:
             out[f"__shape__{name}"] = np.asarray(a.shape, np.int64)

@@ -1,0 +1,10 @@
+"""interior_host_ms_per_step: the host's wall time per traced step inside
+the interior (``bgc_source_sink``, or the fused interior), the program's
+own ``step.interior`` spans (``portbench/spans.py``); 0 where the steps
+ran without such a span."""
+
+from portbench.spans import host_ms_per_step
+
+
+def read(ctx):
+    return host_ms_per_step(ctx, "step.interior")

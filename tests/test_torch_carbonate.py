@@ -22,6 +22,7 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
     co3_terms_dual_coeffs,
     co3_terms_dual_coeffs_torch,
 )
+from ocean_bgc_tpu_torch.utils.profiling import counters
 from tests.oracle import carbonate_ref as oracle
 
 # the f32 solver tolerance in H (carbonate.py:450-455)
@@ -122,7 +123,7 @@ def test_coeffs_talk_sat_match_jax_f64(dtype):
                                 jnp.asarray(subsurface), k1_k2_ph_tot=True)
     sj = jcarb.co3_sat_vals(*(jnp.asarray(a) for a in args),
                             jnp.asarray(subsurface))
-    before = carbonate_coeffs_sat.launches
+    before = counters()["k1.coeffs"]
     for with_sat in (True, False):
         tc, st = carbonate_coeffs_sat(*(_t(a, None) for a in args),
                                       with_sat=with_sat)
@@ -131,7 +132,7 @@ def test_coeffs_talk_sat_match_jax_f64(dtype):
             assert b.dtype == _t(args[0], None).dtype
             np.testing.assert_allclose(b.numpy(), np.asarray(a),
                                        rtol=tol["rtol"], err_msg=name)
-    assert carbonate_coeffs_sat.launches == before     # no kernel on CPU
+    assert counters()["k1.coeffs"] == before     # no kernel on CPU
     with pytest.raises(ValueError, match="CUDA"):
         carbonate_coeffs_sat(*(_t(a, None) for a in args), impl="kernel")
 
@@ -309,12 +310,12 @@ def test_k1_impl_selection():
     w, ph = _k1_world(7, 30)
     _, tcf = _coeffs_both(w, np.float64)
     args = [_t(w[k]) for k in ("dic", "ta", "pt", "sit")] + [_t(ph), _t(ph)]
-    before = co3_terms_dual_coeffs.launches
+    before = counters()["k1.dual"]
     a = co3_terms_dual_coeffs(*args, tcf, impl="auto")
     b = co3_terms_dual_coeffs(*args, tcf, impl="torch")
     for x, y in zip(a[0] + a[1], b[0] + b[1]):
         assert torch.equal(x, y)
-    assert co3_terms_dual_coeffs.launches == before   # no kernel on CPU
+    assert counters()["k1.dual"] == before   # no kernel on CPU
     with pytest.raises(ValueError, match="CUDA"):
         co3_terms_dual_coeffs(*args, tcf, impl="kernel")
     with pytest.raises(ValueError, match="unknown"):

@@ -22,6 +22,7 @@ from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
 )
 from ocean_bgc_tpu_torch.params import ModelParams
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+from ocean_bgc_tpu_torch.utils.profiling import counters
 from tests.test_torch_carbonate import _surface_inputs, _t
 
 
@@ -45,7 +46,7 @@ def test_surface_pair_and_stand_in_take_the_plain_route_on_cpu():
     """On CPU tensors the surface pair and the env cache's stand-in solve
     run _solve_htotal_impl (bitwise its results) and count no launch of
     the bracket-in kernel; "torch" gives the same results."""
-    before = solve_htotal_brackets.launches
+    before = counters()["k1.brackets"]
     args = _bracket_args(11, 50)
     want = tcarb._solve_htotal_impl(*args)
     for impl in ("auto", "torch"):
@@ -63,7 +64,7 @@ def test_surface_pair_and_stand_in_take_the_plain_route_on_cpu():
     _, grid, forcing = synthetic_world(nlev=4, ncol=6, seed=3, device="cpu")
     env = precompute_env(grid, forcing, ModelParams().bgc)
     assert torch.isfinite(env.standin_ph).all()
-    assert solve_htotal_brackets.launches == before
+    assert counters()["k1.brackets"] == before
 
 
 def test_bracket_instance_kernel_on_cpu_tensors_raises():

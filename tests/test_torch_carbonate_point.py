@@ -28,7 +28,7 @@ from ocean_bgc_tpu_torch.constants import (
 from ocean_bgc_tpu_torch.models import integrators as tint
 from ocean_bgc_tpu_torch.ops import carbonate as tcarb
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
-from ocean_bgc_tpu_torch.ops.cuda_carbonate import solve_htotal_brackets
+from ocean_bgc_tpu_torch.utils.profiling import counters
 from tests.oracle import carbonate_ref as oracle
 
 N = 256
@@ -94,8 +94,8 @@ def test_single_point_api_matches_jax(name):
     keys = ("depth", "temp", "salt", "dic", "ta", "pt", "sit")
     ja, ta = _both(w, keys, dtype)
     lo, hi = np.full(N, 6.0, dtype), np.full(N, 9.0, dtype)
-    before = (solve_htotal_brackets.launches,
-              solve_htotal_brackets.stats_launches)
+    before = (counters()["k1.brackets"],
+              counters()["k1.brackets_stats"])
     for label, press in (("no pressure", False), ("pressure", True),
                          ("mask", w["press"])):
         jout = jcarb.co3_terms(*ja, jnp.asarray(lo), jnp.asarray(hi),
@@ -134,8 +134,8 @@ def test_single_point_api_matches_jax(name):
                                torch.tensor(hi))
     assert np.abs(th.numpy() - np.asarray(jh)).max() <= tol["h"]
     _close(td, jd, 1e-15 if name == "f64" else 1e-7, "comp_htotal dic")
-    assert (solve_htotal_brackets.launches,
-            solve_htotal_brackets.stats_launches) == before
+    assert (counters()["k1.brackets"],
+            counters()["k1.brackets_stats"]) == before
 
 
 def test_single_point_api_matches_oracle_and_differentiates():

@@ -47,6 +47,8 @@ from ocean_bgc_tpu_torch.ops.surface import bgc_surface_fluxes
 from ocean_bgc_tpu_torch.params import ModelParams
 from ocean_bgc_tpu_torch.utils.diag import coupled_registry
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+from ocean_bgc_tpu_torch.utils import profiling
+from ocean_bgc_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -80,10 +82,10 @@ def test_kernel_matches_plain_version(cuda, dtype):
         args = carbonate_inputs(st.bgc.tracers, grid, forcing,
                                 st.bgc.ph_prev_3d, st.bgc.ph_prev_alt_3d,
                                 env)
-        before = co3_terms_dual_coeffs.launches
+        before = counters()["k1.dual"]
         got = co3_terms_dual_coeffs(*args, impl="kernel")
         torch.cuda.synchronize()
-        assert co3_terms_dual_coeffs.launches == before + 1
+        assert counters()["k1.dual"] == before + 1
         want = co3_terms_dual_coeffs_torch(*args)
         for g, w in zip(got, want):
             assert all(torch.isfinite(x).all() for x in g)
@@ -130,7 +132,7 @@ def test_constants_kernel_matches_plain_version(cuda, dtype):
     args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
                             b.ph_prev_alt_3d)[:3]
     want, want_sat = carbonate_coeffs_sat_torch(*args)
-    before = carbonate_coeffs_sat.launches
+    before = counters()["k1.coeffs"]
     for with_sat in (True, False):
         got, sat = carbonate_coeffs_sat(*args, with_sat=with_sat,
                                         impl="kernel")
@@ -139,7 +141,7 @@ def test_constants_kernel_matches_plain_version(cuda, dtype):
         for x, y in zip((*got, *(sat or ())), (*want, *want_sat)):
             assert x.dtype == dtype and torch.isfinite(x).all()
             assert torch.equal(x, y)
-    assert carbonate_coeffs_sat.launches == before + 2
+    assert counters()["k1.coeffs"] == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -163,13 +165,13 @@ def test_sat_instance_matches_plain_version(cuda, dtype):
     for st in (state, warm, off):
         args = carbonate_inputs(st.bgc.tracers, grid, forcing,
                                 st.bgc.ph_prev_3d, st.bgc.ph_prev_alt_3d)
-        before = (carbonate_coeffs_sat.launches,
-                  co3_terms_dual_coeffs.launches)
+        before = (counters()["k1.coeffs"],
+                  counters()["k1.dual"])
         got = co3_terms_dual_sat(*args, impl="kernel")
         nosat = co3_terms_dual_sat(*args, with_sat=False, impl="kernel")
         torch.cuda.synchronize()
-        assert (carbonate_coeffs_sat.launches,
-                co3_terms_dual_coeffs.launches) == (before[0] + 2,
+        assert (counters()["k1.coeffs"],
+                counters()["k1.dual"]) == (before[0] + 2,
                                                     before[1] + 2)
         want = co3_terms_dual_sat_torch(*args)
         for g, w in zip(got, want):
@@ -195,8 +197,8 @@ def test_default_call_on_the_card(cuda, dtype):
                                            ragged=True, dtype=dtype,
                                            device=cuda)
     env = precompute_env(grid, forcing, params.bgc)
-    counts = (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches,
-              solve_htotal_brackets.launches, _k2_counts())
+    counts = (counters()["k1.coeffs"], counters()["k1.dual"],
+              counters()["k1.brackets"], _k2_counts())
     a = b = c = state
     for _ in range(2):
         a, d = step(a, grid, forcing, params, 3600.0)
@@ -204,8 +206,8 @@ def test_default_call_on_the_card(cuda, dtype):
         c, _ = step(c, grid, forcing, params, 3600.0, compute_diags=False)
     torch.cuda.synchronize()
     # a and c on the kernels, b on the plain versions
-    assert (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches,
-            solve_htotal_brackets.launches, _k2_counts()) == (
+    assert (counters()["k1.coeffs"], counters()["k1.dual"],
+            counters()["k1.brackets"], _k2_counts()) == (
         counts[0] + 4, counts[1] + 4, counts[2] + 4, counts[3])
     for x, y in ((a, b), (a, c)):
         assert torch.equal(x.bgc.tracers, y.bgc.tracers)
@@ -213,10 +215,10 @@ def test_default_call_on_the_card(cuda, dtype):
         assert torch.equal(x.macros, y.macros)
     assert set(d) == set(coupled_registry())
     assert all(torch.isfinite(v).all() for v in d.values())
-    before = (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches)
+    before = (counters()["k1.coeffs"], counters()["k1.dual"])
     _, de = step(state, grid, forcing, params, 3600.0, env=env)
-    assert (carbonate_coeffs_sat.launches,
-            co3_terms_dual_coeffs.launches) == (before[0], before[1] + 1)
+    assert (counters()["k1.coeffs"],
+            counters()["k1.dual"]) == (before[0], before[1] + 1)
     assert set(de) == set(d)
 
 
@@ -242,14 +244,14 @@ def test_health_call_evaluates_the_constants_once_without_a_sync(
         raise AssertionError("eager constants on the kernel route")
     monkeypatch.setattr(cuda_carbonate, "carbonate_coeffs", counted)
     monkeypatch.setattr(bgc, "carbonate_coeffs", counted)
-    before = carbonate_coeffs_sat.launches
+    before = counters()["k1.coeffs"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got, gd = step(state, grid, forcing, params, 3600.0, health=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert carbonate_coeffs_sat.launches == before + 1 and not eager
+    assert counters()["k1.coeffs"] == before + 1 and not eager
     assert torch.equal(got.bgc.tracers, want.bgc.tracers)
     assert set(gd) == set(wd)
     for k, v in gd.items():
@@ -258,7 +260,7 @@ def test_health_call_evaluates_the_constants_once_without_a_sync(
 
 def _k2_counts():
     """K2's launch counts: (solve kernel, biology kernel)."""
-    return cs._launch_solve.launches, cs._launch_bio.launches
+    return counters()["k2.solve"], counters()["k2.bio"]
 
 
 def _fused_world(cuda, dtype, rest):
@@ -335,15 +337,15 @@ def test_fused_step_launches_k2_once_per_step_and_never_k1(cuda):
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
                                            device=cuda)
     env = precompute_env(grid, forcing, params.bgc)
-    k1, k2 = co3_terms_dual_coeffs.launches, _k2_counts()
-    kb = solve_htotal_brackets.launches
+    k1, k2 = counters()["k1.dual"], _k2_counts()
+    kb = counters()["k1.brackets"]
     for _ in range(3):
         state, _ = step(state, grid, forcing, params, 3600.0,
                         compute_diags=False, env=env, interior_impl="fused")
     torch.cuda.synchronize()
     assert _k2_counts() == (k2[0] + 3, k2[1] + 3)
-    assert solve_htotal_brackets.launches == kb + 3
-    assert co3_terms_dual_coeffs.launches == k1
+    assert counters()["k1.brackets"] == kb + 3
+    assert counters()["k1.dual"] == k1
     assert torch.isfinite(state.bgc.tracers).all()
 
 
@@ -351,16 +353,16 @@ def test_default_step_launches_k1_and_the_surface_instance(cuda):
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
                                            device=cuda)
-    kb = solve_htotal_brackets.launches
+    kb = counters()["k1.brackets"]
     env = precompute_env(grid, forcing, params.bgc)
-    assert solve_htotal_brackets.launches == kb + 1      # the stand-in
-    k1, k2 = co3_terms_dual_coeffs.launches, _k2_counts()
+    assert counters()["k1.brackets"] == kb + 1      # the stand-in
+    k1, k2 = counters()["k1.dual"], _k2_counts()
     for _ in range(3):
         state, _ = step(state, grid, forcing, params, 3600.0,
                         compute_diags=False, env=env)
     torch.cuda.synchronize()
-    assert co3_terms_dual_coeffs.launches == k1 + 3
-    assert solve_htotal_brackets.launches == kb + 4
+    assert counters()["k1.dual"] == k1 + 3
+    assert counters()["k1.brackets"] == kb + 4
     assert _k2_counts() == k2
 
 
@@ -406,10 +408,10 @@ def test_bracket_instance_matches_plain_solve(cuda, dtype):
     one launch counted.  Then the surface layout: two scenarios of lanes
     reading one shared set of tracers and constants in place."""
     coeffs, m, x1, x2 = _bracket_lanes(cuda, dtype)
-    before = solve_htotal_brackets.launches
+    before = counters()["k1.brackets"]
     got = solve_htotal_brackets(coeffs, *m, x1, x2, impl="kernel")
     torch.cuda.synchronize()
-    assert solve_htotal_brackets.launches == before + 1
+    assert counters()["k1.brackets"] == before + 1
     want, stats = tcarb._solve_htotal_impl(coeffs, *m, x1, x2,
                                            with_stats=True)
     assert (stats["grows"] > 0).any()
@@ -430,7 +432,7 @@ def test_bracket_instance_matches_plain_solve(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_stats_variant_matches_plain_version(cuda, dtype, seeded):
     """The bracket-in instance's statistics variant (``solve_htotal_stats``
-    on CUDA tensors, one launch counted in ``.stats_launches``) on the
+    on CUDA tensors, one launch counted in ``k1.brackets_stats``) on the
     lanes above and in the surface layout: H bitwise the launch without
     statistics and the plain version, the steps and converged flags equal
     to ``_solve_htotal_impl``'s lane for lane, unseeded and seeded near
@@ -441,14 +443,14 @@ def test_stats_variant_matches_plain_version(cuda, dtype, seeded):
     if seeded:
         x0 = torch.where(torch.arange(x1.numel(), device=cuda).view(
             x1.shape) % 3 == 0, 0.0, (x1 * x2).sqrt() * 1.01)
-    before = (solve_htotal_brackets.launches,
-              solve_htotal_brackets.seeded_launches,
-              solve_htotal_brackets.stats_launches)
+    before = (counters()["k1.brackets"],
+              counters()["k1.brackets_seeded"],
+              counters()["k1.brackets_stats"])
     h, iters, conv = tcarb.solve_htotal_stats(coeffs, *m, x1, x2, x0=x0)
     torch.cuda.synchronize()
-    assert (solve_htotal_brackets.launches,
-            solve_htotal_brackets.seeded_launches,
-            solve_htotal_brackets.stats_launches) == (before[0], before[1],
+    assert (counters()["k1.brackets"],
+            counters()["k1.brackets_seeded"],
+            counters()["k1.brackets_stats"]) == (before[0], before[1],
                                                       before[2] + 1)
     assert iters.dtype == torch.int32 and conv.dtype == torch.bool
     want, st = tcarb._solve_htotal_impl(coeffs, *m, x1, x2, with_stats=True,
@@ -497,10 +499,10 @@ def test_single_point_api_is_one_launch_bitwise(cuda, dtype):
     lo, hi = torch.full_like(depth, 6.0), torch.full_like(depth, 9.0)
 
     def run(fn, *args, **kw):
-        before = solve_htotal_brackets.launches
+        before = counters()["k1.brackets"]
         got = fn(*args, impl="kernel", **kw)
         torch.cuda.synchronize()
-        assert solve_htotal_brackets.launches == before + 1, fn.__name__
+        assert counters()["k1.brackets"] == before + 1, fn.__name__
         want = fn(*args, impl="torch", **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w), fn.__name__
@@ -533,14 +535,14 @@ def test_surface_fluxes_make_no_host_sync(cuda):
     want = bgc_surface_fluxes(*args, carbonate_impl="torch")
     bgc_surface_fluxes(*args)           # loads the library
     torch.cuda.synchronize()
-    kb = solve_htotal_brackets.launches
+    kb = counters()["k1.brackets"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = bgc_surface_fluxes(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert solve_htotal_brackets.launches == kb + 1
+    assert counters()["k1.brackets"] == kb + 1
     for x, y in zip(got[:3], want[:3]):
         assert torch.equal(x, y)
 
@@ -607,10 +609,10 @@ def test_interior_kernel_at_the_flagship_size(cuda, dtype):
 
 def test_probe_kernel_matches_plain_version(cuda):
     tr, temp, kmax = probe.probe_inputs(cuda)
-    before = probe.probe_patterns.launches
+    before = counters()["probe"]
     got = probe.probe_patterns(tr, temp, kmax)
     torch.cuda.synchronize()
-    assert probe.probe_patterns.launches == before + 1
+    assert counters()["probe"] == before + 1
     assert probe.max_rel_err(got, probe.probe_patterns_torch(
         tr, temp, kmax)) <= probe.RTOL
     assert probe.launch_shape(probe.NLEV, probe.C)[1] > 1
@@ -624,10 +626,10 @@ def test_probe_kernel_at_every_shape(cuda, nlev):
     32 columns as in the default tile."""
     for seed, ncol in enumerate((1, 31, 33, 257, 8192)):
         args = probe.shaped_inputs(nlev, ncol, seed=seed, device=cuda)
-        before = probe.probe_patterns.launches
+        before = counters()["probe"]
         got = probe.probe_patterns(*args)
         torch.cuda.synchronize()
-        assert probe.probe_patterns.launches == before + 1
+        assert counters()["probe"] == before + 1
         assert probe.max_rel_err(
             got, probe.probe_patterns_torch(*args)) <= probe.RTOL, ncol
         for tile in (1, 2, 32):
@@ -639,9 +641,9 @@ def test_probe_cpu_tensors_take_the_plain_route(cuda):
     """With a card present, CPU tensors still take the plain version and
     launch nothing; the kernel refuses fewer than 4 tracer slots."""
     args = probe.probe_inputs("cpu")
-    before = probe.probe_patterns.launches
+    before = counters()["probe"]
     got = probe.probe_patterns(*args)
-    assert probe.probe_patterns.launches == before
+    assert counters()["probe"] == before
     assert all(torch.equal(g, w) for g, w in
                zip(got, probe.probe_patterns_torch(*args)))
     with pytest.raises(ValueError, match="slot 3"):
@@ -676,10 +678,10 @@ def test_seeded_variants_match_plain_versions(cuda, dtype):
         ph_prev_alt_3d=_off_window(warm.bgc.ph_prev_alt_3d),
         surface_ph=_off_window(warm.bgc.surface_ph),
         surface_ph_alt=_off_window(warm.bgc.surface_ph_alt)))
-    counts = (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
-              solve_htotal_brackets.launches)
-    seeded = (co3_terms_dual_coeffs.seeded_launches,
-              solve_htotal_brackets.seeded_launches)
+    counts = (counters()["k1.dual"], counters()["k1.coeffs"],
+              counters()["k1.brackets"])
+    seeded = (counters()["k1.dual_seeded"],
+              counters()["k1.brackets_seeded"])
     for st in (state, warm, off):
         b = st.bgc
         args = carbonate_inputs(b.tracers, grid, forcing, b.ph_prev_3d,
@@ -708,11 +710,11 @@ def test_seeded_variants_match_plain_versions(cuda, dtype):
         assert torch.equal(got, want)
     # per case: the dual instance seeded twice (on the cached and on the
     # kernel's constants), the constants kernel (which has no seed) once
-    assert (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
-            solve_htotal_brackets.launches) == (counts[0], counts[1] + 3,
+    assert (counters()["k1.dual"], counters()["k1.coeffs"],
+            counters()["k1.brackets"]) == (counts[0], counts[1] + 3,
                                                 counts[2])
-    assert (co3_terms_dual_coeffs.seeded_launches,
-            solve_htotal_brackets.seeded_launches) == (seeded[0] + 6,
+    assert (counters()["k1.dual_seeded"],
+            counters()["k1.brackets_seeded"]) == (seeded[0] + 6,
                                                        seeded[1] + 3)
 
 
@@ -868,12 +870,12 @@ def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
                                            device=cuda)
 
     def counts():
-        return (co3_terms_dual_coeffs.launches,
-                co3_terms_dual_coeffs.seeded_launches,
-                carbonate_coeffs_sat.launches,
-                solve_htotal_brackets.launches,
-                solve_htotal_brackets.seeded_launches,
-                cs._launch_solve.launches)
+        return (counters()["k1.dual"],
+                counters()["k1.dual_seeded"],
+                counters()["k1.coeffs"],
+                counters()["k1.brackets"],
+                counters()["k1.brackets_seeded"],
+                counters()["k2.solve"])
 
     c0 = counts()
     env = precompute_env(grid, forcing, params.bgc)
@@ -890,10 +892,10 @@ def test_seeded_step_launches_the_seeded_variants(cuda, monkeypatch):
 def _k1_counts():
     """K1's launch counts: the dual instance, the constants kernel, the
     bracket-in instance, then the seeded dual and bracket-in instances."""
-    return (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
-            solve_htotal_brackets.launches,
-            co3_terms_dual_coeffs.seeded_launches,
-            solve_htotal_brackets.seeded_launches)
+    return (counters()["k1.dual"], counters()["k1.coeffs"],
+            counters()["k1.brackets"],
+            counters()["k1.dual_seeded"],
+            counters()["k1.brackets_seeded"])
 
 
 def test_host_api_on_the_card(cuda):
@@ -955,8 +957,9 @@ def test_host_api_on_the_card(cuda):
 
 def test_env_guard_on_the_card(cuda, monkeypatch):
     """With the guard off a production step on the env cache makes no
-    host synchronisation; with ``OBGC_CHECK_ENV=1`` a fresh cache passes
-    and a stale one raises."""
+    host synchronisation, and ``host_syncs`` counts none; with
+    ``OBGC_CHECK_ENV=1`` it counts one a step, a fresh cache passes and a
+    stale one raises."""
     params = ModelParams()
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
                                            ragged=True, device=cuda)
@@ -964,15 +967,18 @@ def test_env_guard_on_the_card(cuda, monkeypatch):
     monkeypatch.delenv("OBGC_CHECK_ENV", raising=False)
     step(state, grid, forcing, params, 3600.0, compute_diags=False, env=env)
     torch.cuda.synchronize()
+    syncs = counters()["host_syncs"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         step(state, grid, forcing, params, 3600.0, compute_diags=False,
              env=env)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert counters()["host_syncs"] == syncs
     monkeypatch.setenv("OBGC_CHECK_ENV", "1")
     s, _ = step(state, grid, forcing, params, 3600.0, compute_diags=False,
                 env=env)
+    assert counters()["host_syncs"] == syncs + 1
     assert torch.isfinite(s.bgc.tracers).all()
     stale = dataclasses.replace(
         forcing, salinity=forcing.salinity + 0.1)
@@ -991,9 +997,9 @@ def test_solver_health_on_the_constants_kernel(cuda):
     state, grid, forcing = synthetic_world(nlev=10, ncol=300, seed=8,
                                            ragged=True, device=cuda)
     s, _ = step(state, grid, forcing, params, 3600.0, compute_diags=False)
-    n = carbonate_coeffs_sat.launches
+    n = counters()["k1.coeffs"]
     got = solver_health(s, grid, forcing)
-    assert carbonate_coeffs_sat.launches == n + 1
+    assert counters()["k1.coeffs"] == n + 1
     cpu = [dataclasses.replace(x, **{
         f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)
         if isinstance(getattr(x, f.name), torch.Tensor)})
@@ -1124,3 +1130,36 @@ def test_adjoint_sweep_on_the_card(cuda):
     assert [y - x for x, y in zip(c0, c1)] == [6, 0, 7, 0, 0]
     for p in paths:
         assert abs(got[p] - want[p]) <= 1e-12 * abs(want[p]), p
+
+
+def test_spans_share_the_profilers_clock_with_the_card(cuda):
+    """A span around a launch of K1's dual instance and a synchronisation,
+    under the benchmark's card-only recorder (CUDA activity alone): the
+    span is recorded, and its interval on the wall clock holds the
+    kernel's interval in the trace, so a span and the card's idle gaps
+    can be laid side by side."""
+    from portbench.trace import Recorder, base_name
+
+    params = ModelParams()
+    state, grid, forcing = synthetic_world(nlev=60, ncol=8192, seed=4,
+                                           ragged=True, device=cuda)
+    env = precompute_env(grid, forcing, params.bgc)
+    args = carbonate_inputs(state.bgc.tracers, grid, forcing,
+                            state.bgc.ph_prev_3d, state.bgc.ph_prev_alt_3d,
+                            env)
+    co3_terms_dual_coeffs(*args, impl="kernel")      # loads the library
+    torch.cuda.synchronize()
+    profiling.reset_spans()
+    recorder = Recorder(host=False)
+    recorder.start()
+    with profiling.span("clock.k1"):
+        co3_terms_dual_coeffs(*args, impl="kernel")
+        torch.cuda.synchronize()
+    recorder.stop()
+    trace = recorder.read()
+    (sp,) = [r for r in profiling.spans() if r.name == "clock.k1"]
+    k1 = [k for k in trace.kernels
+          if base_name(k.name) in ("lanes_kernel", "parked_lanes_kernel")]
+    assert len(k1) == 1, [k.name for k in trace.kernels]
+    assert sp.start_ns <= k1[0].start_ns < k1[0].end_ns <= sp.end_ns, (
+        sp, k1[0])

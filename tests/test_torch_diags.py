@@ -30,13 +30,9 @@ from ocean_bgc_tpu_torch.ops import bgc
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
 from ocean_bgc_tpu_torch.ops import cuda_carbonate
-from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
-    carbonate_coeffs_sat,
-    co3_terms_dual_coeffs,
-    solve_htotal_brackets,
-)
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, world_from_numpy
 from ocean_bgc_tpu_torch.utils.diag import coupled_registry
+from ocean_bgc_tpu_torch.utils.profiling import counters
 
 NLEV, NCOL, NSTEPS, DT = 8, 32, 2, 3600.0
 
@@ -97,8 +93,8 @@ def _runs(dtype):
     out = dict(dtype=dtype, grid=tg, forcing=tf, params=tp, state0=ts,
                jax=[], port=[], plain=[], off=[])
     plain = off = ts
-    before = (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
-              solve_htotal_brackets.launches)
+    before = (counters()["k1.dual"], counters()["k1.coeffs"],
+              counters()["k1.brackets"])
     for _ in range(NSTEPS):
         js, jd = jfn(js)
         ts, td = step(ts, tg, tf, tp, DT, health=True)
@@ -111,8 +107,8 @@ def _runs(dtype):
         out["plain"].append((pd, plain))
         out["off"].append(off)
     # CPU tensors: every solve took its plain version
-    assert (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches,
-            solve_htotal_brackets.launches) == before
+    assert (counters()["k1.dual"], counters()["k1.coeffs"],
+            counters()["k1.brackets"]) == before
     return out
 
 

@@ -28,8 +28,6 @@ from ocean_bgc_tpu_torch.ops.bgc import _zsat_search
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
 from ocean_bgc_tpu_torch.ops.dms import DMS_DIAG_NAMES, dms_source_sink
 from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
-    carbonate_coeffs_sat,
-    co3_terms_dual_coeffs,
     co3_terms_dual_sat,
     co3_terms_dual_sat_torch,
 )
@@ -37,6 +35,7 @@ from ocean_bgc_tpu_torch.params import DMSParams
 from ocean_bgc_tpu_torch.state import BGCTracers as T
 from ocean_bgc_tpu_torch.state import DMSTracers
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, world_from_numpy
+from ocean_bgc_tpu_torch.utils.profiling import counters
 from tests.test_torch_diags import DT, NCOL, NLEV, _h_close, _np
 
 
@@ -137,7 +136,7 @@ def test_dual_sat_wrapper_on_cpu_tensors():
     and "kernel" raises."""
     w = _cells(43, nlev=3, ncol=10)
     args = [torch.tensor(w[k]) for k in _KEYS]
-    before = (carbonate_coeffs_sat.launches, co3_terms_dual_coeffs.launches)
+    before = (counters()["k1.coeffs"], counters()["k1.dual"])
     a = co3_terms_dual_sat(*args)
     b = co3_terms_dual_sat(*args, impl="torch")
     for x, y in zip(a[0] + a[1] + a[2], b[0] + b[1] + b[2]):
@@ -146,8 +145,8 @@ def test_dual_sat_wrapper_on_cpu_tensors():
     assert c[2] is None
     for x, y in zip(a[0] + a[1], c[0] + c[1]):
         assert torch.equal(x, y)
-    assert (carbonate_coeffs_sat.launches,
-            co3_terms_dual_coeffs.launches) == before
+    assert (counters()["k1.coeffs"],
+            counters()["k1.dual"]) == before
     with pytest.raises(ValueError, match="CUDA"):
         co3_terms_dual_sat(*args, impl="kernel")
 

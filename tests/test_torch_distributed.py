@@ -58,6 +58,7 @@ from ocean_bgc_tpu_torch.utils.history import (  # noqa: E402
     write_history_shards,
 )
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world  # noqa: E402
+from ocean_bgc_tpu_torch.utils.profiling import counters  # noqa: E402
 
 NLEV, NCOL, RANKS, DT = 6, 16, 2, 3600.0
 LOCAL = ("pco2surf", "NITRIF", "POC_FLUX_IN", "health_poc_error_cells")
@@ -101,9 +102,9 @@ def rank_main(out):
     calls = {}
 
     def counted(label, fn, *args):
-        before = all_reduce_sum.calls
+        before = counters()["collectives.all_reduce"]
         result = fn(*args)
-        calls[label] = all_reduce_sum.calls - before
+        calls[label] = counters()["collectives.all_reduce"] - before
         return result
 
     for name, dtype in DTYPES.items():

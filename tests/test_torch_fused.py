@@ -26,7 +26,6 @@ from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 
 from ocean_bgc_tpu_torch import constants
 from ocean_bgc_tpu_torch.models.coupled import step
-from ocean_bgc_tpu_torch.ops import cuda_step
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
 from ocean_bgc_tpu_torch.ops.carbonate import XACC_F32
 from ocean_bgc_tpu_torch.ops.cuda_step import (
@@ -37,6 +36,7 @@ from ocean_bgc_tpu_torch.ops.cuda_step import (
 from ocean_bgc_tpu_torch.params import BGCParams, ModelParams
 from ocean_bgc_tpu_torch.state import BGCTracers as T
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, world_from_numpy
+from ocean_bgc_tpu_torch.utils.profiling import counters
 
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "ocean_bgc_tpu_torch" / "csrc"
@@ -144,15 +144,15 @@ def test_fused_step_equals_default_step_on_cpu(dtype):
     s, g, f = world_from_numpy(*_np_world(), device="cpu", dtype=dtype)
     params = ModelParams()
     env = precompute_env(g, f, params.bgc)
-    before = (cuda_step._launch_solve.launches,
-              cuda_step._launch_bio.launches)
+    before = (counters()["k2.solve"],
+              counters()["k2.bio"])
     a = b = s
     for _ in range(3):
         a, _ = step(a, g, f, params, DT, compute_diags=False, env=env,
                     interior_impl="fused")
         b, _ = step(b, g, f, params, DT, compute_diags=False, env=env)
-    assert (cuda_step._launch_solve.launches,
-            cuda_step._launch_bio.launches) == before
+    assert (counters()["k2.solve"],
+            counters()["k2.bio"]) == before
     for x, y in ((a.bgc.tracers, b.bgc.tracers), (a.dms, b.dms),
                  (a.macros, b.macros), (a.bgc.ph_prev_3d, b.bgc.ph_prev_3d),
                  (a.bgc.ph_prev_alt_3d, b.bgc.ph_prev_alt_3d)):

@@ -27,13 +27,13 @@ from ocean_bgc_tpu import host_api as japi
 from ocean_bgc_tpu_torch import host_api as api
 from ocean_bgc_tpu_torch import state as tstate
 from ocean_bgc_tpu_torch.constants import XACC
-from ocean_bgc_tpu_torch.ops import cuda_carbonate as cc
 from ocean_bgc_tpu_torch.state import (
     BGC_TRACER_NAMES,
     DMS_TRACER_NAMES,
     MACROS_TRACER_NAMES,
     BGCTracers as BT,
 )
+from ocean_bgc_tpu_torch.utils.profiling import counters
 
 NCOL, NLEV = 6, 8
 ENTRY_POINTS = ("BGC_SourceSink", "BGC_SurfaceFluxes", "DMS_SourceSink",
@@ -119,9 +119,9 @@ def entry_calls(names):
     cold and warm (the warm call fed its own package's returned pH)."""
     kws = _host_calls()
     out = {"kw": kws, "jax": {}, "port": {}}
-    before = (cc.co3_terms_dual_coeffs.launches,
-              cc.carbonate_coeffs_sat.launches,
-              cc.solve_htotal_brackets.launches)
+    before = (counters()["k1.dual"],
+              counters()["k1.coeffs"],
+              counters()["k1.brackets"])
     for name in names:
         kw = kws[name]
         j = getattr(japi, name)(**kw)
@@ -133,9 +133,9 @@ def entry_calls(names):
             out["port"][name + " warm"] = getattr(api, name)(
                 **_warm(name, kw, p), device="cpu")
     # CPU tensors: every solve took its plain version
-    assert (cc.co3_terms_dual_coeffs.launches,
-            cc.carbonate_coeffs_sat.launches,
-            cc.solve_htotal_brackets.launches) == before
+    assert (counters()["k1.dual"],
+            counters()["k1.coeffs"],
+            counters()["k1.brackets"]) == before
     return out
 
 

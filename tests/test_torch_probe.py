@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from ocean_bgc_tpu_torch import probe
+from ocean_bgc_tpu_torch.utils.profiling import counters
 from tests.test_torch_lane_schedule import _c_params
 
 SOURCE = (Path(probe.__file__).resolve().parent / "csrc"
@@ -107,13 +108,13 @@ def test_cpu_tensors_take_the_plain_route():
     """On CPU tensors the wrapper returns the plain version's outputs and
     launches nothing, at the probe's shape and at a ragged one; the
     probe's own inputs are those of scripts/probe_mosaic.py."""
-    before = probe.probe_patterns.launches
+    before = counters()["probe"]
     for args in (probe.probe_inputs("cpu"),
                  probe.shaped_inputs(60, 33, ntr=4, device="cpu")):
         got = probe.probe_patterns(*args)
         want = probe.probe_patterns_torch(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert probe.probe_patterns.launches == before
+    assert counters()["probe"] == before
     tr, temp, kmax = probe.probe_inputs("cpu")
     assert tuple(tr.shape) == (probe.NLEV, probe.NTR, probe.C)
     assert int(kmax.min()) >= 1 and int(kmax.max()) <= probe.NLEV

@@ -32,7 +32,6 @@ from ocean_bgc_tpu_torch.parallel.distributed import (
 from ocean_bgc_tpu_torch.parallel.sharding import (
     GLOBAL_SUM_DIAGS,
     HEALTH_DIAGS,
-    all_reduce_sum,
     shard_columns,
 )
 from ocean_bgc_tpu_torch.utils import checkpoint as ckpt
@@ -41,6 +40,7 @@ from ocean_bgc_tpu_torch.utils.history import (
     write_history_shards,
 )
 from ocean_bgc_tpu_torch.utils.synthetic import synthetic_world
+from ocean_bgc_tpu_torch.utils.profiling import counters
 
 DT = 3600.0
 CPU = torch.device("cpu")
@@ -93,12 +93,12 @@ def test_one_rank_sharded_step_and_forced_run_are_the_port_s(mesh):
     params = ModelParams()
     state, grid, forcing = shard_world(*_world(), mesh)
 
-    before = all_reduce_sum.calls
+    before = counters()["collectives.all_reduce"]
     fn = make_sharded_step(mesh, params, DT, compute_diags=True, health=True,
                            local_diags=("photoC_TOT_zint",
                                         "health_poc_error_cells"))
     got, gsum, local = fn(state, grid, forcing)
-    assert all_reduce_sum.calls - before == 1
+    assert counters()["collectives.all_reduce"] - before == 1
     want, d = step(state, grid, forcing, params, DT, health=True)
     assert _same(got, want)
     assert set(gsum) == set(GLOBAL_SUM_DIAGS) | set(HEALTH_DIAGS)
@@ -111,10 +111,10 @@ def test_one_rank_sharded_step_and_forced_run_are_the_port_s(mesh):
 
     for kw, nsteps in (({}, 1), ({"interior_impl": "fused"}, 2),
                        ({"health": True}, 2)):
-        before = all_reduce_sum.calls
+        before = counters()["collectives.all_reduce"]
         got, gsum = make_sharded_step(mesh, params, DT, nsteps=nsteps,
                                       **kw)(state, grid, forcing)
-        assert all_reduce_sum.calls - before == (1 if kw.get("health")
+        assert counters()["collectives.all_reduce"] - before == (1 if kw.get("health")
                                                  else 0), kw
         want = state
         for i in range(nsteps):
@@ -128,10 +128,10 @@ def test_one_rank_sharded_step_and_forced_run_are_the_port_s(mesh):
                              else set())
 
     series = shard_columns(_series(_world()[2]), mesh, grid.ncol)
-    before = all_reduce_sum.calls
+    before = counters()["collectives.all_reduce"]
     got = make_sharded_forced_run(mesh, params, DT, 3, 2 * DT,
                                   interp="hold")(state, grid, series)
-    assert all_reduce_sum.calls == before
+    assert counters()["collectives.all_reduce"] == before
     want, _ = run_forced(state, grid, series, params, DT, 3, 2 * DT,
                          interp="hold")
     assert _same(got, want)

@@ -22,13 +22,9 @@ from ocean_bgc_tpu.utils.synthetic import synthetic_world as jax_world
 from ocean_bgc_tpu_torch.constants import XACC
 from ocean_bgc_tpu_torch.models.coupled import CoupledState, step
 from ocean_bgc_tpu_torch.ops.bgc import precompute_env
-from ocean_bgc_tpu_torch.ops.cuda_carbonate import (
-    carbonate_coeffs_sat,
-    co3_terms_dual_coeffs,
-    solve_htotal_brackets,
-)
 from ocean_bgc_tpu_torch.state import BGCState, BGCTracers as T
 from ocean_bgc_tpu_torch.utils.bridge import params_from_dict, world_from_numpy
+from ocean_bgc_tpu_torch.utils.profiling import counters
 from tests.oracle.coupled_ref import coupled_step_ref
 
 NLEV, NCOL, NSTEPS, DT = 8, 32, 3, 3600.0
@@ -191,11 +187,11 @@ def test_cpu_step_never_counts_a_launch():
     state, grid, forcing = world_from_numpy(*_np_world(nlev=3, ncol=8),
                                             device="cpu")
     params = params_from_dict(dataclasses.asdict(JaxModelParams()))
-    before = (co3_terms_dual_coeffs.launches, carbonate_coeffs_sat.launches)
+    before = (counters()["k1.dual"], counters()["k1.coeffs"])
     out, _ = step(state, grid, forcing, params, DT, compute_diags=False)
     assert isinstance(out.bgc, BGCState)
-    assert (co3_terms_dual_coeffs.launches,
-            carbonate_coeffs_sat.launches) == before
+    assert (counters()["k1.dual"],
+            counters()["k1.coeffs"]) == before
     with pytest.raises(ValueError, match="CUDA"):
         step(state, grid, forcing, params, DT, compute_diags=False,
              carbonate_impl="kernel")
@@ -209,8 +205,8 @@ def test_cpu_step_with_the_plain_solves_equals_the_default_step():
                                             device="cpu")
     params = params_from_dict(dataclasses.asdict(JaxModelParams()))
     env = precompute_env(grid, forcing, params.bgc)
-    before = (co3_terms_dual_coeffs.launches,
-              solve_htotal_brackets.launches)
+    before = (counters()["k1.dual"],
+              counters()["k1.brackets"])
     a = b = state
     for _ in range(2):
         a, _ = step(a, grid, forcing, params, DT, compute_diags=False,
@@ -222,5 +218,5 @@ def test_cpu_step_with_the_plain_solves_equals_the_default_step():
                  (a.bgc.surface_ph_alt, b.bgc.surface_ph_alt),
                  (a.bgc.ph_prev_3d, b.bgc.ph_prev_3d)):
         assert torch.equal(x, y)
-    assert (co3_terms_dual_coeffs.launches,
-            solve_htotal_brackets.launches) == before
+    assert (counters()["k1.dual"],
+            counters()["k1.brackets"]) == before
