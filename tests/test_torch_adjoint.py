@@ -8,11 +8,11 @@ recomputes those live with ``ocean_bgc_tpu.models.adjoint`` (a jitted
 reverse sweep of five steps, about two and a half minutes on a CPU core).
 The gradients' robustness (forced runs, zero biomass, ragged worlds, every
 parameter, f32) is in ``tests/test_torch_adjoint_paths.py``, the solve's
-backward against JAX's custom VJP in ``tests/test_torch_adjoint_solve.py``;
-each file holds fewer tests than ``tests/test_adjoint.py``, so that
-pytest-xdist's ``--dist loadfile`` queue (ordered by test count) starts
-that long file no later than before.  Inputs are made with numpy from a
-seed."""
+backward against JAX's custom VJP in ``tests/test_torch_adjoint_solve.py``.
+The JAX package's own adjoint test, ``tests/test_adjoint.py``, is marked
+``slow`` by the root ``conftest.py`` and so left out of tier-1; its twin
+experiment is repeated here on the port.  Inputs are made with numpy from
+a seed."""
 
 import dataclasses
 import os
@@ -238,6 +238,34 @@ def test_calibrate_takes_steps_and_checks_its_arguments():
     with pytest.raises(ValueError, match="positive"):
         calibrate(first_guess, [path], state, grid, forcing, DT, 2,
                   observations, obs_fn, iters=1, init={path: 0.0})
+
+
+def test_calibration_recovers_perturbed_growth_rate():
+    """Twin experiment, as the JAX package's: observations from the true
+    params, the optimizer started from a 1.4x-perturbed small-phyto PCref,
+    the truth recovered from surface-tracer trajectories.  Adam's log-space
+    iterate circles the truth with a shrinking swing; at lr 0.05 it stays
+    within 2% from iteration 43 on, so 45 iterations over 3 steps (~20 s)."""
+    state, grid, forcing = world()
+    truth = ModelParams()
+    path = "bgc.autotrophs[0].PCref"
+    true_val = get_param(truth, path)
+
+    def obs_fn(s):
+        return s.bgc.tracers[0][(BT.SPC, BT.SPCHL, BT.DIC), :]
+
+    with torch.no_grad():
+        _, observations = run_diff(state, grid, forcing, truth, DT, 3,
+                                   obs_fn=obs_fn)
+    first_guess = override_params(truth, {path: 1.4 * true_val})
+    result = calibrate(first_guess, [path], state, grid, forcing, DT, 3,
+                       observations, obs_fn, iters=45, learning_rate=0.05)
+
+    assert result.losses[-1] < 1e-2 * result.losses[0], result.losses
+    fitted = result.values[path]
+    np.testing.assert_allclose(fitted, true_val, rtol=0.03)
+    # the returned params carry the fit
+    assert get_param(result.params, path) == fitted
 
 
 def test_fused_interior_and_kernels_refuse_grad():
